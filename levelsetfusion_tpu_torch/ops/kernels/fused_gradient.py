@@ -1,0 +1,185 @@
+"""The stencil half of a solver iteration: energy-term gradients, optional
+Sobolev filter, warp update, energies and update statistics, in one call.
+
+Port of the TPU kernel ``levelsetfusion_tpu/ops/pallas/fused_gradient.py::
+fused_gradient_update`` (whole volume; the sharded window arguments come
+with the distributed solvers); the CUDA kernels are
+``csrc/fused_gradient.cu``. ``fused_gradient_update`` launches them for
+CUDA tensors and uses the plain version ``fused_gradient_update_reference``
+only for CPU tensors.
+
+Returns ``(new_warp_cm, stats)``: the updated component-major warp
+``(3, X, Y, Z)`` and a float32 tensor of 8 values in ``STATS_FIELDS`` order
+(the order of the TPU module's ``FusedStats``). Energies are weighted, as the
+solver's telemetry records them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from levelsetfusion_tpu_torch.ops import derivatives, sobolev, terms
+from levelsetfusion_tpu_torch.ops.kernels import _lib
+
+STATS_FIELDS = (
+    "data_energy", "smoothing_energy", "level_set_energy",
+    "sum_update", "max_update",
+    "max_abs_u_x", "max_abs_u_y", "max_abs_u_z",
+)
+
+MAX_TAPS = 15  # kMaxTaps of csrc/fused_gradient.cu
+
+# Kernel launches (calls that ran the CUDA kernels) since import or the last
+# reset; callers set it to 0 to count the launches of one run.
+launch_count = 0
+
+
+def to_component_major(warp: torch.Tensor) -> torch.Tensor:
+    """``(*spatial, D)`` -> contiguous ``(D, *spatial)``."""
+    return warp.movedim(-1, 0).contiguous()
+
+
+def from_component_major(warp_cm: torch.Tensor) -> torch.Tensor:
+    """``(D, *spatial)`` -> ``(*spatial, D)`` (a view)."""
+    return warp_cm.movedim(0, -1)
+
+
+def sobolev_taps(size: int, strength: float) -> tuple:
+    """Sobolev kernel taps as a tuple of floats (the f32 kernel's values)."""
+    return tuple(
+        float(v) for v in sobolev.generate_1d_sobolev_kernel(size, strength)
+    )
+
+
+def fused_gradient_update_reference(
+    warped, canonical, warp_cm, rate, *, w_data=1.0, w_smooth=0.2, w_ls=0.0,
+    killing=False, gamma=0.1, band_union=True, taps=(),
+):
+    """Plain torch version: the golden term assembly of ``ops/terms.py`` and
+    ``ops/sobolev.py`` on an already-warped field, then the update."""
+    warp = from_component_major(warp_cm)
+    wg = derivatives.gradient(warped)
+    g_data, e_data = terms.data_term(warped, canonical, wg, band_union_only=band_union)
+    total = w_data * g_data
+    e_data = w_data * e_data
+    e_smooth = torch.zeros((), dtype=warped.dtype, device=warped.device)
+    if w_smooth:
+        if killing:
+            g_s, e_smooth = terms.killing_term(warp, gamma)
+        else:
+            g_s, e_smooth = terms.tikhonov_term(warp)
+        total = total + w_smooth * g_s
+        e_smooth = w_smooth * e_smooth
+    e_ls = torch.zeros((), dtype=warped.dtype, device=warped.device)
+    if w_ls:
+        g_ls, e_ls = terms.level_set_term(
+            warped, wg, canonical, band_union_only=band_union
+        )
+        total = total + w_ls * g_ls
+        e_ls = w_ls * e_ls
+    if taps:
+        kernel = torch.tensor(taps, dtype=warped.dtype, device=warped.device)
+        total = sobolev.convolve_with_sobolev_kernel(total, kernel, num_spatial_dims=3)
+    upd = -rate * total
+    new_warp = warp + upd
+    ul = torch.sqrt(torch.sum(upd * upd, dim=-1))
+    stats = torch.stack([
+        e_data, e_smooth, e_ls, torch.sum(ul), torch.max(ul),
+        *torch.amax(torch.abs(new_warp), dim=(0, 1, 2)),
+    ])
+    return to_component_major(new_warp), stats
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    lib = _lib.load("fused_gradient")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.lsf_fused_partials_len.argtypes = [i, i, i]
+    lib.lsf_fused_partials_len.restype = ctypes.c_int64
+    lib.lsf_fused_gradient_update.argtypes = [
+        p, p, p, p, p, p,  # warped, canonical, warp_cm, rate, new_warp, stats
+        p, p, p, p, p,  # scratch: gw, div, g, tmp, partial
+        i, i, i,  # nx, ny, nz
+        f, f, f, i, f, i,  # w_data, w_smooth, w_ls, killing, gamma, band_union
+        ctypes.POINTER(ctypes.c_float), i,  # taps (host), ntaps
+        p,  # stream
+    ]
+    lib.lsf_fused_gradient_update.restype = i
+    lib.lsf_fused_error_string.argtypes = [i]
+    lib.lsf_fused_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def fused_gradient_update(
+    warped, canonical, warp_cm, rate, *, w_data=1.0, w_smooth=0.2, w_ls=0.0,
+    killing=False, gamma=0.1, band_union=True, taps=(),
+):
+    """One solver step after the resample, over the whole volume.
+
+    Args:
+      warped: warped live field ``(X, Y, Z)``.
+      canonical: canonical field, same shape.
+      warp_cm: component-major warp ``(3, X, Y, Z)``.
+      rate: learning rate, a 0-d tensor on the same device (read by the
+        kernel from device memory, so an adaptive rate never syncs).
+      taps: Sobolev kernel taps (odd count); empty = no filter.
+
+    All tensors float32, contiguous, one device. CUDA tensors run the
+    kernels, CPU tensors the plain version.
+    """
+    global launch_count
+    if warped.ndim != 3 or tuple(warp_cm.shape) != (3, *warped.shape):
+        raise ValueError(
+            f"want warped (X, Y, Z) and warp_cm (3, X, Y, Z), got "
+            f"{tuple(warped.shape)} and {tuple(warp_cm.shape)}"
+        )
+    if tuple(canonical.shape) != tuple(warped.shape):
+        raise ValueError(f"canonical {tuple(canonical.shape)} != warped {tuple(warped.shape)}")
+    if not isinstance(rate, torch.Tensor) or rate.ndim != 0:
+        raise TypeError("rate must be a 0-d tensor")
+    if taps and (len(taps) % 2 == 0 or len(taps) > MAX_TAPS):
+        raise ValueError(f"taps must be an odd count <= {MAX_TAPS}, got {len(taps)}")
+    device = warped.device
+    for name, t in (("warped", warped), ("canonical", canonical),
+                    ("warp_cm", warp_cm), ("rate", rate)):
+        _lib.require_f32_contiguous(name, t, device)
+    kw = dict(w_data=w_data, w_smooth=w_smooth, w_ls=w_ls, killing=killing,
+              gamma=gamma, band_union=band_union, taps=taps)
+    if device.type == "cpu":
+        return fused_gradient_update_reference(warped, canonical, warp_cm, rate, **kw)
+    if device.type != "cuda":
+        raise ValueError(f"no fused gradient kernel for device {device}")
+
+    lib = _library()
+    nx, ny, nz = warped.shape
+    vol = (3, nx, ny, nz)
+    new_warp = torch.empty(vol, dtype=torch.float32, device=device)
+    stats = torch.empty(8, dtype=torch.float32, device=device)
+    gw = torch.empty(vol, dtype=torch.float32, device=device)
+    g = torch.empty(vol, dtype=torch.float32, device=device)
+    need_div = bool(killing) and w_smooth != 0.0
+    div = torch.empty((nx, ny, nz), dtype=torch.float32, device=device) if need_div else None
+    tmp = torch.empty(vol, dtype=torch.float32, device=device) if taps else None
+    partial = torch.empty(
+        lib.lsf_fused_partials_len(nx, ny, nz), dtype=torch.float64, device=device
+    )
+    taps_arr = (ctypes.c_float * max(len(taps), 1))(*np.asarray(taps, np.float32))
+    with torch.cuda.device(device):
+        err = lib.lsf_fused_gradient_update(
+            warped.data_ptr(), canonical.data_ptr(), warp_cm.data_ptr(),
+            rate.data_ptr(), new_warp.data_ptr(), stats.data_ptr(),
+            gw.data_ptr(), div.data_ptr() if div is not None else None,
+            g.data_ptr(), tmp.data_ptr() if tmp is not None else None,
+            partial.data_ptr(),
+            nx, ny, nz,
+            w_data, w_smooth, w_ls, int(bool(killing)), gamma, int(bool(band_union)),
+            taps_arr, len(taps),
+            _lib.stream_handle(device),
+        )
+    _lib.check(err, lib.lsf_fused_error_string, "fused_gradient_update launch")
+    launch_count += 1
+    return new_warp, stats

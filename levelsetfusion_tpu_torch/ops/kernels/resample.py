@@ -1,0 +1,85 @@
+"""The solve loop's warp resample: ``out(v) = live(v + u(v))``, trilinear,
++1 outside the volume, with a component-major warp.
+
+Port of the TPU kernel ``levelsetfusion_tpu/ops/pallas/resample.py::
+warp_field_pallas_prepared``; the CUDA kernel is ``csrc/resample.cu``. It
+computes the golden ``ops/interpolation.py::warp_field`` exactly, for any
+displacement and any shape: no ±K clamp, no stacked y-copies, no shape gate.
+
+``warp_field_cm`` launches the kernel for CUDA tensors and uses the plain
+version ``warp_field_cm_reference`` only for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from levelsetfusion_tpu_torch.ops.interpolation import warp_field
+from levelsetfusion_tpu_torch.ops.kernels import _lib
+
+# Kernel launches (calls that ran the CUDA kernel) since import or the last
+# reset; callers set it to 0 to count the launches of one run.
+launch_count = 0
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    lib = _lib.load("resample")
+    lib.lsf_warp_field_cm.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ]
+    lib.lsf_warp_field_cm.restype = ctypes.c_int
+    lib.lsf_resample_error_string.argtypes = [ctypes.c_int]
+    lib.lsf_resample_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def warp_field_cm_reference(live: torch.Tensor, warp_cm: torch.Tensor) -> torch.Tensor:
+    """Plain torch version: the golden ``warp_field`` on a component-major
+    warp ``(D, *spatial)``."""
+    return warp_field(live, warp_cm.movedim(0, -1))
+
+
+def _as_3d(live: torch.Tensor, warp_cm: torch.Tensor):
+    """A 2D (X, Z) field as (X, 1, Z) with zero y displacement — the same
+    trilinear sum, since the y=1 corners carry zero weight."""
+    x, z = live.shape
+    zero = torch.zeros_like(warp_cm[0])
+    warp3 = torch.stack([warp_cm[0], zero, warp_cm[1]]).view(3, x, 1, z)
+    return live.view(x, 1, z), warp3
+
+
+def warp_field_cm(live: torch.Tensor, warp_cm: torch.Tensor) -> torch.Tensor:
+    """Resample ``live`` (``(*spatial,)``, 2D or 3D) at ``v + u(v)`` for a
+    component-major warp ``warp_cm`` (``(D, *spatial)``); float32,
+    contiguous, one device. CUDA tensors run the kernel, CPU tensors the
+    plain version."""
+    global launch_count
+    d = live.ndim
+    if d not in (2, 3) or tuple(warp_cm.shape) != (d, *live.shape):
+        raise ValueError(
+            f"warp_cm {tuple(warp_cm.shape)} does not match field "
+            f"{tuple(live.shape)} (want (D, *spatial), D = 2 or 3)"
+        )
+    _lib.require_f32_contiguous("live", live, live.device)
+    _lib.require_f32_contiguous("warp_cm", warp_cm, live.device)
+    if live.device.type == "cpu":
+        return warp_field_cm_reference(live, warp_cm)
+    if live.device.type != "cuda":
+        raise ValueError(f"no resample kernel for device {live.device}")
+
+    live3, warp3 = _as_3d(live, warp_cm) if d == 2 else (live, warp_cm)
+    out = torch.empty_like(live3)
+    lib = _library()
+    with torch.cuda.device(live.device):
+        err = lib.lsf_warp_field_cm(
+            live3.data_ptr(), warp3.data_ptr(), out.data_ptr(),
+            *live3.shape, _lib.stream_handle(live.device),
+        )
+    _lib.check(err, lib.lsf_resample_error_string, "warp_field_cm launch")
+    launch_count += 1
+    return out.view(live.shape)

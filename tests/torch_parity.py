@@ -1,0 +1,36 @@
+"""Shared helpers of the parity tests between the JAX package and its
+PyTorch port (tests/test_torch_*.py): the same seeded numpy inputs go to
+both, and outputs are compared as numpy arrays."""
+
+import numpy as np
+import torch
+
+# The tier-1 run uses several xdist workers; keep each one's torch pool small.
+torch.set_num_threads(2)
+
+
+def t(a) -> torch.Tensor:
+    """A numpy (or JAX) array as a CPU torch tensor."""
+    return torch.from_numpy(np.array(a))
+
+
+def n(a) -> np.ndarray:
+    """A torch tensor or JAX array as numpy."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
+def assert_close(got, want, rtol, atol=0.0):
+    np.testing.assert_allclose(n(got), n(want), rtol=rtol, atol=atol)
+
+
+def tsdf_like(shape, seed, warp_scale=0.8):
+    """(canonical, live, warp) as numpy float32: TSDF-like fields in (-1, 1)
+    and a ``(*shape, D)`` warp, as the JAX package's fused tests build them."""
+    rng = np.random.default_rng(seed)
+    base = rng.standard_normal(shape).astype(np.float32)
+    canonical = np.tanh(base * 0.4)
+    live = np.tanh(np.roll(base, 1, axis=0) * 0.4)
+    warp = (rng.standard_normal(shape + (len(shape),)) * warp_scale).astype(np.float32)
+    return canonical, live, warp
