@@ -2,13 +2,17 @@
 
     python3 chip_smoke.py            (from the root of the repository)
 
-Builds the CUDA kernels of the solve loop from ``levelsetfusion_tpu_torch/
-csrc``, holds each against its plain torch version on the card, checks a
-small kernel solve against the plain solve on the CPU, runs the config3
-preset (128³, full energy) through ``cli.run_experiment`` on the card with
-the kernels' launch counters reset just before, and times the solve and each
-kernel against its plain version. Every phase prints one line and raises on
-failure. The line before the last is a JSON object describing the kernels;
+Builds every CUDA kernel of the port from ``levelsetfusion_tpu_torch/csrc``
+(one nvcc per source, all at once), holds each against its plain torch
+version on the card, checks a small kernel solve against the plain solve on
+the CPU, runs the config3 preset (128³, full energy) through
+``cli.run_experiment`` on the card with the kernels' launch counters reset
+just before, and times the solve and each kernel against its plain version.
+Then it drives the port's experiment entry points (``levelsetfusion_tpu_torch.
+experiments``: mxu_conv, fused_io_probe, dma_probe, fused_ablation,
+fused_gradient_bench), each with its kernels' launch counters reset just
+before and read just after, and holds their kernels against their plain
+versions. Every phase prints at least one line and raises on failure. The line before the last is a JSON object describing the kernels;
 the last line is ``{"ok": true, "device": {...}}``. Without CUDA it fails
 before printing any result.
 """
@@ -17,15 +21,25 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from levelsetfusion_tpu_torch.cli import _grid, _pair_3d, run_experiment
+from levelsetfusion_tpu_torch.experiments import (
+    dma_probe,
+    fused_ablation,
+    fused_gradient_bench,
+    fused_io_probe,
+    mxu_conv,
+)
+from levelsetfusion_tpu_torch.experiments._timing import best_ms
 from levelsetfusion_tpu_torch.models.single_level import solve_single_level
 from levelsetfusion_tpu_torch.ops.kernels import _lib, fused_gradient, resample
 from levelsetfusion_tpu_torch.ops.kernels.fused_gradient import (
@@ -51,6 +65,7 @@ CASES = [
     (0.0, 0.0, False, False, True),
 ]
 BENCH_ITERS = 300  # bench.py's N_ITER
+LIBRARIES = ("resample", "fused_gradient", "conv_yz", "fused_io_probe", "dma_probe")
 
 
 def _fields(shape, seed, warp_scale):
@@ -99,14 +114,14 @@ def phase0_card():
 
 def phase1_build():
     t0 = time.perf_counter()
-    for name in ("resample", "fused_gradient"):
-        _lib.build(name)
+    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
+        list(pool.map(_lib.build, LIBRARIES))
     seconds = time.perf_counter() - t0
     regs = []
     for name in ("resample", "fused_gradient"):
         log = (_lib.BUILD_DIR / f"lib{name}.log").read_text()
         regs += [ln.strip() for ln in log.splitlines() if "registers" in ln]
-    print(f"[1] build: {seconds:.1f} s; ptxas: {' | '.join(regs)}")
+    print(f"[1] build of {len(LIBRARIES)} libraries: {seconds:.1f} s; ptxas: {' | '.join(regs)}")
 
 
 def phase2_resample():
@@ -256,6 +271,133 @@ def phase6_timing():
     return times
 
 
+def phase7_ptxas():
+    """Registers and spills of the experiment kernels (built in phase 1)."""
+    parts = []
+    for name in LIBRARIES[2:]:
+        log = (_lib.BUILD_DIR / f"lib{name}.log").read_text()
+        regs = [int(v) for v in re.findall(r"Used (\d+) registers", log)]
+        spills = [int(v) for v in re.findall(r"(\d+) bytes spill (?:stores|loads)", log)]
+        parts.append(f"{name}: {len(regs)} kernels, registers {regs}, "
+                     f"max spill {max(spills, default=0)} B")
+    print(f"[7] ptxas: {'; '.join(parts)}")
+
+
+def phase8_mxu_conv():
+    mxu_conv.launch_counts.update(dict.fromkeys(mxu_conv.launch_counts, 0))
+    runs = [mxu_conv.run(shape=shape, reps=1024, device="cuda")
+            for shape in ((16, 128, 128), FULL)]
+    launches = dict(mxu_conv.launch_counts)
+    if min(launches.values()) == 0:
+        raise AssertionError(f"mxu_conv.run left a kernel unlaunched: {launches}")
+    worst = {"stencil": 0.0, "banded_f32": 0.0, "banded_bf16": 0.0}
+    off_bf16 = 0.0
+    for shape in ((16, 128, 128), (5, 48, 80)):
+        a, taps, cy, cz = mxu_conv.inputs(shape, "cuda")
+        for reps in (1, 3):
+            plain = mxu_conv.conv_yz_stencil_reference(a, taps, reps)
+            for key, got in (("stencil", mxu_conv.conv_yz_stencil(a, taps, reps)),
+                             ("banded_f32", mxu_conv.conv_yz_banded_f32(a, cy, cz, reps))):
+                worst[key] = max(worst[key], _close(
+                    f"conv_yz {key} {shape} reps {reps}", got, plain, 0.0, 1e-5))
+            # The kernel and the plain version sum each intermediate in another
+            # order, so where it lies within a float32 rounding of a bf16
+            # rounding boundary the two round it to neighbouring bf16 values
+            # (a step of <= 2^-7 relative). Hence 1e-4 on all but 0.1% of the
+            # values, and 1e-2 (outputs are O(1)) on every value.
+            got = mxu_conv.conv_yz_banded_bf16(a, cy, cz, reps)
+            err = torch.abs(got - mxu_conv.conv_yz_banded_bf16_reference(a, cy, cz, reps))
+            off = float(torch.mean((err > 1e-4).float()))
+            if off > 1e-3 or float(torch.max(err)) > 1e-2:
+                raise AssertionError(f"conv_yz banded_bf16 {shape} reps {reps}: max|Δ| "
+                                     f"{float(torch.max(err)):.3e}, {off:.2e} over 1e-4")
+            worst["banded_bf16"] = max(worst["banded_bf16"], float(torch.max(err)))
+            off_bf16 = max(off_bf16, off)
+    a, taps, cy, cz = mxu_conv.inputs(FULL, "cuda")
+    plain_ms = {
+        "stencil": best_ms(lambda: mxu_conv.conv_yz_stencil_reference(a, taps, 1), a.device, 3),
+        "banded_f32": best_ms(lambda: mxu_conv.conv_yz_banded_reference(a, cy, cz, 1),
+                              a.device, 3),
+        "banded_bf16": best_ms(lambda: mxu_conv.conv_yz_banded_bf16_reference(a, cy, cz, 1),
+                               a.device, 3),
+    }
+    full = runs[1]
+    ms = {"stencil": full["stencil_us_per_convpass"] / 1e3,
+          "banded_f32": full["tc_f32_us_per_convpass"] / 1e3,
+          "banded_bf16": full["tc_bf16_us_per_convpass"] / 1e3}
+    print(f"[8] conv_yz vs plain at (16, 128, 128) and (5, 48, 80), reps 1 and 3: "
+          f"max|Δ| {worst} (stencil, tc_f32 1e-5 vs plain stencil; tc_bf16 vs its "
+          f"bf16 plain: 1e-4 on all but {off_bf16:.2e} of values, 1e-2 on all); "
+          f"per conv pass at {FULL}: kernel ms {ms}, plain ms {plain_ms}; "
+          f"launches {launches}")
+    return {key: (launches[key], worst[key], ms[key], plain_ms[key]) for key in worst}
+
+
+def phase9_fused_io():
+    fused_io_probe.launch_count = 0
+    rows = fused_io_probe.main(device="cuda")
+    launches = fused_io_probe.launch_count
+    if launches == 0:
+        raise AssertionError("fused_io_probe.main launched no kernel")
+    we, ce, ue = fused_io_probe.pad(*fused_io_probe.inputs(FULL, "cuda"))
+    worst = 0.0
+    for body, rtol, atol in (("copy", 0.0, 0.0), ("arith", 0.0, 1e-6), ("rolls", 1e-5, 0.0)):
+        want = fused_io_probe.fused_io_probe_reference(we, ce, ue, body)
+        for xb in fused_io_probe.XBS:
+            got = fused_io_probe.fused_io_probe(we, ce, ue, body, xb)
+            worst = max(worst, _close(f"fused_io_probe {body} xb {xb}", got, want, rtol, atol))
+    plain_ms = best_ms(lambda: fused_io_probe.fused_io_probe_reference(we, ce, ue, "rolls"),
+                       we.device, 3)
+    rolls = next(r for r in rows if r["body"] == "rolls" and r["xb"] == 16)
+    print(f"[9] fused_io_probe vs plain at {FULL}, 3 bodies x xb {fused_io_probe.XBS}: "
+          f"max|Δ| {worst:.3e} (copy exact, arith 1e-6, rolls rtol 1e-5); rolls xb 16 "
+          f"{rolls['ms'] * 1e3:.1f} us (plain {plain_ms * 1e3:.1f} us); launches {launches}")
+    return launches, worst, rolls["ms"], plain_ms
+
+
+def phase10_dma():
+    dma_probe.launch_count = 0
+    out = dma_probe.main(device="cuda")
+    launches = dma_probe.launch_count
+    if launches == 0:
+        raise AssertionError("dma_probe.main launched no kernel")
+    for shape in (dma_probe.SHAPE, FULL):
+        a, u = dma_probe.inputs(shape, "cuda")
+        err = float(torch.max(torch.abs(dma_probe.run(a, u) - dma_probe.dma_probe_reference(a, u))))
+        if err != 0.0:
+            raise AssertionError(f"dma_probe {shape}: max|Δ| {err} != 0")
+    plain_ms = best_ms(lambda: dma_probe.dma_probe_reference(a, u), a.device, 20)
+    print(f"[10] dma_probe exact at {dma_probe.SHAPE} and {FULL}; at {FULL} "
+          f"{out['ms'] * 1e3:.1f} us (plain {plain_ms * 1e3:.1f} us), useful "
+          f"{out['useful_gbs']:.1f} GB/s, moved {out['moved_gbs']:.1f} GB/s; "
+          f"launches {launches}")
+    return launches, 0.0, out["ms"], plain_ms
+
+
+def phase11_b2_entry_points():
+    fused_gradient.launch_count = 0
+    ablation = fused_ablation.main(device="cuda")
+    bench = fused_gradient_bench.main(device="cuda")
+    launches = fused_gradient.launch_count
+    if launches == 0:
+        raise AssertionError("the B2 entry points launched no fused gradient kernel")
+    numbers = [*ablation["ms_per_kernel_call"].values(), *bench["ms"].values(),
+               bench["plain_step_ms"]]
+    if not all(np.isfinite(numbers)) or min(numbers) <= 0:
+        raise AssertionError(f"B2 entry points: bad times {numbers}")
+    print(f"[11] fused_ablation and fused_gradient_bench at {FULL}: full "
+          f"{bench['ms']['full(+sobolev)'] * 1e3:.1f} us per call vs plain step "
+          f"{bench['plain_step_ms'] * 1e3:.1f} us ({bench['full_speedup_vs_plain']:.2f}x); "
+          f"launches {launches}")
+
+
+def _row(name, source, replaces, numbers):
+    launches, err, ms, plain_ms = numbers
+    return {"name": name, "route": "cuda",
+            "source": f"levelsetfusion_tpu_torch/csrc/{source}", "replaces": replaces,
+            "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+
 def main():
     phase0_card()
     phase1_build()
@@ -264,17 +406,26 @@ def main():
     phase4_solve_parity()
     launches = phase5_main_path()
     times = phase6_timing()
+    phase7_ptxas()
+    conv = phase8_mxu_conv()
+    io = phase9_fused_io()
+    dma = phase10_dma()
+    phase11_b2_entry_points()
     kernels = [
-        {"name": "warp_field_cm", "route": "cuda",
-         "source": "levelsetfusion_tpu_torch/csrc/resample.cu",
-         "replaces": "levelsetfusion_tpu/ops/pallas/resample.py:427",
-         "launches": launches["resample"], "max_abs_err": err_resample,
-         "ms": times["resample"][0], "plain_ms": times["resample"][1]},
-        {"name": "fused_gradient_update", "route": "cuda",
-         "source": "levelsetfusion_tpu_torch/csrc/fused_gradient.cu",
-         "replaces": "levelsetfusion_tpu/ops/pallas/fused_gradient.py:1267",
-         "launches": launches["fused_gradient"], "max_abs_err": err_fused,
-         "ms": times["fused_gradient"][0], "plain_ms": times["fused_gradient"][1]},
+        _row("warp_field_cm", "resample.cu",
+             "levelsetfusion_tpu/ops/pallas/resample.py:427",
+             (launches["resample"], err_resample, *times["resample"])),
+        _row("fused_gradient_update", "fused_gradient.cu",
+             "levelsetfusion_tpu/ops/pallas/fused_gradient.py:1267",
+             (launches["fused_gradient"], err_fused, *times["fused_gradient"])),
+        _row("conv_yz_stencil", "conv_yz.cu", "experiments/mxu_conv.py:117",
+             conv["stencil"]),
+        _row("conv_yz_banded_f32", "conv_yz.cu", "experiments/mxu_conv.py:122",
+             conv["banded_f32"]),
+        _row("conv_yz_banded_bf16", "conv_yz.cu", "experiments/mxu_conv.py:149",
+             conv["banded_bf16"]),
+        _row("fused_io_probe", "fused_io_probe.cu", "experiments/fused_io_probe.py:71", io),
+        _row("dma_probe", "dma_probe.cu", "experiments/dma_probe.py:145", dma),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,20 @@
+"""The port's twins of the repository's ``experiments/`` scripts, one module
+per script at the same file name, each run as
+``python -m levelsetfusion_tpu_torch.experiments.<name>`` (on a CUDA device;
+``device="cpu"`` runs the plain torch versions, for the tests).
+
+Ported so far: the design experiments of the fused gradient kernel —
+
+- ``mxu_conv``: the Sobolev y+z convolution as a stencil against a banded
+  matrix product on the tensor cores (``csrc/conv_yz.cu``);
+- ``fused_io_probe``: the fused kernel's I/O plan with stand-in bodies
+  (``csrc/fused_io_probe.cu``);
+- ``dma_probe``: double-buffered haloed window copies (``csrc/dma_probe.cu``);
+- ``fused_ablation`` and ``fused_gradient_bench``: the fused gradient kernel
+  (``ops/kernels/fused_gradient.py``) timed with energy terms switched off,
+  and against the plain torch stencil step.
+
+Each kernel's wrapper sits beside its plain torch version (``*_reference``)
+in the module of its script, and counts its launches in a module-level
+counter.
+"""

@@ -3,7 +3,8 @@
 Each kernel family is one CUDA C++ file in ``levelsetfusion_tpu_torch/csrc``
 with a plain C interface. At first use it is compiled with ``nvcc`` for
 ``sm_90a`` into ``build/kernels/lib<name>.so`` at the root of the checkout
-(again whenever the source is newer than the library) and loaded with
+(again whenever the source or a ``csrc/*.cuh`` header is newer than the
+library) and loaded with
 ``ctypes``. Nothing here runs at import time; machines without ``nvcc``
 never reach it, because the wrappers take their plain versions for CPU
 tensors.
@@ -40,13 +41,23 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def is_stale(lib: Path, src: Path) -> bool:
+    """Whether ``lib`` must be rebuilt from ``src``: it is missing, or older
+    than ``src`` or than any ``*.cuh`` header beside ``src`` (a source may
+    include any of them)."""
+    if not lib.exists():
+        return True
+    built = lib.stat().st_mtime
+    return any(p.stat().st_mtime > built for p in (src, *src.parent.glob("*.cuh")))
+
+
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless its library is up to date; returns
     the library's path. The compiler's report (registers, spills) is kept
     beside it as ``lib<name>.log``."""
     src = SOURCE_DIR / f"{name}.cu"
     lib = BUILD_DIR / f"lib{name}.so"
-    if lib.exists() and lib.stat().st_mtime >= src.stat().st_mtime:
+    if not is_stale(lib, src):
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")

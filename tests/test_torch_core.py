@@ -126,8 +126,13 @@ def test_tsdf_ewa_not_ported_raises(method):
 
 
 def test_port_imports_no_jax():
-    """Importing the package and its CLI leaves jax out of sys.modules."""
+    """Importing the package, its CLI and every experiment module leaves jax
+    out of sys.modules."""
     code = ("import sys, levelsetfusion_tpu_torch, levelsetfusion_tpu_torch.cli; "
+            "import importlib, pkgutil, levelsetfusion_tpu_torch.experiments as e; "
+            "names = [m.name for m in pkgutil.iter_modules(e.__path__)]; "
+            "assert len(names) >= 6, names; "
+            "[importlib.import_module(f'{e.__name__}.{m}') for m in names]; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'levelsetfusion_tpu' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)

@@ -1,0 +1,330 @@
+"""Parity of the port's experiment modules (levelsetfusion_tpu_torch/
+experiments/) with the JAX scripts of experiments/, which are loaded by path.
+
+The same seeded numpy inputs go to the JAX Pallas kernel, run in interpret
+mode on the CPU, and to the port's plain torch version, which each kernel
+wrapper takes for CPU tensors; chip_smoke.py holds the CUDA kernels against
+the same plain versions on the card. Tolerances: the stencil 1e-6 abs (sums
+of 7 float32 products in another order, outputs O(1)); the banded product
+1e-5 abs (dot products of 16–24 terms summed in another order); the bf16
+route 1e-5 abs against numpy on the same bf16-rounded operands (products of
+bf16 values are exact in float32, so only the sum order differs); the
+fused I/O probe rtol 1e-6 and atol 1e-7 (XLA contracts
+u + 0.1 d into an FMA; copy exact); the window probe exact.
+
+Also: the wrappers' input checks and launch counters, every entry point end
+to end on the CPU at a tiny size, and the kernel library's rebuild rule."""
+
+import functools
+import importlib.util
+import os
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+from levelsetfusion_tpu_torch.experiments import (
+    dma_probe,
+    fused_ablation,
+    fused_gradient_bench,
+    fused_io_probe,
+    mxu_conv,
+)
+from levelsetfusion_tpu_torch.ops.kernels import _lib
+from levelsetfusion_tpu_torch.ops.kernels.fused_gradient import sobolev_taps
+from tests.torch_parity import assert_close, n, t
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+@functools.cache
+def _jax_script(name):
+    """experiments/<name>.py as a module (experiments/ is not a package)."""
+    spec = importlib.util.spec_from_file_location(
+        f"jax_experiment_{name}", REPO / "experiments" / f"{name}.py"
+    )
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _interpret(kernel, shape):
+    return pl.pallas_call(
+        kernel, out_shape=jnp.zeros(shape, jnp.float32), interpret=True
+    )
+
+
+# ------------------------------------------------------------------ B12
+
+
+@pytest.mark.parametrize("size", [16, 24, 128])
+def test_band_matches_jax(size):
+    jm = _jax_script("mxu_conv")
+    taps = jm._taps()
+    assert taps == sobolev_taps(7, 0.1)
+    np.testing.assert_array_equal(mxu_conv.band(size, taps), jm._band(size, taps))
+
+
+@pytest.mark.parametrize("reps", [1, 3])
+def test_stencil_reference_matches_jax_vpu(reps):
+    jm = _jax_script("mxu_conv")
+    a = np.random.default_rng(10 + reps).standard_normal((2, 16, 24)).astype(np.float32)
+    taps = jm._taps()
+    want = _interpret(functools.partial(jm._kernel_vpu, taps=taps, reps=reps), a.shape)(a)
+    got = mxu_conv.conv_yz_stencil(t(a), taps, reps)
+    assert_close(got, want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("reps", [1, 3])
+def test_banded_reference_matches_jax_mxu(reps):
+    jm = _jax_script("mxu_conv")
+    a = np.random.default_rng(20 + reps).standard_normal((2, 16, 24)).astype(np.float32)
+    taps = jm._taps()
+    cy, cz = jm._band(16, taps), jm._band(24, taps)
+    want = _interpret(functools.partial(jm._kernel_mxu, reps=reps), a.shape)(a, cy, cz)
+    got = mxu_conv.conv_yz_banded_reference(t(a), t(cy), t(cz), reps)
+    assert_close(got, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("reps", [1, 3])
+def test_bf16_reference_matches_numpy(reps):
+    def bf16(v):
+        return np.asarray(jnp.asarray(v, jnp.bfloat16).astype(jnp.float32))
+
+    taps = sobolev_taps(7, 0.1)
+    a = np.random.default_rng(30 + reps).standard_normal((2, 16, 32)).astype(np.float32)
+    cy, cz = mxu_conv.band(16, taps), mxu_conv.band(32, taps)
+    want = a
+    for _ in range(reps):
+        tmp = np.einsum("yY,xyz->xYz", bf16(cy), bf16(want))
+        want = np.einsum("xYz,zZ->xYZ", bf16(tmp), bf16(cz))
+    got = mxu_conv.conv_yz_banded_bf16(t(a), t(cy), t(cz), reps)
+    assert_close(got, want, rtol=0, atol=1e-5)
+    # bf16 operands are a real change from float32, not a no-op.
+    f32 = mxu_conv.conv_yz_banded_f32(t(a), t(cy), t(cz), reps)
+    assert float(torch.max(torch.abs(got - f32))) > 1e-4
+
+
+# ------------------------------------------------------------------ B11
+
+
+@pytest.mark.parametrize("xb", [8, 16])
+@pytest.mark.parametrize("body", fused_io_probe.BODIES)
+def test_fused_io_reference_matches_jax(body, xb, monkeypatch):
+    jm = _jax_script("fused_io_probe")
+    shape = (32, 16, 16)
+    monkeypatch.setattr(jm.pl, "pallas_call",
+                        functools.partial(jm.pl.pallas_call, interpret=True))
+    monkeypatch.setattr(jm, "SHAPE", shape)
+    monkeypatch.setattr(jm, "CHAIN", 2)
+    warped, canon, warp_cm = fused_io_probe.inputs(shape, "cpu")
+    want = jm.make(body, xb)(n(warped), n(canon), n(warp_cm))
+    got = fused_io_probe.fused_io_probe(*fused_io_probe.pad(warped, canon, warp_cm), body, xb)
+    assert got.shape == (3, *shape)
+    if body == "copy":
+        np.testing.assert_array_equal(n(got), np.asarray(want))
+    else:
+        # XLA on the CPU contracts u + 0.1 d into an FMA, the port rounds
+        # 0.1 d first: one rounding of |0.1 d| < 1, at most 6e-8.
+        assert_close(got, want, rtol=1e-6, atol=1e-7)
+
+
+def test_fused_io_rolls_is_box27_edge_x_periodic_yz():
+    rng = np.random.default_rng(5)
+    shape = (6, 5, 7)
+    w, c = (rng.standard_normal(shape).astype(np.float32) for _ in range(2))
+    u = rng.standard_normal((3,) + shape).astype(np.float32)
+    we, ce, ue = fused_io_probe.pad(t(w), t(c), t(u))
+    got = fused_io_probe.fused_io_probe(we, ce, ue, "rolls", 3)
+    wx = np.pad(w.astype(np.float64), ((1, 1), (0, 0), (0, 0)), mode="edge")
+    box = np.zeros(shape)
+    for dx in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            for dz in (-1, 0, 1):
+                box += np.roll(wx[1 + dx:1 + dx + shape[0]], (-dy, -dz), axis=(1, 2))
+    assert_close(got, u + 0.1 * (box - c), rtol=0, atol=1e-5)
+
+
+# ------------------------------------------------------------------ B10
+
+
+def test_dma_reference_matches_jax_exactly():
+    jm = _jax_script("dma_probe")
+    a, u = dma_probe.inputs((jm.X, jm.Y, jm.Z), "cpu")
+    want = jm.run(jnp.asarray(n(a)), jnp.asarray(n(u)), interpret=True)
+    got = dma_probe.run(a, u)
+    np.testing.assert_array_equal(n(got), np.asarray(want))
+    assert (dma_probe.XB, dma_probe.YB, dma_probe.HX, dma_probe.HY) == (
+        jm.XB, jm.YB, jm.HX, jm.HY)
+
+
+# ------------------------------------------------- wrappers on CPU tensors
+
+
+def _wrapper_calls():
+    """(name, counter getter, call on valid CPU inputs) per kernel wrapper."""
+    taps = sobolev_taps(7, 0.1)
+    a = torch.randn(2, 16, 32)
+    cy, cz = t(mxu_conv.band(16, taps)), t(mxu_conv.band(32, taps))
+    we, ce, ue = fused_io_probe.pad(*fused_io_probe.inputs((8, 4, 4), "cpu"))
+    da, du = dma_probe.inputs((24, 32, 8), "cpu")
+    return {
+        "conv_yz_stencil": (lambda: mxu_conv.launch_counts["stencil"],
+                            lambda: mxu_conv.conv_yz_stencil(a, taps, 2)),
+        "conv_yz_banded_f32": (lambda: mxu_conv.launch_counts["banded_f32"],
+                               lambda: mxu_conv.conv_yz_banded_f32(a, cy, cz, 2)),
+        "conv_yz_banded_bf16": (lambda: mxu_conv.launch_counts["banded_bf16"],
+                                lambda: mxu_conv.conv_yz_banded_bf16(a, cy, cz, 2)),
+        "fused_io_probe": (lambda: fused_io_probe.launch_count,
+                           lambda: fused_io_probe.fused_io_probe(we, ce, ue, "rolls", 4)),
+        "dma_probe": (lambda: dma_probe.launch_count, lambda: dma_probe.run(da, du)),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_wrapper_calls()))
+def test_wrapper_cpu_takes_plain_path(name):
+    count, call = _wrapper_calls()[name]
+    before = count()
+    out = call()
+    assert out.device.type == "cpu" and out.dtype == torch.float32
+    assert bool(torch.isfinite(out).all())
+    assert count() == before == 0
+
+
+def _bad_calls():
+    taps = sobolev_taps(7, 0.1)
+    a = torch.randn(2, 16, 32)
+    cy, cz = t(mxu_conv.band(16, taps)), t(mxu_conv.band(32, taps))
+    we, ce, ue = fused_io_probe.pad(*fused_io_probe.inputs((8, 4, 4), "cpu"))
+    da, du = dma_probe.inputs((24, 32, 8), "cpu")
+    return {
+        "stencil dtype": (TypeError, lambda: mxu_conv.conv_yz_stencil(a.double(), taps, 1)),
+        "stencil strided": (ValueError, lambda: mxu_conv.conv_yz_stencil(
+            a.transpose(1, 2), taps, 1)),
+        "stencil even taps": (ValueError, lambda: mxu_conv.conv_yz_stencil(a, taps[1:], 1)),
+        "stencil smem": (ValueError, lambda: mxu_conv.conv_yz_stencil(
+            torch.zeros(1, 128, 256), taps, 1)),
+        "banded dtype": (TypeError, lambda: mxu_conv.conv_yz_banded_f32(a, cy.double(), cz, 1)),
+        "banded shape": (ValueError, lambda: mxu_conv.conv_yz_banded_f32(
+            torch.zeros(2, 16, 24), cy, t(mxu_conv.band(24, taps)), 1)),
+        "banded plane": (ValueError, lambda: mxu_conv.conv_yz_banded_bf16(
+            torch.zeros(1, 256, 128), t(mxu_conv.band(256, taps)), t(mxu_conv.band(128, taps)), 1)),
+        "banded band": (ValueError, lambda: mxu_conv.conv_yz_banded_f32(a, cz, cz, 1)),
+        "banded strided": (ValueError, lambda: mxu_conv.conv_yz_banded_bf16(
+            a, cy.t(), cz, 1)),
+        "io dtype": (TypeError, lambda: fused_io_probe.fused_io_probe(
+            we.half(), ce, ue, "copy", 4)),
+        "io shape": (ValueError, lambda: fused_io_probe.fused_io_probe(
+            we, ce, ue[:2], "copy", 4)),
+        "io xb": (ValueError, lambda: fused_io_probe.fused_io_probe(we, ce, ue, "copy", 3)),
+        "io body": (ValueError, lambda: fused_io_probe.fused_io_probe(we, ce, ue, "fma", 4)),
+        "io strided": (ValueError, lambda: fused_io_probe.fused_io_probe(
+            we, ce, ue.transpose(2, 3), "arith", 4)),
+        "dma dtype": (TypeError, lambda: dma_probe.run(da.double(), du)),
+        "dma shape": (ValueError, lambda: dma_probe.run(da, du[:1])),
+        "dma x extent": (ValueError, lambda: dma_probe.run(da[:16], du[:, :16])),
+        "dma strided": (ValueError, lambda: dma_probe.run(
+            torch.zeros(24, 8, 32).transpose(1, 2), du)),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_bad_calls()))
+def test_wrapper_rejects_bad_input(case):
+    error, call = _bad_calls()[case]
+    with pytest.raises(error):
+        call()
+
+
+# ----------------------------------------------------- entry points on CPU
+
+
+def test_mxu_conv_run_cpu():
+    out = mxu_conv.run(shape=(2, 16, 16), reps=2, device="cpu")
+    assert out["device"] == "cpu" and out["shape"] == [2, 16, 16]
+    assert out["parity_max_abs_err"] <= 1e-5
+    assert 1e-4 < out["bf16_vs_f32_max_abs_err"] < 0.1
+    for key in ("stencil", "tc_f32", "tc_bf16"):
+        assert np.isfinite(out[f"{key}_us_per_convpass"])
+
+
+def test_fused_io_probe_main_cpu(capsys):
+    rows = fused_io_probe.main(device="cpu", shape=(8, 4, 4), chain=2, xbs=(4, 8))
+    assert [(r["body"], r["xb"]) for r in rows] == [
+        (b, x) for b in fused_io_probe.BODIES for x in (4, 8)]
+    assert all(r["ms"] > 0 and r["gbs"] > 0 for r in rows)
+    assert capsys.readouterr().out.count("[cpu]") == 6
+    assert fused_io_probe.plan_bytes((128, 128, 128)) == 70_385_664
+
+
+def test_dma_probe_main_cpu():
+    out = dma_probe.main(device="cpu", timed_shape=(24, 32, 8))
+    assert out["max_abs_err"] == 0.0 and out["shape"] == [32, 64, 128]
+    assert out["moved_gbs"] / out["useful_gbs"] == pytest.approx((3 * 4.5 + 1) / 4)
+
+
+def test_fused_ablation_main_cpu():
+    out = fused_ablation.main(device="cpu", shape=(12, 12, 12), n1=1, n2=2)
+    assert out["shape"] == [12, 12, 12] and out["device"] == "cpu"
+    assert list(out["ms_per_kernel_call"]) == [
+        "full(kill+ls+sob)", "no_sobolev", "no_levelset", "tikhonov", "data_only"]
+
+
+def test_fused_gradient_bench_main_cpu():
+    out = fused_gradient_bench.main(device="cpu", shape=(12, 12, 12), n1=1, n2=2)
+    assert list(out["ms"]) == list(fused_gradient_bench.VARIANTS)
+    assert np.isfinite(out["plain_step_ms"]) and "full_speedup_vs_plain" in out
+
+
+def test_plain_step_matches_fused_reference():
+    """The bench's plain step is the fused kernel's full variant."""
+    canonical, warped, warp = fused_gradient_bench._fields((10, 9, 8), "cpu")
+    rate = torch.tensor(0.3)
+    kernel = torch.from_numpy(mxu_conv.sobolev.generate_1d_sobolev_kernel(7, 0.1))
+    want = fused_gradient_bench.plain_step(warped, canonical, warp, rate, kernel)
+    got, _ = fused_gradient_bench.fused_gradient_update(
+        warped, canonical, warp.movedim(-1, 0).contiguous(), rate, w_data=1.0,
+        w_smooth=0.1, w_ls=0.1, killing=True, gamma=0.1, band_union=True,
+        taps=sobolev_taps(7, 0.1))
+    assert_close(got.movedim(0, -1), want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("entry", [
+    lambda: mxu_conv.run(shape=(2, 16, 16), reps=2),
+    lambda: fused_io_probe.main(shape=(8, 4, 4)),
+    lambda: dma_probe.main(),
+    lambda: fused_ablation.main(shape=(12, 12, 12)),
+    lambda: fused_gradient_bench.main(shape=(12, 12, 12)),
+], ids=["mxu_conv", "fused_io_probe", "dma_probe", "fused_ablation",
+        "fused_gradient_bench"])
+def test_entry_point_requires_cuda(entry):
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the refusal applies only without it")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        entry()
+
+
+# ---------------------------------------------------------- rebuild rule
+
+
+def test_lib_is_stale_follows_source_and_headers(tmp_path):
+    src, header, lib = tmp_path / "k.cu", tmp_path / "common.cuh", tmp_path / "libk.so"
+    for p in (src, header):
+        p.write_text("")
+    assert _lib.is_stale(lib, src)  # never built
+    lib.write_bytes(b"")
+
+    def age(p, seconds):
+        os.utime(p, (seconds, seconds))
+
+    age(src, 100), age(header, 100), age(lib, 200)
+    assert not _lib.is_stale(lib, src)
+    age(src, 300)
+    assert _lib.is_stale(lib, src)
+    age(src, 100), age(header, 300)
+    assert _lib.is_stale(lib, src)  # a header changed: the .so is stale
+    (tmp_path / "other.cu").write_text("")
+    age(header, 100), age(tmp_path / "other.cu", 300)
+    assert not _lib.is_stale(lib, src)  # another kernel's source does not count
