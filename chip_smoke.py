@@ -10,9 +10,9 @@ the CPU, runs the config3 preset (128³, full energy) through
 just before, and times the solve and each kernel against its plain version.
 Then it drives the port's experiment entry points (``levelsetfusion_tpu_torch.
 experiments``: mxu_conv, fused_io_probe, dma_probe, fused_ablation,
-fused_gradient_bench), each with its kernels' launch counters reset just
-before and read just after, and holds their kernels against their plain
-versions. Every phase prints at least one line and raises on failure. The line before the last is a JSON object describing the kernels;
+fused_gradient_bench, resample_variants, v10_xslab), each with its kernels'
+launch counters reset just before and read just after, and holds their
+kernels against their plain versions. Every phase prints at least one line and raises on failure. The line before the last is a JSON object describing the kernels;
 the last line is ``{"ok": true, "device": {...}}``. Without CUDA it fails
 before printing any result.
 """
@@ -38,6 +38,8 @@ from levelsetfusion_tpu_torch.experiments import (
     fused_gradient_bench,
     fused_io_probe,
     mxu_conv,
+    resample_variants,
+    v10_xslab,
 )
 from levelsetfusion_tpu_torch.experiments._timing import best_ms
 from levelsetfusion_tpu_torch.models.single_level import solve_single_level
@@ -65,7 +67,10 @@ CASES = [
     (0.0, 0.0, False, False, True),
 ]
 BENCH_ITERS = 300  # bench.py's N_ITER
-LIBRARIES = ("resample", "fused_gradient", "conv_yz", "fused_io_probe", "dma_probe")
+LIBRARIES = ("resample", "fused_gradient", "conv_yz", "fused_io_probe", "dma_probe",
+             "resample_variants", "v10_xslab")
+RAGGED_X = (20, 64, 128)  # a ragged x for the resample variants (their Z is 128)
+B45_VARIANTS = ("vf_fori", "vf_chunk", "vf_unroll", "v7_chunk", "v7_unroll")
 
 
 def _fields(shape, seed, warp_scale):
@@ -271,16 +276,36 @@ def phase6_timing():
     return times
 
 
+def _kernel_name(mangled):
+    """``name<template ints>`` of a kernel in an anonymous namespace, from
+    its mangled name (``_ZN<len><namespace><len><name>I...E...``)."""
+    m = re.match(r"_ZN(\d+)", mangled)
+    if not m:
+        return mangled
+    rest = mangled[m.end() + int(m.group(1)):]
+    m = re.match(r"(\d+)", rest)
+    if not m:
+        return mangled
+    name, tail = rest[m.end():m.end() + int(m.group(1))], rest[m.end() + int(m.group(1)):]
+    args = re.findall(r"L[ib](\d+)E", tail.split("EEv")[0]) if tail.startswith("I") else []
+    return f"{name}<{','.join(args)}>" if args else name
+
+
 def phase7_ptxas():
-    """Registers and spills of the experiment kernels (built in phase 1)."""
+    """Registers and spills of every experiment kernel instantiation (built in
+    phase 1), from each library's ``nvcc -Xptxas -v`` log."""
     parts = []
     for name in LIBRARIES[2:]:
         log = (_lib.BUILD_DIR / f"lib{name}.log").read_text()
-        regs = [int(v) for v in re.findall(r"Used (\d+) registers", log)]
-        spills = [int(v) for v in re.findall(r"(\d+) bytes spill (?:stores|loads)", log)]
-        parts.append(f"{name}: {len(regs)} kernels, registers {regs}, "
-                     f"max spill {max(spills, default=0)} B")
-    print(f"[7] ptxas: {'; '.join(parts)}")
+        kernels = []
+        for entry in log.split("Compiling entry function '")[1:]:
+            short = _kernel_name(entry.split("'", 1)[0])
+            regs = re.search(r"Used (\d+) registers", entry)
+            spill = sum(int(v) for v in re.findall(r"(\d+) bytes spill (?:stores|loads)", entry))
+            kernels.append(f"{short} {regs.group(1) if regs else '?'}r/{spill}B")
+        parts.append(f"{name}: {', '.join(kernels)}")
+    print(f"[7] ptxas, registers r / spill bytes B (window_kernel<loop, body, tents_once> "
+          f"as codes of resample_variants.LOOPS and BODIES): {'; '.join(parts)}")
 
 
 def phase8_mxu_conv():
@@ -391,6 +416,73 @@ def phase11_b2_entry_points():
           f"launches {launches}")
 
 
+def phase12_resample_variants():
+    t0 = time.perf_counter()
+    rv = resample_variants
+    names = (*rv.KERNELS, *B45_VARIANTS)
+    rv.launch_counts.update(dict.fromkeys(rv.launch_counts, 0))
+    rows = rv.main(device="cuda", names=names)
+    launches = dict(rv.launch_counts)
+    if min(launches.values()) == 0:
+        raise AssertionError(f"resample_variants.main left a kernel unlaunched: {launches}")
+    err = dict.fromkeys(names, 0.0)
+    for shape in (FULL, RAGGED_X):
+        field, warp = rv.inputs(shape, "cuda")
+        for name in names:
+            got = rv.variant_call(name)(field, warp)
+            want = rv.resample_variant_reference(field, warp, name)
+            err[name] = max(err[name], _close(f"{name} {shape}", got, want, 0.0, 1e-5))
+    field, warp = rv.inputs(FULL, "cuda")
+    warp_cm = rv.clamp_warp(warp).movedim(-1, 0).contiguous()
+    b1 = warp_field_cm(field, warp_cm)
+    vs_b1 = max(_close(f"{name} vs B1", rv.variant_call(name)(field, warp), b1, 0.0, 1e-5)
+                for name in names if name not in rv.TIMING_ONLY)
+    plain_ms = {name: best_ms(lambda: rv.resample_variant_reference(field, warp, name),
+                              field.device, 3) for name in names}
+    b1_ms = best_ms(lambda: warp_field_cm(field, warp_cm), field.device, 20)
+    ms = {r["variant"]: r["us_per_call"] / 1e3 for r in rows}
+    table = ", ".join(f"{name} {ms[name] * 1e3:.1f} ({plain_ms[name] * 1e3:.0f})"
+                      for name in names)
+    print(f"[12] resample variants vs plain at {FULL} and {RAGGED_X}: max|Δ| "
+          f"{max(err.values()):.3e}, value-preserving vs B1 {vs_b1:.3e} (tol 1e-5); "
+          f"us per call at {FULL}, kernel (plain): {table}; B1 {b1_ms * 1e3:.1f}; "
+          f"launches {launches}; {time.perf_counter() - t0:.1f} s")
+
+    def numbers(entry, name, group):
+        return (launches[entry], max(err[v] for v in group), ms[name], plain_ms[name])
+
+    return {"run_variant": numbers("run_variant", "v6", rv.KERNELS),
+            "run_vmemfull": numbers("run_vmemfull", "vf_fori", B45_VARIANTS[:3]),
+            "run_v7": numbers("run_v7", "v7_chunk", B45_VARIANTS[3:])}
+
+
+def phase13_v10():
+    t0 = time.perf_counter()
+    v10_xslab.launch_count = 0
+    rows = v10_xslab.main(device="cuda")
+    launches = v10_xslab.launch_count
+    if launches == 0:
+        raise AssertionError("v10_xslab.main launched no kernel")
+    field, warps = v10_xslab.inputs(FULL, "cuda")
+    worst = 0.0
+    for tag, _, warp in warps:
+        want = v10_xslab.run_v10_reference(field, warp)
+        for xb in v10_xslab.XBS:
+            got = v10_xslab.run_v10(field, warp, xb)
+            worst = max(worst, _close(f"v10 {tag} xb {xb}", got, want, 0.0, 1e-5))
+    rfield, rwarp = resample_variants.inputs(RAGGED_X, "cuda")
+    worst = max(worst, _close(f"v10 {RAGGED_X} xb 4", v10_xslab.run_v10(
+        rfield, rwarp, 4, 64, 20), v10_xslab.run_v10_reference(rfield, rwarp), 0.0, 1e-5))
+    random = warps[0][2]
+    plain_ms = best_ms(lambda: v10_xslab.run_v10_reference(field, random), field.device, 3)
+    table = ", ".join(f"{r['warp']} xb {r['xb']} {r['ms_per_call'] * 1e3:.1f}" for r in rows)
+    print(f"[13] v10 vs plain at {FULL} (both warps, xb {v10_xslab.XBS}) and {RAGGED_X}: "
+          f"max|Δ| {worst:.3e} (tol 1e-5); us per call: {table}; plain "
+          f"{plain_ms * 1e3:.0f}; launches {launches}; {time.perf_counter() - t0:.1f} s")
+    xb8 = next(r for r in rows if r["warp"] == "random" and r["xb"] == 8)
+    return launches, worst, xb8["ms_per_call"], plain_ms
+
+
 def _row(name, source, replaces, numbers):
     launches, err, ms, plain_ms = numbers
     return {"name": name, "route": "cuda",
@@ -411,6 +503,8 @@ def main():
     io = phase9_fused_io()
     dma = phase10_dma()
     phase11_b2_entry_points()
+    variants = phase12_resample_variants()
+    v10 = phase13_v10()
     kernels = [
         _row("warp_field_cm", "resample.cu",
              "levelsetfusion_tpu/ops/pallas/resample.py:427",
@@ -426,6 +520,13 @@ def main():
              conv["banded_bf16"]),
         _row("fused_io_probe", "fused_io_probe.cu", "experiments/fused_io_probe.py:71", io),
         _row("dma_probe", "dma_probe.cu", "experiments/dma_probe.py:145", dma),
+        _row("run_variant", "resample_variants.cu", "experiments/resample_variants.py:197",
+             variants["run_variant"]),
+        _row("run_vmemfull", "resample_variants.cu", "experiments/resample_variants.py:280",
+             variants["run_vmemfull"]),
+        _row("run_v7", "resample_variants.cu", "experiments/resample_variants.py:348",
+             variants["run_v7"]),
+        _row("run_v10", "v10_xslab.cu", "experiments/v10_xslab.py:88", v10),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,285 @@
+// The resample design-space variants: out = the trilinear resample of a
+// (X, Y, 128) field at v + u(v), ux and uy clamped to ±K, +1 outside, as a
+// sum over the (2K+2)^2 integer x/y shifts of the +1-padded field P:
+//   out = (1 - w0 - w1) + sum_{cy, cx} tent(uy - (cy - K)) tent(ux - (cx - K))
+//                                      (w0 P(x+cx, y+cy, z0) + w1 P(.., z0+1))
+// summed acc0 first, then cy outer and cx inner.
+//
+// Replaces three TPU kernels of experiments/resample_variants.py:
+// - run_variant (B3, line 197): one grid step per (x row, y block), each
+//   DMAing its (n, n, yb, 128) window of stacked y-shifted copies; bodies
+//   _kernel_v6 (+ static00 / nogather), _noslice, _twolevel, _chunk,
+//   _unroll, _passthrough, _onepair;
+// - run_vmemfull (B4, line 280): the whole stack resident, x walked
+//   fastest; inner fori / chunk / unroll;
+// - run_v7 (B5, line 348): as B4 with the 2n tent values computed once per
+//   voxel; structure chunk / unroll.
+// The stacked copies are the TPU's way around a dynamic sublane offset; here
+// no stack is built: each CTA stages the padded rows it needs in shared
+// memory with cp.async and writes the +1 fill for rows outside the volume.
+// The clamp, which the TPU wrappers apply to the warp before the call, is
+// applied as the warp is read (clipping is exact: the same value).
+//
+// Design. A CTA computes XC x rows by YB y rows by 128 z lanes, one thread
+// per z lane (512 threads, 4 y rows at a time), so warp reads and output
+// writes coalesce; the channel-last warp is read as three strided floats
+// (12 B apart), which the warp's 384 contiguous bytes serve from L1. The CTA
+// stages its padded rows TY y rows at a time: kN x rows of TY + kN - 1 y
+// rows of 128 floats. Loop structure and body are template parameters:
+//   loop  kPairLoop (v6: a runtime pair loop), kTwoLevel (cy static, cx at
+//         runtime), kChunk (cy at runtime, cx static), kUnroll (both static);
+//   body  kFull, and the TIMING-ONLY bodies of B3: kStatic00 (rows fixed at
+//         shift (0, 0)), kNoSlice (the same value, its two z reads hoisted
+//         out of the loop), kNoGather (no z gather), kPassthrough
+//         (P(x, y, z) + ux), kOnePair (one pair).
+// - B3 (XC = 1, per-step windows): one CTA per (x row, y block of yb); yb 64
+//   stages 6 x 69 x 128 floats = 212 KB (one CTA per SM). yb 128 would need
+//   408 KB and does not fit: its CTA stages and computes two tiles of 64 y
+//   rows in turn.
+// - B4/B5 (XC = 8, a ring): the TPU grid of Y/yb x-walking steps would be 2
+//   CTAs at 128^3 on 132 SMs, so a CTA here walks a chunk of 8 x rows over
+//   TY = gcd(yb, 16) y rows (128 CTAs at 128^3) and keeps a ring of kN + 1
+//   staged x rows (7 x 21 x 128 floats = 75 KB): each padded row is loaded
+//   once per chunk, the next row's cp.async in flight while the current
+//   row's sum runs (one commit group per step, as csrc/dma_probe.cu).
+//   B5 keeps its 2n tent values in registers (static indices only).
+//
+// What bounds it on the H100: shared-memory reads. Each voxel makes 36
+// pairs x 2 z reads, 72 x 4 B = 288 B of shared-memory traffic, 604 MB at
+// 128^3 against the card's ~30 TB/s of shared bandwidth (~20 us), where
+// the golden gather (csrc/resample.cu) makes 8 reads from L2. The variants
+// measure what the enumeration's loop structures cost on this card.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "resample_z.cuh"
+
+namespace {
+
+using namespace lsf_rz;
+
+enum Loop { kPairLoop = 0, kTwoLevel = 1, kChunk = 2, kUnroll = 3 };
+enum Body {
+  kFull = 0, kStatic00 = 1, kNoSlice = 2, kNoGather = 3, kPassthrough = 4, kOnePair = 5,
+};
+
+constexpr int kThreads = 512;
+constexpr int kMaxSmem = 232448;  // bytes of dynamic shared memory a block may use
+
+struct Params {
+  const float* field;  // (nx, ny, 128)
+  const float* warp;   // (nx, ny, 128, 3), unclamped
+  float* out;          // (nx, ny, 128)
+  int nx, ny;
+  int yb;     // y rows per CTA
+  int ty;     // y rows staged at a time; divides yb
+  int xc;     // x rows per CTA
+  int slots;  // staged x rows: kN, or kN + 1 for a ring (xc > 1)
+};
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned saddr = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(saddr), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Stage padded x row px, padded y rows [y0, y0 + rows), into `slot`: a
+// cp.async per 16 bytes inside the volume, a store of the +1 fill outside.
+__device__ __forceinline__ void stage_row(const Params& p, float* slot, int px, int y0,
+                                          int rows) {
+  constexpr int kQuads = kLane / 4;
+  const int fx = px - kK;
+  for (int c = threadIdx.x; c < rows * kQuads; c += blockDim.x) {
+    const int ry = c / kQuads, q = c - ry * kQuads;
+    const int fy = y0 + ry - kK;
+    float* dst = slot + ry * kLane + 4 * q;
+    if (fx >= 0 && fx < p.nx && fy >= 0 && fy < p.ny) {
+      cp_async16(dst, p.field + ((int64_t)fx * p.ny + fy) * kLane + 4 * q);
+    } else {
+      *reinterpret_cast<float4*>(dst) = make_float4(1.0f, 1.0f, 1.0f, 1.0f);
+    }
+  }
+}
+
+// One output voxel from the staged rows: slot (slot0 + cx) mod slots holds x
+// shift cx, row r + cy of a slot holds y shift cy.
+template <int L, int B, bool kTentsOnce>
+__device__ __forceinline__ float voxel(const float* smem, int slot0, int slots, int rps,
+                                       int r, int z, float ux, float uy, const ZSetup& zs) {
+  auto row = [&](int cy, int cx) -> const float* {
+    int sl = slot0 + cx;
+    if (sl >= slots) sl -= slots;
+    return smem + (sl * rps + r + cy) * kLane;
+  };
+  auto gathered = [&](int cy, int cx) -> float {
+    const float* rw = row(cy, cx);
+    return zmix(zs, rw[zs.z0c], rw[zs.z1c]);
+  };
+  if (B == kPassthrough) return __fadd_rn(row(0, 0)[z], ux);
+  float acc = acc0(zs);
+  if (B == kOnePair) return add_pair(acc, __fmul_rn(tent(uy), tent(ux)), gathered(0, 0));
+
+  float g00 = 0.0f;
+  if (B == kNoSlice) g00 = gathered(0, 0);
+  auto pair_g = [&](int cy, int cx) -> float {
+    if (B == kFull) return gathered(cy, cx);
+    if (B == kNoGather) {
+      const float v = row(cy, cx)[z];
+      return zmix(zs, v, v);
+    }
+    if (B == kStatic00) return gathered(0, 0);
+    return g00;  // kNoSlice
+  };
+
+  float tx[kN], ty[kN];
+  if (kTentsOnce) {
+#pragma unroll
+    for (int c = 0; c < kN; ++c) {
+      tx[c] = tent_at(ux, c);
+      ty[c] = tent_at(uy, c);
+    }
+  }
+
+  if (L == kPairLoop) {
+#pragma unroll 1
+    for (int t = 0; t < kN * kN; ++t) {
+      const int cy = t / kN, cx = t - cy * kN;
+      acc = add_pair(acc, __fmul_rn(tent_at(uy, cy), tent_at(ux, cx)), pair_g(cy, cx));
+    }
+  } else if (L == kTwoLevel) {
+#pragma unroll
+    for (int cy = 0; cy < kN; ++cy) {
+      const float wy = tent_at(uy, cy);
+#pragma unroll 1
+      for (int cx = 0; cx < kN; ++cx) {
+        acc = add_pair(acc, __fmul_rn(wy, tent_at(ux, cx)), pair_g(cy, cx));
+      }
+    }
+  } else if (L == kChunk) {
+#pragma unroll 1
+    for (int cy = 0; cy < kN; ++cy) {
+      const float wy = tent_at(uy, cy);
+#pragma unroll
+      for (int cx = 0; cx < kN; ++cx) {
+        const float wx = kTentsOnce ? tx[cx] : tent_at(ux, cx);
+        acc = add_pair(acc, __fmul_rn(wy, wx), pair_g(cy, cx));
+      }
+    }
+  } else {  // kUnroll
+#pragma unroll
+    for (int cy = 0; cy < kN; ++cy) {
+#pragma unroll
+      for (int cx = 0; cx < kN; ++cx) {
+        const float wy = kTentsOnce ? ty[cy] : tent_at(uy, cy);
+        const float wx = kTentsOnce ? tx[cx] : tent_at(ux, cx);
+        acc = add_pair(acc, __fmul_rn(wy, wx), pair_g(cy, cx));
+      }
+    }
+  }
+  return acc;
+}
+
+template <int L, int B, bool kTentsOnce>
+__global__ void __launch_bounds__(kThreads) window_kernel(Params p) {
+  extern __shared__ __align__(16) float smem[];
+  const int x0 = blockIdx.x * p.xc;
+  const int xn = min(p.xc, p.nx - x0);
+  const int rps = p.ty + kN - 1;  // staged y rows per slot
+  const int z = threadIdx.x % kLane;
+  const int r_first = threadIdx.x / kLane, r_step = blockDim.x / kLane;
+  for (int t0 = 0; t0 < p.yb; t0 += p.ty) {
+    const int y0 = blockIdx.y * p.yb + t0;
+    for (int c = 0; c < kN; ++c) stage_row(p, smem + c * rps * kLane, x0 + c, y0, rps);
+    cp_async_commit();
+    for (int xi = 0; xi < xn; ++xi) {
+      if (xi + 1 < xn) {  // the ring's next row, into the slot row xi - 1 used
+        const int sl = (xi + kN) % p.slots;
+        stage_row(p, smem + sl * rps * kLane, x0 + xi + kN, y0, rps);
+      }
+      cp_async_commit();  // possibly empty: one group per step
+      cp_async_wait_one();  // every group but this step's has landed
+      __syncthreads();
+      const int slot0 = xi % p.slots;
+      for (int r = r_first; r < p.ty; r += r_step) {
+        const int64_t v = ((int64_t)(x0 + xi) * p.ny + y0 + r) * kLane + z;
+        const float ux = clamp_k(__ldg(p.warp + 3 * v));
+        const float uy = clamp_k(__ldg(p.warp + 3 * v + 1));
+        const ZSetup zs = z_setup(__ldg(p.warp + 3 * v + 2), z);
+        p.out[v] = voxel<L, B, kTentsOnce>(smem, slot0, p.slots, rps, r, z, ux, uy, zs);
+      }
+      __syncthreads();  // slot xi is refilled at the next step
+    }
+  }
+}
+
+template <int L, int B, bool kTentsOnce>
+int launch(const Params& p, cudaStream_t stream) {
+  const int smem = p.slots * (p.ty + kN - 1) * kLane * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute((const void*)window_kernel<L, B, kTentsOnce>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((p.nx + p.xc - 1) / p.xc, p.ny / p.yb);
+  window_kernel<L, B, kTentsOnce><<<grid, kThreads, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// loop: 0 pair loop, 1 two-level, 2 chunk, 3 unroll; body: 0 full,
+// 1 static00, 2 noslice, 3 nogather, 4 passthrough, 5 onepair (loop ignored
+// for 4 and 5); tents_once: B5's tent registers (chunk and unroll only).
+// Shape rules (else cudaErrorInvalidValue): nz 128, yb divides ny, ty
+// divides yb, the staged rows fit shared memory, field 16-byte aligned.
+extern "C" int lsf_resample_variant(const float* field, const float* warp, float* out,
+                                    int nx, int ny, int nz, int loop, int body,
+                                    int tents_once, int yb, int ty, int xc,
+                                    void* stream) {
+  const int slots = xc > 1 ? kN + 1 : kN;
+  if (nz != kLane || nx < 1 || yb < 1 || ty < 1 || xc < 1 || ny % yb != 0 ||
+      yb % ty != 0 || slots * (ty + kN - 1) * kLane * (int)sizeof(float) > kMaxSmem ||
+      (uintptr_t)field % 16 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const Params p{field, warp, out, nx, ny, yb, ty, xc, slots};
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (tents_once) {
+    if (body != kFull) return (int)cudaErrorInvalidValue;
+    if (loop == kChunk) return launch<kChunk, kFull, true>(p, s);
+    if (loop == kUnroll) return launch<kUnroll, kFull, true>(p, s);
+    return (int)cudaErrorInvalidValue;
+  }
+  switch (body) {
+    case kPassthrough: return launch<kPairLoop, kPassthrough, false>(p, s);
+    case kOnePair: return launch<kPairLoop, kOnePair, false>(p, s);
+    case kStatic00:
+      return loop == kPairLoop ? launch<kPairLoop, kStatic00, false>(p, s)
+                               : (int)cudaErrorInvalidValue;
+    case kNoSlice:
+      return loop == kPairLoop ? launch<kPairLoop, kNoSlice, false>(p, s)
+                               : (int)cudaErrorInvalidValue;
+    case kNoGather:
+      return loop == kPairLoop ? launch<kPairLoop, kNoGather, false>(p, s)
+                               : (int)cudaErrorInvalidValue;
+    case kFull:
+      switch (loop) {
+        case kPairLoop: return launch<kPairLoop, kFull, false>(p, s);
+        case kTwoLevel: return launch<kTwoLevel, kFull, false>(p, s);
+        case kChunk: return launch<kChunk, kFull, false>(p, s);
+        case kUnroll: return launch<kUnroll, kFull, false>(p, s);
+      }
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" const char* lsf_resample_variants_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}

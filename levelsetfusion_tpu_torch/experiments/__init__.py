@@ -12,7 +12,17 @@ Ported so far: the design experiments of the fused gradient kernel —
 - ``dma_probe``: double-buffered haloed window copies (``csrc/dma_probe.cu``);
 - ``fused_ablation`` and ``fused_gradient_bench``: the fused gradient kernel
   (``ops/kernels/fused_gradient.py``) timed with energy terms switched off,
-  and against the plain torch stencil step.
+  and against the plain torch stencil step;
+
+and the resample's design space, the clamped (±2) shift-enumeration form of
+the resample (its plain version ``resample_variants.shift_sum_reference``) —
+
+- ``resample_variants``: per-step windows (``run_variant``), rows staged
+  once per x chunk (``run_vmemfull``) and tents once per voxel (``run_v7``)
+  under four loop structures, with timing-only bodies
+  (``csrc/resample_variants.cu``);
+- ``v10_xslab``: x-row slabs whose pair loop runs over the active shift
+  range only (``csrc/v10_xslab.cu``).
 
 Each kernel's wrapper sits beside its plain torch version (``*_reference``)
 in the module of its script, and counts its launches in a module-level
