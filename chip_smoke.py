@@ -10,11 +10,16 @@ the CPU, runs the config3 preset (128³, full energy) through
 just before, and times the solve and each kernel against its plain version.
 Then it drives the port's experiment entry points (``levelsetfusion_tpu_torch.
 experiments``: mxu_conv, fused_io_probe, dma_probe, fused_ablation,
-fused_gradient_bench, resample_variants, v10_xslab), each with its kernels'
-launch counters reset just before and read just after, and holds their
-kernels against their plain versions. Every phase prints at least one line and raises on failure. The line before the last is a JSON object describing the kernels;
-the last line is ``{"ok": true, "device": {...}}``. Without CUDA it fails
-before printing any result.
+fused_gradient_bench, resample_variants, v10_xslab, bisect_kernel,
+loop_cost), each with its kernels' launch counters reset just before and
+read just after, and holds their kernels against their plain versions.
+Beside each kernel it times, where one exists, one PyTorch call that
+computes the same function (the kernel's yardstick; the port never calls
+it), and it computes each kernel's bound from the run's tensors. Every
+phase prints at least one line and raises on failure. The line before the
+last is a JSON object describing the kernels; the last line is
+``{"ok": true, "device": {...}}``. Without CUDA it fails before printing any
+result.
 """
 
 from __future__ import annotations
@@ -22,27 +27,33 @@ from __future__ import annotations
 import dataclasses
 import json
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from levelsetfusion_tpu_torch.cli import _grid, _pair_3d, run_experiment
 from levelsetfusion_tpu_torch.experiments import (
+    bisect_kernel,
     dma_probe,
     fused_ablation,
     fused_gradient_bench,
     fused_io_probe,
+    loop_cost,
     mxu_conv,
     resample_variants,
     v10_xslab,
 )
 from levelsetfusion_tpu_torch.experiments._timing import best_ms
 from levelsetfusion_tpu_torch.models.single_level import solve_single_level
+from levelsetfusion_tpu_torch.ops.interpolation import warp_field
 from levelsetfusion_tpu_torch.ops.kernels import _lib, fused_gradient, resample
 from levelsetfusion_tpu_torch.ops.kernels.fused_gradient import (
     fused_gradient_update,
@@ -68,9 +79,21 @@ CASES = [
 ]
 BENCH_ITERS = 300  # bench.py's N_ITER
 LIBRARIES = ("resample", "fused_gradient", "conv_yz", "fused_io_probe", "dma_probe",
-             "resample_variants", "v10_xslab")
+             "resample_variants", "v10_xslab", "stack_bodies")
 RAGGED_X = (20, 64, 128)  # a ragged x for the resample variants (their Z is 128)
 B45_VARIANTS = ("vf_fori", "vf_chunk", "vf_unroll", "v7_chunk", "v7_unroll")
+
+# The card's peaks (NVIDIA's H100 SXM data sheet): HBM bytes/s and f32
+# operations/s outside the tensor cores (every bound below counts f32 work).
+HBM_BYTES_PER_S = 3.35e12
+PEAK_F32_OPS_PER_S = 67e12
+# Float operations per voxel (an add, sub, mul, min, max, abs or floor
+# counts one) that the function needs, whatever a kernel's design spends.
+OPS_RESAMPLE = 43  # trilinear at v + u: 3 adds, 3 floors, 6 subs; 8 corners x (3 muls, 1 add) - 1
+OPS_CLAMPED_RESAMPLE = OPS_RESAMPLE + 4  # ux, uy clamped to ±K first (B3-B8)
+OPS_FUSED = 270  # B2's function, rounded: Sobolev 3 x 3 x 7 x 2, terms ~130, update 14
+OPS_B9_FULL = 1 + 2 * 35 + 3  # floor; the sums of the 36 z0c and z1c values; 2 weights, 1 add
+OPS_CONV_YZ = 2 * (2 * 7 - 1)  # the 7-tap y and z passes, 7 muls and 6 adds a tap row
 
 
 def _fields(shape, seed, warp_scale):
@@ -91,6 +114,69 @@ def _close(name, got, want, rtol, atol=0.0):
         worst = float(torch.max(err - bound))
         raise AssertionError(f"{name}: exceeds rtol={rtol} atol={atol} by {worst:.3e}")
     return float(torch.max(err)) if err.numel() else 0.0
+
+
+def _bound(nbytes, ops):
+    """(bound_ms, bound_by): the larger of the bytes over the HBM rate and
+    the f32 operations over the card's peak."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _numbers(launches, err, ms, plain_ms, bound, library_ms):
+    """The measured fields of a kernel row."""
+    return {"launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": library_ms}
+
+
+def _grid_sample(volume, pos):
+    """One ``F.grid_sample`` call that samples ``volume`` (B, D, H, W) at
+    the index positions ``pos`` (B, D', H', W', 3), given in (d, h, w)
+    order: trilinear, +1 outside, as zero padding of volume - 1, plus 1.
+    Returns the call (the part a yardstick times) and the function that
+    turns its result into the value."""
+    sizes = torch.tensor(volume.shape[1:], dtype=pos.dtype, device=pos.device)
+    grid = (pos * (2.0 / (sizes - 1)) - 1.0).flip(-1).contiguous()
+    shifted = (volume - 1.0)[:, None].contiguous()
+
+    def call():
+        return F.grid_sample(shifted, grid, mode="bilinear", padding_mode="zeros",
+                             align_corners=True)
+
+    return call, lambda out: out[:, 0] + 1.0
+
+
+def _field_grid_sample(field, warp_cl):
+    """The yardstick of the field resample at v + u(v) (B1, B3-B6), for a
+    channel-last warp: ``(call, value)`` with ``value(call())`` (X, Y, Z)."""
+    idx = torch.stack(torch.meshgrid(
+        *(torch.arange(s, dtype=torch.float32, device=field.device) for s in field.shape),
+        indexing="ij"), dim=-1)
+    call, value = _grid_sample(field[None], (idx + warp_cl)[None])
+    return call, lambda out: value(out)[0]
+
+
+def _stack_grid_sample(stacked, warp):
+    """The yardstick of the stack bodies that resample (B8 level 4, B7): the
+    stack as a batch over y of (plane, padded x, z) volumes, sampled at
+    (K + uy, x + K + ux, z + uz), ux and uy clamped; ``value(call())`` is
+    (X, Y, 128)."""
+    k = loop_cost.K
+    ux, uy, uz = resample_variants.clamp_warp(warp).unbind(-1)
+    x = torch.arange(warp.shape[0], dtype=torch.float32, device=warp.device)[:, None, None]
+    z = torch.arange(warp.shape[2], dtype=torch.float32, device=warp.device)
+    pos = torch.stack([k + uy, x + k + ux, z + uz], dim=-1)  # (X, Y, Z, 3)
+    call, value = _grid_sample(stacked.permute(2, 0, 1, 3), pos.permute(1, 0, 2, 3)[:, None])
+    return call, lambda out: value(out)[:, 0].permute(1, 0, 2)
+
+
+def _stack_bytes(warp):
+    """Bytes a stack body must move: the stack rows it reads (X + 5 of each
+    plane), the warp, and the output."""
+    nx, ny, nz, _ = warp.shape
+    vox = nx * ny * nz
+    return 4 * (loop_cost.N * (nx + loop_cost.N - 1) * ny * nz + 4 * vox)
 
 
 def _time_ms(fn, reps):
@@ -250,9 +336,16 @@ def phase6_timing():
               gamma=p.rigidity_enforcement_factor, band_union=p.band_union_only,
               taps=sobolev_taps(p.sobolev_kernel_size, p.sobolev_strength))
     warped = warp_field_cm(live, warp)
-    # Plain, kernel, kernel, plain: compare within one call, in turns.
+    # B1's yardstick: grid_sample on the same inputs (its grid built outside
+    # the timed call), held to B1 within 1e-4 (normalised coordinates).
+    gs_call, gs_value = _field_grid_sample(live, warp.movedim(0, -1))
+    gs_err = _close("grid_sample vs B1", gs_value(gs_call()), warped, 0.0, 1e-4)
+    # Plain, library, kernel, kernel, library, plain: compare within one
+    # call, in turns.
     r_plain = [_time_ms(lambda: warp_field_cm_reference(live, warp), 10)]
+    r_lib = [_time_ms(gs_call, 100)]
     r_kern = [_time_ms(lambda: warp_field_cm(live, warp), 100) for _ in range(2)]
+    r_lib.append(_time_ms(gs_call, 100))
     r_plain.append(_time_ms(lambda: warp_field_cm_reference(live, warp), 10))
     f_plain = [_time_ms(lambda: fused_gradient_update_reference(
         warped, canonical, warp, lr, **kw), 5)]
@@ -264,16 +357,22 @@ def phase6_timing():
         "resample": (min(r_kern), min(r_plain)),
         "fused_gradient": (min(f_kern), min(f_plain)),
     }
+    vox = live.numel()
+    bounds = {"resample": _bound(4 * 5 * vox, OPS_RESAMPLE * vox),
+              "fused_gradient": _bound(4 * 8 * vox, OPS_FUSED * vox)}
     per_iter = solve_ms / BENCH_ITERS
     print(f"[6] solve at {FULL}, {BENCH_ITERS} iterations, threshold 0: "
           f"{solve_ms:.1f} ms, {per_iter * 1e3:.1f} us/iter, {rate:.4e} voxel*iter/s; "
           f"resample {times['resample'][0] * 1e3:.1f} us (plain "
-          f"{times['resample'][1] * 1e3:.1f} us); fused gradient "
-          f"{times['fused_gradient'][0] * 1e3:.1f} us (plain "
-          f"{times['fused_gradient'][1] * 1e3:.1f} us); runs kernel "
+          f"{times['resample'][1] * 1e3:.1f} us, grid_sample {min(r_lib) * 1e3:.1f} us, "
+          f"max|Δ| {gs_err:.2e} vs B1, bound {bounds['resample'][0] * 1e3:.1f} us); "
+          f"fused gradient {times['fused_gradient'][0] * 1e3:.1f} us (plain "
+          f"{times['fused_gradient'][1] * 1e3:.1f} us, bound "
+          f"{bounds['fused_gradient'][0] * 1e3:.1f} us); runs kernel "
           f"{[round(t * 1e3, 1) for t in r_kern + f_kern]} us, plain "
-          f"{[round(t * 1e3, 1) for t in r_plain + f_plain]} us")
-    return times
+          f"{[round(t * 1e3, 1) for t in r_plain + f_plain]} us, grid_sample "
+          f"{[round(t * 1e3, 1) for t in r_lib]} us")
+    return {name: (*times[name], bounds[name]) for name in times}, min(r_lib)
 
 
 def _kernel_name(mangled):
@@ -305,7 +404,51 @@ def phase7_ptxas():
             kernels.append(f"{short} {regs.group(1) if regs else '?'}r/{spill}B")
         parts.append(f"{name}: {', '.join(kernels)}")
     print(f"[7] ptxas, registers r / spill bytes B (window_kernel<loop, body, tents_once> "
-          f"as codes of resample_variants.LOOPS and BODIES): {'; '.join(parts)}")
+          f"as codes of resample_variants.LOOPS and BODIES, stack_kernel<body, loop> of "
+          f"loop_cost.BODIES and LOOP_KINDS): {'; '.join(parts)}")
+    print(f"[7] SASS of B9 full (stack_kernel<4,0> fori, <4,1> static): {_sass_loops()}")
+
+
+def _sass_loops():
+    """Per B9 ``full`` kernel, from ``cuobjdump -sass``: the SASS
+    instructions a voxel runs, i.e. the code between the x step's two
+    barriers with its pair loop (if any) counted once per pair, and the pair
+    loop's own size. A voxel makes 72 shared loads, so a loop with L of them
+    runs 72 / L times. Instructions predicated off (``@!PT``, nvcc's
+    padding) are not counted."""
+    tool = shutil.which("cuobjdump") or str(Path(_lib._nvcc()).parent / "cuobjdump")
+    if not Path(tool).exists():
+        return "cuobjdump not found"
+    sass = subprocess.run([tool, "-sass", str(_lib.BUILD_DIR / "libstack_bodies.so")],
+                          capture_output=True, text=True, check=True).stdout
+    found = []
+    for chunk in sass.split("Function : ")[1:]:
+        name = _kernel_name(chunk.split()[0])
+        if name not in ("stack_kernel<4,0>", "stack_kernel<4,1>"):
+            continue
+        code = []  # (address, instruction)
+        for line in chunk.splitlines():
+            ins = re.search(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", line)
+            if ins and not ins.group(2).startswith("@!PT"):
+                code.append((int(ins.group(1), 16), ins.group(2).strip()))
+        bars = [a for a, text in code if text.startswith("BAR.SYNC")]
+        if len(bars) < 2:
+            found.append(f"{name}: barriers not found")
+            continue
+        step = [(a, text) for a, text in code if bars[0] < a < bars[-1]]
+        loops = []  # (instructions, shared loads) of each loop with shared loads
+        for addr, text in step:
+            target = re.search(r"BRA\s+(?:`\()?(0x[0-9a-f]+)", text)
+            if target and int(target.group(1), 16) < addr:
+                body = [t for a, t in step if int(target.group(1), 16) <= a <= addr]
+                lds = sum(1 for t in body if re.search(r"\bLDS\b", t))
+                if lds:
+                    loops.append((len(body), lds))
+        loop = min(loops) if loops else None  # the pair loop, innermost
+        per_voxel = len(step) + (loop[0] * (72 // loop[1] - 1) if loop else 0)
+        found.append(f"{name}: {per_voxel} instructions per voxel"
+                     + (f", pair loop {loop[0]} ({loop[1]} LDS)" if loop else ", no loop"))
+    return "; ".join(found) or "stack_kernel<4,*> not in the SASS"
 
 
 def phase8_mxu_conv():
@@ -350,12 +493,41 @@ def phase8_mxu_conv():
     ms = {"stencil": full["stencil_us_per_convpass"] / 1e3,
           "banded_f32": full["tc_f32_us_per_convpass"] / 1e3,
           "banded_bf16": full["tc_bf16_us_per_convpass"] / 1e3}
+    # Yardsticks, one call per conv pass: the stencil as one conv2d with the
+    # taps' outer product (cuDNN, TF32 off as the package sets it), the
+    # banded routes as one einsum over C_y, A, C_z (bf16 operands for bf16).
+    k2 = torch.tensor(taps, device="cuda")
+    k2 = torch.outer(k2, k2)[None, None]
+    bf = [v.bfloat16() for v in (cy, a, cz)]
+    library = {
+        "stencil": (lambda: F.conv2d(a[:, None], k2, padding=len(taps) // 2),
+                    lambda out: out[:, 0], 1e-5),
+        "banded_f32": (lambda: torch.einsum("yY,xyz,zZ->xYZ", cy, a, cz),
+                       lambda out: out, 1e-5),
+        "banded_bf16": (lambda: torch.einsum("yY,xyz,zZ->xYZ", *bf),
+                        lambda out: out.float(), 5e-2),  # bf16 output and intermediate
+    }
+    plain_one = {"stencil": mxu_conv.conv_yz_stencil_reference(a, taps, 1),
+                 "banded_f32": mxu_conv.conv_yz_banded_reference(a, cy, cz, 1),
+                 "banded_bf16": mxu_conv.conv_yz_banded_bf16_reference(a, cy, cz, 1)}
+    library_ms, library_err = {}, {}
+    for key, (call, value, tol) in library.items():
+        library_err[key] = _close(f"{key} library", value(call()), plain_one[key], 0.0, tol)
+        library_ms[key] = best_ms(call, a.device, 10)
+    # One bound for the three routes: the block is resident (no HBM bytes
+    # per pass), and the function is the 7-tap pair on f32 values; the
+    # band products' extra work is the routes' design, not the function's.
+    assert len(taps) == 7
+    bound = _bound(0, OPS_CONV_YZ * a.numel())
+    bounds = dict.fromkeys(worst, bound)
     print(f"[8] conv_yz vs plain at (16, 128, 128) and (5, 48, 80), reps 1 and 3: "
           f"max|Δ| {worst} (stencil, tc_f32 1e-5 vs plain stencil; tc_bf16 vs its "
           f"bf16 plain: 1e-4 on all but {off_bf16:.2e} of values, 1e-2 on all); "
-          f"per conv pass at {FULL}: kernel ms {ms}, plain ms {plain_ms}; "
-          f"launches {launches}")
-    return {key: (launches[key], worst[key], ms[key], plain_ms[key]) for key in worst}
+          f"per conv pass at {FULL}, block resident: kernel ms {ms}, plain ms {plain_ms}, "
+          f"library ms {library_ms} (max|Δ| vs plain {library_err}), bound ms "
+          f"{bounds}; launches {launches}")
+    return {key: _numbers(launches[key], worst[key], ms[key], plain_ms[key], bounds[key],
+                          library_ms[key]) for key in worst}
 
 
 def phase9_fused_io():
@@ -371,13 +543,28 @@ def phase9_fused_io():
         for xb in fused_io_probe.XBS:
             got = fused_io_probe.fused_io_probe(we, ce, ue, body, xb)
             worst = max(worst, _close(f"fused_io_probe {body} xb {xb}", got, want, rtol, atol))
-    plain_ms = best_ms(lambda: fused_io_probe.fused_io_probe_reference(we, ce, ue, "rolls"),
-                       we.device, 3)
-    rolls = next(r for r in rows if r["body"] == "rolls" and r["xb"] == 16)
+    plain_ms = {body: best_ms(lambda: fused_io_probe.fused_io_probe_reference(we, ce, ue, body),
+                              we.device, 3) for body in ("copy", "rolls")}
+    ms = {body: next(r["ms"] for r in rows if r["body"] == body and r["xb"] == 16)
+          for body in ("copy", "rolls")}
+    # The copy body's yardstick: one Tensor.copy_ of the warp's interior.
+    nx = we.shape[0] - 2 * fused_io_probe.H
+    dst = torch.empty((3, nx, *we.shape[1:]), device=we.device)
+    lib_ms = best_ms(lambda: dst.copy_(ue[:, fused_io_probe.H:fused_io_probe.H + nx]),
+                     we.device, 10)
+    _close("copy_ vs copy body", dst, fused_io_probe.fused_io_probe(we, ce, ue, "copy", 16),
+           0.0, 0.0)
+    vox = dst[0].numel()
+    bounds = {"copy": _bound(4 * 6 * vox, 0),
+              "rolls": _bound(fused_io_probe.plan_bytes(FULL), 13 * vox)}
     print(f"[9] fused_io_probe vs plain at {FULL}, 3 bodies x xb {fused_io_probe.XBS}: "
-          f"max|Δ| {worst:.3e} (copy exact, arith 1e-6, rolls rtol 1e-5); rolls xb 16 "
-          f"{rolls['ms'] * 1e3:.1f} us (plain {plain_ms * 1e3:.1f} us); launches {launches}")
-    return launches, worst, rolls["ms"], plain_ms
+          f"max|Δ| {worst:.3e} (copy exact, arith 1e-6, rolls rtol 1e-5); xb 16: rolls "
+          f"{ms['rolls'] * 1e3:.1f} us (plain {plain_ms['rolls'] * 1e3:.1f} us, bound "
+          f"{bounds['rolls'][0] * 1e3:.1f} us), copy {ms['copy'] * 1e3:.1f} us (plain "
+          f"{plain_ms['copy'] * 1e3:.1f} us, copy_ {lib_ms * 1e3:.1f} us, bound "
+          f"{bounds['copy'][0] * 1e3:.1f} us); launches {launches}")
+    return {body: _numbers(launches, worst, ms[body], plain_ms[body], bounds[body],
+                           lib_ms if body == "copy" else None) for body in ms}
 
 
 def phase10_dma():
@@ -392,11 +579,22 @@ def phase10_dma():
         if err != 0.0:
             raise AssertionError(f"dma_probe {shape}: max|Δ| {err} != 0")
     plain_ms = best_ms(lambda: dma_probe.dma_probe_reference(a, u), a.device, 20)
+    # Yardstick: one baddbmm, 2a + [1, -1] @ (u0; u1), on views of the inputs.
+    coef = torch.tensor([1.0, -1.0], device=a.device).view(1, 1, 2)
+
+    def library():
+        return torch.baddbmm(a.view(1, 1, -1), coef, u.view(1, 2, -1), beta=2.0)
+
+    lib_err = _close("baddbmm vs dma_probe", library().view(a.shape),
+                     dma_probe.dma_probe_reference(a, u), 0.0, 1e-5)
+    lib_ms = best_ms(library, a.device, 20)
+    bound = _bound(4 * 4 * a.numel(), 3 * a.numel())
     print(f"[10] dma_probe exact at {dma_probe.SHAPE} and {FULL}; at {FULL} "
-          f"{out['ms'] * 1e3:.1f} us (plain {plain_ms * 1e3:.1f} us), useful "
-          f"{out['useful_gbs']:.1f} GB/s, moved {out['moved_gbs']:.1f} GB/s; "
+          f"{out['ms'] * 1e3:.1f} us (plain {plain_ms * 1e3:.1f} us, baddbmm "
+          f"{lib_ms * 1e3:.1f} us with max|Δ| {lib_err:.1e}, bound {bound[0] * 1e3:.1f} us), "
+          f"useful {out['useful_gbs']:.1f} GB/s, moved {out['moved_gbs']:.1f} GB/s; "
           f"launches {launches}")
-    return launches, 0.0, out["ms"], plain_ms
+    return _numbers(launches, 0.0, out["ms"], plain_ms, bound, lib_ms)
 
 
 def phase11_b2_entry_points():
@@ -440,16 +638,26 @@ def phase12_resample_variants():
     plain_ms = {name: best_ms(lambda: rv.resample_variant_reference(field, warp, name),
                               field.device, 3) for name in names}
     b1_ms = best_ms(lambda: warp_field_cm(field, warp_cm), field.device, 20)
+    # The value-preserving variants' yardstick: grid_sample on the clamped warp.
+    gs_call, gs_value = _field_grid_sample(field, rv.clamp_warp(warp))
+    gs_err = _close("grid_sample vs B1 (clamped)", gs_value(gs_call()), b1, 0.0, 1e-4)
+    lib_ms = best_ms(gs_call, field.device, 20)
     ms = {r["variant"]: r["us_per_call"] / 1e3 for r in rows}
     table = ", ".join(f"{name} {ms[name] * 1e3:.1f} ({plain_ms[name] * 1e3:.0f})"
                       for name in names)
+    vox = field.numel()
     print(f"[12] resample variants vs plain at {FULL} and {RAGGED_X}: max|Δ| "
           f"{max(err.values()):.3e}, value-preserving vs B1 {vs_b1:.3e} (tol 1e-5); "
           f"us per call at {FULL}, kernel (plain): {table}; B1 {b1_ms * 1e3:.1f}; "
+          f"grid_sample {lib_ms * 1e3:.1f} (max|Δ| {gs_err:.2e} vs B1); "
           f"launches {launches}; {time.perf_counter() - t0:.1f} s")
 
+    # One function, the clamped resample, so one bound for B3-B5.
+    bound = _bound(4 * 5 * vox, OPS_CLAMPED_RESAMPLE * vox)
+
     def numbers(entry, name, group):
-        return (launches[entry], max(err[v] for v in group), ms[name], plain_ms[name])
+        return _numbers(launches[entry], max(err[v] for v in group), ms[name],
+                        plain_ms[name], bound, lib_ms)
 
     return {"run_variant": numbers("run_variant", "v6", rv.KERNELS),
             "run_vmemfull": numbers("run_vmemfull", "vf_fori", B45_VARIANTS[:3]),
@@ -475,19 +683,117 @@ def phase13_v10():
         rfield, rwarp, 4, 64, 20), v10_xslab.run_v10_reference(rfield, rwarp), 0.0, 1e-5))
     random = warps[0][2]
     plain_ms = best_ms(lambda: v10_xslab.run_v10_reference(field, random), field.device, 3)
+    gs_call, gs_value = _field_grid_sample(field, resample_variants.clamp_warp(random))
+    gs_err = _close("grid_sample vs v10", gs_value(gs_call()),
+                    v10_xslab.run_v10(field, random, 8), 0.0, 1e-4)
+    lib_ms = best_ms(gs_call, field.device, 20)
+    bound = _bound(4 * 5 * field.numel(), OPS_CLAMPED_RESAMPLE * field.numel())
     table = ", ".join(f"{r['warp']} xb {r['xb']} {r['ms_per_call'] * 1e3:.1f}" for r in rows)
     print(f"[13] v10 vs plain at {FULL} (both warps, xb {v10_xslab.XBS}) and {RAGGED_X}: "
           f"max|Δ| {worst:.3e} (tol 1e-5); us per call: {table}; plain "
-          f"{plain_ms * 1e3:.0f}; launches {launches}; {time.perf_counter() - t0:.1f} s")
+          f"{plain_ms * 1e3:.0f}; grid_sample {lib_ms * 1e3:.1f} (max|Δ| {gs_err:.2e}); "
+          f"random xb 8 bound {bound[0] * 1e3:.1f} ({bound[1]}); launches {launches}; "
+          f"{time.perf_counter() - t0:.1f} s")
     xb8 = next(r for r in rows if r["warp"] == "random" and r["xb"] == 8)
-    return launches, worst, xb8["ms_per_call"], plain_ms
+    return _numbers(launches, worst, xb8["ms_per_call"], plain_ms, bound, lib_ms)
 
 
-def _row(name, source, replaces, numbers):
-    launches, err, ms, plain_ms = numbers
+RAGGED_STACK = (20, 64)  # a ragged (X, Y) for the stack bodies (their Z is 128)
+
+
+def _exact_all(label, pairs):
+    """Hold each (name, kernel, plain) to max|Δ| 0; returns the worst."""
+    return max(_close(f"{label} {name}", got(), want(), 0.0, 0.0) for name, got, want in pairs)
+
+
+def phase14_bisect():
+    t0 = time.perf_counter()
+    bk = bisect_kernel
+    bk.launch_counts.update(dict.fromkeys(bk.launch_counts, 0))
+    levels = bk.main(device="cuda")
+    v8_rows = bk.main(device="cuda", mode="v8")
+    launches = dict(bk.launch_counts)
+    if min(launches.values()) == 0:
+        raise AssertionError(f"bisect_kernel.main left a kernel unlaunched: {launches}")
+    golden_err = max(r["max_abs_err_vs_golden"] for r in v8_rows)
+    # Every instantiation equals its plain version on the random stack,
+    # whose planes are independent, at 128^3 and at a ragged X.
+    err = 0.0
+    for shape in (FULL[:2], RAGGED_STACK):
+        stacked, warp, field = bk.inputs("cuda", shape)
+        err = max(err, _exact_all(f"bisect {shape}", [
+            *((f"level {lv}", lambda lv=lv: bk.run(stacked, warp, lv),
+               lambda lv=lv: bk.bisect_reference(stacked, warp, lv)) for lv in range(5)),
+            *((w, lambda w=w: bk.run_v8(stacked, warp, 64, w),
+               lambda w=w: bk.v8_reference(stacked, warp, w)) for w in bk.WHICH)]))
+        golden = warp_field(field, resample_variants.clamp_warp(warp))
+        golden_err = max(golden_err, _close(f"level 4 {shape} real stack", bk.run(
+            bk.make_stack(field), warp, 4), golden, 0.0, 1e-5))
+    if not golden_err <= 1e-5:
+        raise AssertionError(f"v8 / v8c vs the golden resample: max|Δ| {golden_err:.3e}")
+    stacked, warp, _ = bk.inputs("cuda", FULL[:2])
+    gs_call, gs_value = _stack_grid_sample(stacked, warp)
+    gs_err = _close("grid_sample vs level 4", gs_value(gs_call()),
+                    bk.bisect_reference(stacked, warp, 4), 0.0, 1e-3)
+    lib_ms = best_ms(gs_call, stacked.device, 20)
+    plain_ms = {
+        "level4": best_ms(lambda: bk.bisect_reference(stacked, warp, 4), stacked.device, 3),
+        **{w: best_ms(lambda w=w: bk.v8_reference(stacked, warp, w), stacked.device, 3)
+           for w in bk.WHICH}}
+    ms = {"level4": levels[4]["us_per_call"] / 1e3,
+          **{r["which"]: r["us_per_call"] / 1e3 for r in v8_rows if r["yb"] == 64}}
+    # Level 4, v8 and v8c are one function, the clamped resample off the stack.
+    bound = _bound(_stack_bytes(warp), OPS_CLAMPED_RESAMPLE * warp[..., 0].numel())
+    print(f"[14] bisect_kernel at {FULL}: levels us per call "
+          f"{[round(r['us_per_call'], 1) for r in levels]}; v8/v8c at yb 64, 128 "
+          f"{[(r['which'], r['yb'], round(r['us_per_call'], 1)) for r in v8_rows]}; "
+          f"every instantiation exact vs plain at {FULL} and X, Y = {RAGGED_STACK} on the "
+          f"random stack; level 4, v8, v8c on a real stack vs golden max|Δ| "
+          f"{golden_err:.2e} (tol 1e-5); plain us {[round(v * 1e3) for v in plain_ms.values()]}; "
+          f"grid_sample {lib_ms * 1e3:.1f} us (max|Δ| {gs_err:.2e} vs level 4); bound "
+          f"{bound[0] * 1e3:.1f} us ({bound[1]}); launches {launches}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    entry = {"level4": "run", "v8": "run_v8", "v8c": "run_v8"}
+    return {key: _numbers(launches[entry[key]], err, ms[key], plain_ms[key], bound, lib_ms)
+            for key in ms}
+
+
+def phase15_loop_cost():
+    t0 = time.perf_counter()
+    lc = loop_cost
+    cases = [f"{b}/{lp}" for lp in lc.LOOP_KINDS for b in lc.BODY_KINDS]
+    lc.launch_count = 0
+    rows = lc.main(device="cuda", cases=cases)
+    launches = lc.launch_count
+    if launches == 0:
+        raise AssertionError("loop_cost.main launched no kernel")
+    err = 0.0
+    for shape in (FULL[:2], RAGGED_STACK):
+        stacked, warp = lc.inputs("cuda", shape)
+        err = max(err, _exact_all(f"loop_cost {shape}", [
+            (case, lambda b=b, lp=lp: lc.run(stacked, warp, b, lp),
+             lambda b=b: lc.loop_cost_reference(stacked, warp, b))
+            for case, (b, lp, _) in ((c, lc.parse_case(c)) for c in cases)]))
+    stacked, warp = lc.inputs("cuda", FULL[:2])
+    plain_ms = best_ms(lambda: lc.loop_cost_reference(stacked, warp, "full"), stacked.device, 3)
+    bound = _bound(_stack_bytes(warp), OPS_B9_FULL * warp[..., 0].numel())
+    ms = {r["case"]: r["us_per_call"] / 1e3 for r in rows}
+    table = ", ".join(f"{r['case']} {r['us_per_call']:.1f} ({r['us_per_body']:.4f})"
+                      for r in rows)
+    print(f"[15] loop_cost at {FULL}, us per call (per TPU body): {table}; every "
+          f"instantiation exact vs plain at {FULL} and X, Y = {RAGGED_STACK} on the random "
+          f"stack; full plain {plain_ms * 1e3:.0f} us, bound {bound[0] * 1e3:.1f} us "
+          f"({bound[1]}); launches {launches}; {time.perf_counter() - t0:.1f} s")
+    return {loop: _numbers(launches, err, ms[f"full/{loop}"], plain_ms, bound, None)
+            for loop in lc.LOOP_KINDS}
+
+
+def _row(name, source, replaces, numbers, per_iter=0):
+    """A row of the ``kernels`` line; ``per_iter`` is the kernel's launches
+    per config3 solve iteration."""
     return {"name": name, "route": "cuda",
             "source": f"levelsetfusion_tpu_torch/csrc/{source}", "replaces": replaces,
-            "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            **numbers, "main_path_launches_per_iter": per_iter}
 
 
 def main():
@@ -497,7 +803,7 @@ def main():
     err_fused = phase3_fused()
     phase4_solve_parity()
     launches = phase5_main_path()
-    times = phase6_timing()
+    times, grid_sample_ms = phase6_timing()
     phase7_ptxas()
     conv = phase8_mxu_conv()
     io = phase9_fused_io()
@@ -505,20 +811,28 @@ def main():
     phase11_b2_entry_points()
     variants = phase12_resample_variants()
     v10 = phase13_v10()
+    bisect = phase14_bisect()
+    loops = phase15_loop_cost()
+    ms, plain_ms, bound = times["resample"]
+    resample_row = _numbers(launches["resample"], err_resample, ms, plain_ms, bound,
+                            grid_sample_ms)
+    ms, plain_ms, bound = times["fused_gradient"]
+    fused_row = _numbers(launches["fused_gradient"], err_fused, ms, plain_ms, bound, None)
     kernels = [
         _row("warp_field_cm", "resample.cu",
-             "levelsetfusion_tpu/ops/pallas/resample.py:427",
-             (launches["resample"], err_resample, *times["resample"])),
+             "levelsetfusion_tpu/ops/pallas/resample.py:427", resample_row, 1),
         _row("fused_gradient_update", "fused_gradient.cu",
-             "levelsetfusion_tpu/ops/pallas/fused_gradient.py:1267",
-             (launches["fused_gradient"], err_fused, *times["fused_gradient"])),
+             "levelsetfusion_tpu/ops/pallas/fused_gradient.py:1267", fused_row, 1),
         _row("conv_yz_stencil", "conv_yz.cu", "experiments/mxu_conv.py:117",
              conv["stencil"]),
         _row("conv_yz_banded_f32", "conv_yz.cu", "experiments/mxu_conv.py:122",
              conv["banded_f32"]),
         _row("conv_yz_banded_bf16", "conv_yz.cu", "experiments/mxu_conv.py:149",
              conv["banded_bf16"]),
-        _row("fused_io_probe", "fused_io_probe.cu", "experiments/fused_io_probe.py:71", io),
+        _row("fused_io_probe", "fused_io_probe.cu", "experiments/fused_io_probe.py:71",
+             io["rolls"]),
+        _row("fused_io_probe_copy", "fused_io_probe.cu", "experiments/fused_io_probe.py:71",
+             io["copy"]),
         _row("dma_probe", "dma_probe.cu", "experiments/dma_probe.py:145", dma),
         _row("run_variant", "resample_variants.cu", "experiments/resample_variants.py:197",
              variants["run_variant"]),
@@ -527,6 +841,16 @@ def main():
         _row("run_v7", "resample_variants.cu", "experiments/resample_variants.py:348",
              variants["run_v7"]),
         _row("run_v10", "v10_xslab.cu", "experiments/v10_xslab.py:88", v10),
+        _row("bisect_v8", "stack_bodies.cu", "experiments/bisect_kernel.py:163",
+             bisect["v8"]),
+        _row("bisect_v8c", "stack_bodies.cu", "experiments/bisect_kernel.py:163",
+             bisect["v8c"]),
+        _row("bisect_level4", "stack_bodies.cu", "experiments/bisect_kernel.py:196",
+             bisect["level4"]),
+        _row("loop_cost_full_fori", "stack_bodies.cu", "experiments/loop_cost.py:79",
+             loops["fori"]),
+        _row("loop_cost_full_static", "stack_bodies.cu", "experiments/loop_cost.py:79",
+             loops["static"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

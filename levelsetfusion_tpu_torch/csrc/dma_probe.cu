@@ -32,7 +32,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
+
 namespace {
+
+using namespace lsf_cp;
 
 constexpr int kThreads = 256;
 constexpr int kBlocksPerSm = 2;
@@ -66,20 +70,6 @@ __device__ __forceinline__ Tile tile_at(int lin, const Dims& d) {
   t.ox = min(max(t.i * kXB - kHX, 0), d.nx - kXW);
   t.oy = min(max(t.j * kYB - kHY, 0), d.ny - kYW);
   return t;
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned saddr = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(saddr), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
 // Start the copies of tile `lin`'s three windows into `stage`.

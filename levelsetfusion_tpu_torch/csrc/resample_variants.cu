@@ -53,10 +53,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
 #include "resample_z.cuh"
 
 namespace {
 
+using namespace lsf_cp;
 using namespace lsf_rz;
 
 enum Loop { kPairLoop = 0, kTwoLevel = 1, kChunk = 2, kUnroll = 3 };
@@ -77,20 +79,6 @@ struct Params {
   int xc;     // x rows per CTA
   int slots;  // staged x rows: kN, or kN + 1 for a ring (xc > 1)
 };
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned saddr = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(saddr), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
 
 // Stage padded x row px, padded y rows [y0, y0 + rows), into `slot`: a
 // cp.async per 16 bytes inside the volume, a store of the +1 fill outside.

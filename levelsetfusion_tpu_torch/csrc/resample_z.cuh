@@ -1,5 +1,5 @@
 // The per-voxel arithmetic shared by the shift-enumeration resample kernels
-// (csrc/resample_variants.cu, csrc/v10_xslab.cu): the ±K clamp of the x/y
+// (csrc/resample_variants.cu, csrc/v10_xslab.cu, csrc/stack_bodies.cu): the ±K clamp of the x/y
 // displacement, the z setup and the tent weights, in the float steps of the
 // JAX bodies (experiments/resample_variants.py::_z_setup, _tent). The _rn
 // intrinsics keep nvcc from contracting a product and a sum into one FMA,

@@ -22,7 +22,15 @@ the resample (its plain version ``resample_variants.shift_sum_reference``) —
   under four loop structures, with timing-only bodies
   (``csrc/resample_variants.cu``);
 - ``v10_xslab``: x-row slabs whose pair loop runs over the active shift
-  range only (``csrc/v10_xslab.cu``).
+  range only (``csrc/v10_xslab.cu``);
+
+and the cost bisections of that resample on a stack that is already
+materialised (``csrc/stack_bodies.cu``, one kernel for both; the plain
+version of every body is ``loop_cost.stack_body_reference``) —
+
+- ``loop_cost``: five bodies under a runtime pair loop or a static unroll;
+- ``bisect_kernel``: the production body's features added back one at a
+  time (``run``), and its weights computed once per voxel (``run_v8``).
 
 Each kernel's wrapper sits beside its plain torch version (``*_reference``)
 in the module of its script, and counts its launches in a module-level

@@ -1,0 +1,230 @@
+"""The cost of the resample's pair loop, on a stack that is already
+materialised.
+
+Port of ``experiments/loop_cost.py``. The input is a stack
+``stacked[cy, px, y, z]`` of N = 2K + 2 = 6 planes (px an x row of the
+padded field, XP ≥ X + N − 1 rows) and a channel-last warp (X, Y, 128, 3);
+the output is (X, Y, 128). Each body sums over the 36 pairs t = 6 cy + cx
+(cy outer), with R = stacked[cy, x + cx, y], z0 = z + ⌊uz⌋ and z0c, z1c the
+clipped z0 and z0 + 1:
+
+- ``nothing``: acc + 1;
+- ``slice``: acc + R[z];
+- ``slice0``: acc + stacked[0, x, y, z];
+- ``gather``: acc + stacked[0, x, y, z0c];
+- ``full``: acc + (0.5 R[z0c] + 0.25 R[z1c]).
+
+``run`` takes a body and a loop: ``fori`` (a runtime pair loop) or
+``static`` (the 36 pairs unrolled). The kernel is ``csrc/stack_bodies.cu``,
+which also carries the bodies of ``bisect_kernel``; the plain version of
+every body is ``stack_body_reference``.
+
+``main`` takes the script's cases, ``body/loop[/yb]`` (yb 64 by default), on
+its inputs (a random stack and a 1.5 N(0, 1) warp, seed 0) and prints one
+JSON row per case: µs per call and µs per body as the script defines it,
+per call / ((Y / yb) · X · 36), the TPU grid's bodies.
+
+    python -m levelsetfusion_tpu_torch.experiments.loop_cost [case ...]
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import json
+import sys
+
+import numpy as np
+import torch
+
+from levelsetfusion_tpu_torch.experiments._timing import (
+    best_ms,
+    device_name,
+    resolve_device,
+)
+from levelsetfusion_tpu_torch.ops.kernels import _lib
+
+K = 2
+N = 2 * K + 2  # stack planes and x shifts
+NBODY = N * N
+LANE = 128  # the z extent the kernel takes
+SHAPE = (128, 128)  # the script's (X, Y)
+BODY_KINDS = ("nothing", "slice", "slice0", "gather", "full")
+LOOP_KINDS = ("fori", "static")
+DEFAULT_CASES = ("nothing/fori", "slice/fori", "slice0/fori", "gather/fori", "full/fori",
+                 "nothing/static", "full/static")
+# Body codes of csrc/stack_bodies.cu: this module's, then bisect_kernel's.
+BODIES = BODY_KINDS + ("zsetup", "tents", "acc0", "clampin", "v8", "v8c")
+TILE_Y = 4  # the kernel's y rows per CTA: Y must be a multiple
+
+# Kernel launches since import or the last reset; callers set it to 0 to
+# count the launches of one run.
+launch_count = 0
+
+
+def _tent(t):
+    return torch.clamp_min(1.0 - torch.abs(t), 0.0)
+
+
+def stack_body_reference(stacked: torch.Tensor, warp: torch.Tensor, body: str) -> torch.Tensor:
+    """Plain version of every body of ``csrc/stack_bodies.cu`` (``BODIES``),
+    in the kernel's order: the fill first (``acc0``, ``clampin``, ``v8``)
+    or last (``v8c``), then the 36 pairs, cy outer and cx inner."""
+    nx = warp.shape[0]
+    ux, uy, uz = warp.unbind(-1)
+    if body in ("clampin", "v8", "v8c"):
+        ux, uy = ux.clamp(-K, K), uy.clamp(-K, K)
+    nz = torch.floor(uz)
+    z0 = torch.arange(LANE, device=warp.device) + nz.to(torch.int64)
+    z0c, z1c = z0.clamp(0, LANE - 1), (z0 + 1).clamp(0, LANE - 1)
+    if body in BODY_KINDS:
+        w0, w1 = 0.5, 0.25
+    else:
+        fz = uz - nz
+        zero = torch.zeros((), dtype=uz.dtype, device=uz.device)
+        w0 = torch.where((z0 >= 0) & (z0 < LANE), 1.0 - fz, zero)
+        w1 = torch.where((z0 + 1 >= 0) & (z0 + 1 < LANE), fz, zero)
+    fill = 1.0 - w0 - w1
+
+    def rows(cy, cx):
+        return stacked[cy, cx:cx + nx]
+
+    acc = fill if body in ("acc0", "clampin", "v8") else torch.zeros_like(uz)
+    for t in range(NBODY):
+        cy, cx = divmod(t, N)
+        if body == "nothing":
+            acc = acc + 1.0
+        elif body == "slice":
+            acc = acc + rows(cy, cx)
+        elif body == "slice0":
+            acc = acc + rows(0, 0)
+        elif body == "gather":
+            acc = acc + torch.gather(rows(0, 0), 2, z0c)
+        else:
+            r = rows(cy, cx)
+            g = w0 * torch.gather(r, 2, z0c) + w1 * torch.gather(r, 2, z1c)
+            if body in ("full", "zsetup"):
+                acc = acc + g
+            else:
+                acc = acc + (_tent(uy - float(cy - K)) * _tent(ux - float(cx - K))) * g
+    return acc + fill if body == "v8c" else acc
+
+
+def loop_cost_reference(stacked, warp, body_kind: str) -> torch.Tensor:
+    """Plain version of ``run`` (the loop does not change the value)."""
+    return stack_body_reference(stacked, warp, body_kind)
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    lib = _lib.load("stack_bodies")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.lsf_stack_body.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
+    lib.lsf_stack_body.restype = i
+    lib.lsf_stack_bodies_error_string.argtypes = [i]
+    lib.lsf_stack_bodies_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check_stack_inputs(stacked, warp, yb) -> None:
+    """The wrappers' contract: warp (X, Y, 128, 3) and stacked (6, XP, Y,
+    128) with XP ≥ X + 5 and Y a multiple of ``TILE_Y``, float32,
+    contiguous, one device; the TPU grid's y block ``yb`` divides Y (it
+    changes nothing else)."""
+    if warp.ndim != 4 or warp.shape[-1] != 3 or stacked.ndim != 4:
+        raise ValueError(
+            f"want stacked ({N}, XP, Y, {LANE}) and warp (X, Y, {LANE}, 3), got "
+            f"{tuple(stacked.shape)} and {tuple(warp.shape)}"
+        )
+    nx, ny, nz, _ = warp.shape
+    if nz != LANE:
+        raise ValueError(f"Z must be {LANE}, got {nz}")
+    if nx < 1:
+        raise ValueError("X must be at least 1")
+    n, xp = stacked.shape[:2]
+    if n != N or tuple(stacked.shape[2:]) != (ny, LANE) or xp < nx + N - 1:
+        raise ValueError(
+            f"want stacked ({N}, XP >= {nx + N - 1}, {ny}, {LANE}) for warp "
+            f"{tuple(warp.shape)}, got {tuple(stacked.shape)}"
+        )
+    if ny % TILE_Y:
+        raise ValueError(f"Y must be a multiple of {TILE_Y}, got {ny}")
+    if not isinstance(yb, int) or yb < 1 or ny % yb:
+        raise ValueError(f"y block {yb!r} must divide Y = {ny}")
+    _lib.require_f32_contiguous("stacked", stacked, stacked.device)
+    _lib.require_f32_contiguous("warp", warp, stacked.device)
+    if stacked.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no stack body kernel for device {stacked.device}")
+
+
+def launch(stacked, warp, body: str, loop: str) -> torch.Tensor:
+    """One launch of the stack-body kernel on checked CUDA inputs; the
+    callers count it."""
+    lib = _library()
+    nx, ny = warp.shape[:2]
+    out = torch.empty((nx, ny, LANE), dtype=torch.float32, device=warp.device)
+    with torch.cuda.device(warp.device):
+        err = lib.lsf_stack_body(
+            stacked.data_ptr(), warp.data_ptr(), out.data_ptr(), N, stacked.shape[1],
+            nx, ny, LANE, BODIES.index(body), LOOP_KINDS.index(loop),
+            _lib.stream_handle(warp.device),
+        )
+    _lib.check(err, lib.lsf_stack_bodies_error_string, f"stack body {body}/{loop} launch")
+    return out
+
+
+def run(stacked, warp, body_kind: str, loop_kind: str, yb: int = 64) -> torch.Tensor:
+    """B9: ``body_kind`` in ``BODY_KINDS`` under ``loop_kind`` in
+    ``LOOP_KINDS``. CUDA tensors run the kernel, CPU tensors the plain
+    version."""
+    global launch_count
+    if body_kind not in BODY_KINDS:
+        raise ValueError(f"body must be one of {BODY_KINDS}, got {body_kind!r}")
+    if loop_kind not in LOOP_KINDS:
+        raise ValueError(f"loop must be one of {LOOP_KINDS}, got {loop_kind!r}")
+    check_stack_inputs(stacked, warp, yb)
+    if stacked.device.type == "cpu":
+        return loop_cost_reference(stacked, warp, body_kind)
+    out = launch(stacked, warp, body_kind, loop_kind)
+    launch_count += 1
+    return out
+
+
+def inputs(device, shape=SHAPE):
+    """The script's inputs for (X, Y) = ``shape``, seed 0: a standard
+    normal stack (6, X + 6, Y, 128), then a 1.5 N(0, 1) warp (X, Y, 128, 3)."""
+    nx, ny = shape
+    rng = np.random.default_rng(0)
+    stacked = rng.standard_normal((N, nx + N, ny, LANE)).astype(np.float32)
+    warp = (rng.standard_normal((nx, ny, LANE, 3)) * 1.5).astype(np.float32)
+    return torch.from_numpy(stacked).to(device), torch.from_numpy(warp).to(device)
+
+
+def parse_case(case: str):
+    """(body, loop, yb) of a ``body/loop[/yb]`` case string."""
+    parts = case.split("/")
+    if len(parts) not in (2, 3):
+        raise ValueError(f"case {case!r} is not body/loop[/yb]")
+    return parts[0], parts[1], int(parts[2]) if len(parts) == 3 else 64
+
+
+def main(device="cuda", cases=None, shape=SHAPE) -> list:
+    """One JSON row per case: µs per call (best of 5 after a warm-up) and
+    µs per TPU grid body."""
+    device = resolve_device(device)
+    stacked, warp = inputs(device, shape)
+    nx, ny = shape
+    rows = []
+    for case in cases or DEFAULT_CASES:
+        body, loop, yb = parse_case(case)
+        us = best_ms(lambda: run(stacked, warp, body, loop, yb), device) * 1e3
+        row = {"case": case, "body": body, "loop": loop, "yb": yb,
+               "shape": [nx, ny, LANE], "us_per_call": us,
+               "us_per_body": us / ((ny // yb) * nx * NBODY), "device": device_name(device)}
+        print(json.dumps(row))
+        rows.append(row)
+    return rows
+
+
+if __name__ == "__main__":
+    main(cases=sys.argv[1:] or None)

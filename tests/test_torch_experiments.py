@@ -16,9 +16,7 @@ Also: the wrappers' input checks and launch counters, every entry point end
 to end on the CPU at a tiny size, and the kernel library's rebuild rule."""
 
 import functools
-import importlib.util
 import os
-from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -35,20 +33,8 @@ from levelsetfusion_tpu_torch.experiments import (
 )
 from levelsetfusion_tpu_torch.ops.kernels import _lib
 from levelsetfusion_tpu_torch.ops.kernels.fused_gradient import sobolev_taps
-from tests.torch_parity import assert_close, n, t
-
-REPO = Path(__file__).resolve().parents[1]
-
-
-@functools.cache
-def _jax_script(name):
-    """experiments/<name>.py as a module (experiments/ is not a package)."""
-    spec = importlib.util.spec_from_file_location(
-        f"jax_experiment_{name}", REPO / "experiments" / f"{name}.py"
-    )
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
+from tests.torch_parity import assert_close, interpreted, n, t
+from tests.torch_parity import jax_script as _jax_script
 
 
 def _interpret(kernel, shape):
@@ -114,10 +100,8 @@ def test_bf16_reference_matches_numpy(reps):
 @pytest.mark.parametrize("xb", [8, 16])
 @pytest.mark.parametrize("body", fused_io_probe.BODIES)
 def test_fused_io_reference_matches_jax(body, xb, monkeypatch):
-    jm = _jax_script("fused_io_probe")
+    jm = interpreted(monkeypatch, "fused_io_probe")
     shape = (32, 16, 16)
-    monkeypatch.setattr(jm.pl, "pallas_call",
-                        functools.partial(jm.pl.pallas_call, interpret=True))
     monkeypatch.setattr(jm, "SHAPE", shape)
     monkeypatch.setattr(jm, "CHAIN", 2)
     warped, canon, warp_cm = fused_io_probe.inputs(shape, "cpu")

@@ -17,8 +17,6 @@ Z must be 128 (the TPU lane width fixes the z bounds), so the shapes are
 (4, 16, 128) and (8, 16, 128)."""
 
 import functools
-import importlib.util
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -27,35 +25,18 @@ import torch
 from levelsetfusion_tpu_torch.experiments import resample_variants as rv
 from levelsetfusion_tpu_torch.experiments import v10_xslab
 from levelsetfusion_tpu_torch.ops.interpolation import warp_field
-from tests.torch_parity import assert_close, n, t
+from tests.torch_parity import assert_close, interpreted, n, t
 
-REPO = Path(__file__).resolve().parents[1]
 SMALL = (4, 16, 128)
 SLAB = (8, 16, 128)
 VALUE_PRESERVING = [v for v in rv.KERNELS if v not in rv.TIMING_ONLY] + [
     "vf_fori_yb16", "vf_chunk_yb16", "vf_unroll_yb16", "v7_chunk_yb16", "v7_unroll_yb16"]
 
 
-@functools.cache
-def _jax_script(name):
-    """experiments/<name>.py as a module (experiments/ is not a package)."""
-    spec = importlib.util.spec_from_file_location(
-        f"jax_experiment_{name}", REPO / "experiments" / f"{name}.py"
-    )
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
-
-
 @pytest.fixture
 def interpret(monkeypatch):
     """The JAX script ``name`` with its Pallas kernels in interpret mode."""
-    def load(name):
-        jm = _jax_script(name)
-        monkeypatch.setattr(jm.pl, "pallas_call",
-                            functools.partial(jm.pl.pallas_call, interpret=True))
-        return jm
-    return load
+    return functools.partial(interpreted, monkeypatch)
 
 
 def _inputs(shape, seed, scale=1.5):

@@ -2,11 +2,37 @@
 PyTorch port (tests/test_torch_*.py): the same seeded numpy inputs go to
 both, and outputs are compared as numpy arrays."""
 
+import functools
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import torch
 
 # The tier-1 run uses several xdist workers; keep each one's torch pool small.
 torch.set_num_threads(2)
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+@functools.cache
+def jax_script(name):
+    """experiments/<name>.py as a module (experiments/ is not a package)."""
+    spec = importlib.util.spec_from_file_location(
+        f"jax_experiment_{name}", REPO / "experiments" / f"{name}.py"
+    )
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def interpreted(monkeypatch, name):
+    """The JAX script ``name`` with its Pallas kernels in interpret mode for
+    the rest of the test."""
+    jm = jax_script(name)
+    monkeypatch.setattr(jm.pl, "pallas_call",
+                        functools.partial(jm.pl.pallas_call, interpret=True))
+    return jm
 
 
 def t(a) -> torch.Tensor:
