@@ -7,7 +7,9 @@ Builds every CUDA kernel of the port from ``levelsetfusion_tpu_torch/csrc``
 version on the card, checks a small kernel solve against the plain solve on
 the CPU, runs the config3 preset (128³, full energy) through
 ``cli.run_experiment`` on the card with the kernels' launch counters reset
-just before, and times the solve and each kernel against its plain version.
+just before, and times the solve and each kernel against its plain version
+(the fused gradient at 256³ too, and a ``torch.profiler`` breakdown of a
+short solve: device time per kernel, device-busy time and the host gap).
 Then it drives the port's experiment entry points (``levelsetfusion_tpu_torch.
 experiments``: mxu_conv, fused_io_probe, dma_probe, fused_ablation,
 fused_gradient_bench, resample_variants, v10_xslab, bisect_kernel,
@@ -69,6 +71,12 @@ from levelsetfusion_tpu_torch.utils.config import PRESETS
 PRESET = "config3_3d_full_energy"
 FULL = (128, 128, 128)
 RAGGED = (37, 50, 61)
+# B2's tiles are 8 x 32 (terms) and 16 x 32 (update) (y, z) columns: shapes
+# that straddle them (z over many tiles with a ragged tail, an extent of 1),
+# and config5's per-shard shape, z 16 tiles wide.
+B2_SHAPES = (FULL, RAGGED, (9, 33, 300), (1, 6, 130), (64, 512, 512))
+BIG = (256, 256, 256)  # g (201 MB) no longer fits the 50 MB L2
+PROFILE_ITERS = 20
 # tests/test_fused_gradient.py CASES: (w_smooth, w_ls, killing, sobolev, band_union)
 CASES = [
     (0.2, 0.0, False, False, True),
@@ -208,11 +216,9 @@ def phase1_build():
     with ThreadPoolExecutor(len(LIBRARIES)) as pool:
         list(pool.map(_lib.build, LIBRARIES))
     seconds = time.perf_counter() - t0
-    regs = []
-    for name in ("resample", "fused_gradient"):
-        log = (_lib.BUILD_DIR / f"lib{name}.log").read_text()
-        regs += [ln.strip() for ln in log.splitlines() if "registers" in ln]
-    print(f"[1] build of {len(LIBRARIES)} libraries: {seconds:.1f} s; ptxas: {' | '.join(regs)}")
+    parts = [f"{name}: {', '.join(_ptxas(name))}" for name in ("resample", "fused_gradient")]
+    print(f"[1] build of {len(LIBRARIES)} libraries: {seconds:.1f} s; ptxas, registers r / "
+          f"spill bytes B / shared bytes S: {'; '.join(parts)}")
 
 
 def phase2_resample():
@@ -239,7 +245,7 @@ def phase2_resample():
 
 def phase3_fused():
     worst = 0.0
-    for shape, seed in ((FULL, 3), (RAGGED, 4)):
+    for seed, shape in enumerate(B2_SHAPES, 3):
         canonical, warped, warp = _fields(shape, seed, 0.8)
         rate = torch.tensor(0.3, device="cuda")
         for w_smooth, w_ls, killing, sob, band in CASES:
@@ -255,7 +261,7 @@ def phase3_fused():
             worst = max(worst, _close(case + " warp", got_w, want_w, 2e-5, 2e-5))
             _close(case + " sums", got_s[:4], want_s[:4], 1e-4)
             _close(case + " maxes", got_s[4:], want_s[4:], 1e-5)
-    print(f"[3] fused gradient vs plain, 5 cases at {FULL} and {RAGGED}: "
+    print(f"[3] fused gradient vs plain, 5 cases at {B2_SHAPES}: "
           f"warp max|Δ| {worst:.3e} (rtol/atol 2e-5; sums rtol 1e-4, maxes rtol 1e-5)")
     return worst
 
@@ -357,10 +363,13 @@ def phase6_timing():
         "resample": (min(r_kern), min(r_plain)),
         "fused_gradient": (min(f_kern), min(f_plain)),
     }
+    big_ms = _fused_ms_at(BIG, kw)
+    per_iter = solve_ms / BENCH_ITERS
+    profile = _profile_solve(canonical, live, params.replace(max_iterations=PROFILE_ITERS),
+                             per_iter * 1e3)
     vox = live.numel()
     bounds = {"resample": _bound(4 * 5 * vox, OPS_RESAMPLE * vox),
               "fused_gradient": _bound(4 * 8 * vox, OPS_FUSED * vox)}
-    per_iter = solve_ms / BENCH_ITERS
     print(f"[6] solve at {FULL}, {BENCH_ITERS} iterations, threshold 0: "
           f"{solve_ms:.1f} ms, {per_iter * 1e3:.1f} us/iter, {rate:.4e} voxel*iter/s; "
           f"resample {times['resample'][0] * 1e3:.1f} us (plain "
@@ -372,7 +381,66 @@ def phase6_timing():
           f"{[round(t * 1e3, 1) for t in r_kern + f_kern]} us, plain "
           f"{[round(t * 1e3, 1) for t in r_plain + f_plain]} us, grid_sample "
           f"{[round(t * 1e3, 1) for t in r_lib]} us")
+    print(f"[6] fused gradient at {BIG}: {big_ms * 1e3:.1f} us per call (best of two "
+          f"runs of 20; bound {_bound(4 * 8 * np.prod(BIG), OPS_FUSED * np.prod(BIG))[0] * 1e3:.1f}"
+          f" us)")
+    print(f"[6] {profile}")
     return {name: (*times[name], bounds[name]) for name in times}, min(r_lib)
+
+
+def _fused_ms_at(shape, kw):
+    """Best of two runs of 20 calls of B2 at ``shape``, ms per call."""
+    canonical, warped, warp = _fields(shape, 5, 0.8)
+    lr = torch.tensor(0.5, device="cuda")
+    runs = [_time_ms(lambda: fused_gradient_update(warped, canonical, warp, lr, **kw), 20)
+            for _ in range(2)]
+    return min(runs)
+
+
+def _short_kernel(name):
+    """A device event's name without its arguments, namespaces or (for
+    PyTorch's own kernels) template arguments."""
+    name = name.replace("(anonymous namespace)::", "").removeprefix("void ").split("(")[0]
+    return name if len(name) < 40 else name.split("<")[0]
+
+
+def _profile_solve(canonical, live, params, wall_us):
+    """``torch.profiler`` over one solve of ``params.max_iterations``
+    iterations: device µs per iteration by kernel name and device-busy µs
+    per iteration (the union of the device events), against ``wall_us``,
+    the µs per iteration of the same solve timed without the profiler
+    (which slows the host); their difference is the host gap."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    iters = params.max_iterations
+    solve_single_level(canonical, live, params)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        solve_single_level(canonical, live, params)
+        torch.cuda.synchronize()
+        profiled_us = (time.perf_counter() - t0) * 1e6
+    per_name, spans = {}, []
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        key = _short_kernel(e.name)
+        per_name[key] = per_name.get(key, 0.0) + e.time_range.elapsed_us()
+        spans.append((e.time_range.start, e.time_range.end))
+    if not spans:
+        return f"profiler over a {iters}-iteration solve: no device events (not measured)"
+    busy, reach = 0.0, float("-inf")
+    for start, end in sorted(spans):
+        busy += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
+    table = ", ".join(f"{k} {v / iters:.1f}" for k, v in
+                      sorted(per_name.items(), key=lambda kv: -kv[1])[:10])
+    return (f"profiler over a {iters}-iteration config3 solve at {FULL}: device busy "
+            f"{busy / iters:.1f} us/iter against {wall_us:.1f} us/iter of wall without the "
+            f"profiler: host gap {wall_us - busy / iters:.1f} us/iter, idle share "
+            f"{1 - busy / iters / wall_us:.1%} (wall with the profiler "
+            f"{profiled_us / iters:.1f} us/iter); device us/iter by kernel: {table}")
 
 
 def _kernel_name(mangled):
@@ -390,20 +458,27 @@ def _kernel_name(mangled):
     return f"{name}<{','.join(args)}>" if args else name
 
 
+def _ptxas(library):
+    """``name<template ints> <registers>r/<spill bytes>B/<static shared>S``
+    of every kernel in a library's ``nvcc -Xptxas -v`` log (built in phase
+    1)."""
+    log = (_lib.BUILD_DIR / f"lib{library}.log").read_text()
+    kernels = []
+    for entry in log.split("Compiling entry function '")[1:]:
+        short = _kernel_name(entry.split("'", 1)[0])
+        regs = re.search(r"Used (\d+) registers", entry)
+        spill = sum(int(v) for v in re.findall(r"(\d+) bytes spill (?:stores|loads)", entry))
+        smem = re.search(r"(\d+) bytes smem", entry)
+        kernels.append(f"{short} {regs.group(1) if regs else '?'}r/{spill}B/"
+                       f"{smem.group(1) if smem else 0}S")
+    return kernels
+
+
 def phase7_ptxas():
     """Registers and spills of every experiment kernel instantiation (built in
     phase 1), from each library's ``nvcc -Xptxas -v`` log."""
-    parts = []
-    for name in LIBRARIES[2:]:
-        log = (_lib.BUILD_DIR / f"lib{name}.log").read_text()
-        kernels = []
-        for entry in log.split("Compiling entry function '")[1:]:
-            short = _kernel_name(entry.split("'", 1)[0])
-            regs = re.search(r"Used (\d+) registers", entry)
-            spill = sum(int(v) for v in re.findall(r"(\d+) bytes spill (?:stores|loads)", entry))
-            kernels.append(f"{short} {regs.group(1) if regs else '?'}r/{spill}B")
-        parts.append(f"{name}: {', '.join(kernels)}")
-    print(f"[7] ptxas, registers r / spill bytes B (window_kernel<loop, body, tents_once> "
+    parts = [f"{name}: {', '.join(_ptxas(name))}" for name in LIBRARIES[2:]]
+    print(f"[7] ptxas, registers r / spill bytes B / static shared S (window_kernel<loop, body, tents_once> "
           f"as codes of resample_variants.LOOPS and BODIES, stack_kernel<body, loop> of "
           f"loop_cost.BODIES and LOOP_KINDS): {'; '.join(parts)}")
     print(f"[7] SASS of B9 full (stack_kernel<4,0> fori, <4,1> static): {_sass_loops()}")

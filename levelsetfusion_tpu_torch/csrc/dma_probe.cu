@@ -100,7 +100,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
     const int next = lin + gridDim.x;
     if (next < d.ntiles) start_window(a, u, smem + ((k + 1) & 1) * kStage, next, d);
     cp_async_commit();  // possibly empty: keeps one group per step
-    cp_async_wait_one();  // this step's group has landed
+    cp_async_wait<1>();  // this step's group has landed
     __syncthreads();
     const float* stage = smem + (k & 1) * kStage;
     const Tile t = tile_at(lin, d);

@@ -10,60 +10,112 @@
 //         + w_smooth (-lap u)                                   Tikhonov, or
 //         + w_smooth (-(1+gamma) lap u - grad div u)            Killing
 //         + w_ls (|grad Phi_w| - 1)/(|grad Phi_w| + 1e-5) H(Phi_w) grad Phi_w
-//   g     = Sobolev(g)            separable, zero-padded, axes 0, 1, 2
+//   g     = Sobolev(g)            separable, zero-padded
 //   u'    = u - rate g
 //   stats = [E_data, E_smooth, E_ls, sum|du|, max|du|, max|u'_x|, max|u'_y|,
 //            max|u'_z|]          (the order of FusedStats in the TPU module)
 //
 // The edge conventions are the golden ones (levelsetfusion_tpu/ops/
 // derivatives.py): np.gradient one-sided edges, replicated-edge Laplacian,
-// and the Hessian rows and grad(div u) as np.gradient of np.gradient.
+// and the Hessian rows and grad(div u) as np.gradient of np.gradient. They
+// apply at the faces of the volume only, never at the edge of a tile.
 //
-// What bounds it on the H100: bytes. Every term is a short stencil with a
-// few flops per value read. The TPU design (whole volumes resident in VMEM,
-// rolls with wrap slack, scalar prefetch, SMEM accumulators carried across
-// sequential grid steps) does not carry over: Hopper blocks run in no order,
-// so the reductions go through per-block partials and a final pass.
+// What bounds it on the H100: the function reads Phi_w, Phi_c and u (5
+// volumes) and writes u' (3): 67 MB at 128^3, 20 us at 3.35 TB/s. The TPU
+// design does it all in one pass over haloed windows; here the only volume
+// between the two kernels is g (3 volumes), and nothing else (grad Phi_w,
+// div u, the filter's intermediates) reaches device memory. What bounds the
+// kernels themselves is instructions and their latency, not bytes: the
+// stencils, the Hessian rows, grad div and the three filter passes, with
+// 16-24 warps an SM. Without their staging copies the kernels keep 93% (terms)
+// and 95% (update) of their time, without their stores 92% and 99%; more
+// planes in flight or fewer, longer CTAs make them slower
+// (experiments/fused_gradient_sweep.py; PERF.md).
 //
-// Design, first cut: 7 passes with the Sobolev filter (5 without), each one
-// thread per voxel (the update pass strides over the volume with at most
-// kUpdateBlocks blocks) with z fastest, so that every stencil read along z
-// and every write coalesces; reads along x and y hit L1/L2.
-//   1. derivs:   grad Phi_w (3 volumes) and div u (1 volume, Killing only).
-//   2. terms:    g (3 volumes), reading pass 1's buffers for the Hessian rows
-//                d_j(d_i Phi_w) and for grad(div u), so the composed
-//                one-sided edge forms come out of plain np.gradient reads;
-//                per-block partial energies.
-//   3-5. Sobolev: three 1D zero-padded convolutions, axes 0, 1, 2.
-//   6. update:   u' = u - rate g, per-block sum|du|, max|du|, max|u'_c|.
-//   7. finalize: one block reduces the partials into stats[8].
-// Sums of partials are taken in double. The learning rate is read from
-// device memory, so an adaptive rate never synchronises with the host.
-// Fusing passes is later work: at 128^3 one call takes 413 us, of which the
-// three Sobolev passes take 200 us and the terms pass 125 us (NVIDIA H100
-// 80GB HBM3, 700 W power limit; torch.profiler).
+//   terms_kernel: a CTA owns kTY x kTZ (y, z) columns and walks a chunk of
+//     x. A 6-slot cp.async ring holds the planes a-3 .. a+2 of Phi_w, u0, u1
+//     and u2 with a halo of 2 in y and 4 in z (rows start on 16 bytes, so
+//     they arrive in 16-byte copies when Z is a multiple of 4). Step a
+//     computes grad Phi_w and div u of plane a, on the tile with a halo of 1,
+//     into a 4-slot ring, and the terms of plane a - 2: the Jacobian and the
+//     Laplacian from the input ring, the Hessian rows d_j(d_i Phi_w) and
+//     grad(div u) from the derivative ring. The two halves read only what
+//     earlier steps wrote, so a step needs one barrier. A warp holds 4 y rows
+//     of 8 z; a warp whose voxels all lie inside the faces takes the
+//     stencils without the edge selects. Phi_c is read a plane ahead into a
+//     register. Writes g and one row of energy partials per CTA.
+//   sobolev_update_kernel<R>: a CTA owns kSY x kSZ columns and walks a chunk
+//     of x, a thread two neighbouring z of one row. Each plane of g arrives
+//     with a halo of R in y and R rounded up to 4 in z, zeros outside the
+//     volume (a 3-slot cp.async ring, two planes in flight). Step q filters
+//     plane q + 1 along z (4 outputs an item) into one of two shared
+//     buffers and plane q along y from the other, so again one barrier a
+//     step; the x filter is 2R + 1 running sums in registers, to which each
+//     plane adds its tap. Then u' = u - rate g (u read a plane ahead) and
+//     the update statistics in registers. R = 0 (no filter) reads g
+//     directly.
+//   The last CTA of the second kernel to finish (an atomic ticket after a
+//   __threadfence) folds both kernels' partial rows into stats[8] in double
+//   and resets the ticket: no third launch.
+// The filter runs z, y, x where the reference runs x, y, z: the same sums
+// in another order. Each kernel's x chunks fill one wave of CTAs (the
+// occupancy the CUDA runtime reports), at least kMinXChunk planes each. A
+// thread's staging offsets within a plane are computed once per CTA in 32
+// bits, a plane's base once per plane in 64; the entry point refuses planes
+// of 2^31 voxels or more. The learning rate is read from device memory, so
+// an adaptive rate never synchronises with the host.
+//
+// Measured at 128^3, config3's energy with the 7-tap filter, NVIDIA H100
+// 80GB HBM3, 700.00 W (torch.profiler): terms_kernel 66.2-66.6 us (80
+// registers), sobolev_update_kernel<3> 42.4 us (121 registers), no spills;
+// one call 112.6-113.0 us by CUDA events, 750.8-752.2 us at 256^3. The first
+// port's seven streaming passes took 409.0 us at 128^3.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;   // threads per block in every pass
-constexpr int kPartials = 8;    // doubles per block in the partials buffer
-// The update pass runs at most this many blocks, each striding over the
-// volume, so the final pass folds few of its partials. (The terms pass keeps
-// one thread per voxel: striding there raised its registers from 80 to 167
-// and made it 2.8x slower, 145 -> 401 us at 128^3 on an NVIDIA H100 80GB
-// HBM3 at its 700 W power limit.)
-constexpr int64_t kUpdateBlocks = 1024;
-constexpr int kFinalizeThreads = 1024;
+constexpr int kThreads = 256;
 constexpr int kMaxTaps = 15;
+constexpr int kMaxRadius = kMaxTaps / 2;
 // |Phi| < 1 - 1e-5, with the bound rounded to f32 as the reference compares.
 constexpr float kBand = 0.99999f;
 constexpr float kLsEps = 1e-5f;
+constexpr int kMinXChunk = 16;
+constexpr int kTermCols = 3;    // doubles per terms_kernel partial row
+constexpr int kUpdateCols = 5;  // doubles per sobolev_update_kernel partial row
+
+// terms_kernel: one voxel per thread per plane; a warp holds 4 y rows of 8
+// z, so few warps touch a face of the volume.
+constexpr int kTY = 8, kTZ = 32, kWarpY = 4, kWarpZ = 8;
+static_assert(kTY * kTZ == kThreads && kWarpY * kWarpZ == 32, "one voxel per thread");
+// Input tile: halo 2 in y; in z, 4 on each side so that rows start on 16
+// bytes (z0 - 4 .. z0 + 35). Rows of 40 floats lie 8 banks apart, so a
+// warp's 4 x 8 reads hit 32 banks; the derivative tile (halo 1) keeps the
+// same row length.
+constexpr int kIY = kTY + 4, kIZ0 = 4, kIZ = kTZ + 2 * kIZ0;
+constexpr int kDY = kTY + 2, kDW = kTZ + 2, kDZ = kIZ;
+constexpr int kIPlane = kIY * kIZ, kDPlane = kDY * kDZ;
+static_assert(kIZ % 32 == 8, "rows 8 banks apart");
+constexpr int kAhead = 1;             // input planes in flight during a step
+constexpr int kInSlots = 5 + kAhead;  // input planes a-3 .. a+1 in use at step a
+constexpr int kDerivSlots = 4;        // derivative planes a-3 .. a
+constexpr int kInPerThread = (kIPlane + kThreads - 1) / kThreads;  // 4-byte copies
+static_assert(kIPlane / 4 <= kThreads, "one 16-byte copy per thread and field");
+constexpr int kDPerThread = (kDY * kDW + kThreads - 1) / kThreads;
+constexpr int kTermsSmem =
+    (kInSlots * 4 * kIPlane + kDerivSlots * 4 * kDPlane) * (int)sizeof(float);
+
+// sobolev_update_kernel: kVec neighbouring z of one y row per thread (the
+// y pass reads them as one float2).
+constexpr int kVec = 2;
+constexpr int kSZ = 32, kLanesZ = kSZ / kVec, kSY = kThreads / kLanesZ;
 
 struct Dims {
-  int nx, ny, nz;
+  int nx, ny, nz, plane;
   int64_t n;
 };
 
@@ -72,61 +124,83 @@ struct TermParams {
   int killing, band_union;
 };
 
-// Taps stored reversed (w[t] = taps[n-1-t]) so that the unrolled
-// convolution loop indexes them statically: a dynamic index into a kernel
-// parameter makes every thread copy the struct to local memory (295 us per
-// pass at 128^3 that way, 71 us indexed statically; NVIDIA H100 80GB HBM3,
-// 700 W power limit).
+// Taps stored reversed (w[t] = taps[n-1-t]); every loop over them is
+// unrolled, so they are indexed statically and stay in the parameter space.
 struct Taps {
   float w[kMaxTaps];
-  int n;
 };
 
-// (x, y, z) of voxel v. 64-bit integer division is a long software sequence
-// on the GPU, so volumes under 2^32 voxels (the uniform branch) divide in
-// 32 bits.
-__device__ __forceinline__ void coords(int64_t v, const Dims& d, int c[3]) {
-  if (d.n <= 0xffffffffLL) {
-    const uint32_t u = (uint32_t)v, t = u / (uint32_t)d.nz;
-    c[2] = (int)(u - t * (uint32_t)d.nz);
-    c[1] = (int)(t % (uint32_t)d.ny);
-    c[0] = (int)(t / (uint32_t)d.ny);
-  } else {
-    const int64_t t = v / d.nz;
-    c[2] = (int)(v - t * d.nz);
-    c[1] = (int)(t % d.ny);
-    c[0] = (int)(t / d.ny);
-  }
+// A kernel's grid: tiles of (y, z) columns times chunks of x.
+struct Plan {
+  int tiles_z, tiles_yz, xchunk, blocks;
+};
+
+struct Tile {
+  int x0, x1, y0, z0;
+};
+
+Dims dims(int nx, int ny, int nz) {
+  return Dims{nx, ny, nz, ny * nz, (int64_t)nx * ny * nz};
 }
 
-__device__ __forceinline__ int extent(const Dims& d, int a) {
-  return a == 0 ? d.nx : (a == 1 ? d.ny : d.nz);
+// As many chunks of x as fill one wave of `wave` CTAs, each of at least
+// kMinXChunk planes.
+Plan plan(const Dims& d, int ty, int tz, int wave) {
+  Plan p;
+  p.tiles_z = (d.nz + tz - 1) / tz;
+  p.tiles_yz = p.tiles_z * ((d.ny + ty - 1) / ty);
+  int chunks = wave / p.tiles_yz;
+  const int most = (d.nx + kMinXChunk - 1) / kMinXChunk;
+  if (chunks > most) chunks = most;
+  if (chunks < 1) chunks = 1;
+  p.xchunk = (d.nx + chunks - 1) / chunks;
+  p.blocks = p.tiles_yz * ((d.nx + p.xchunk - 1) / p.xchunk);
+  return p;
 }
 
-__device__ __forceinline__ int64_t stride(const Dims& d, int a) {
-  return a == 0 ? (int64_t)d.ny * d.nz : (a == 1 ? (int64_t)d.nz : 1);
+__device__ __forceinline__ Tile tile_of(const Dims& d, const Plan& p, int ty, int tz) {
+  const int t = blockIdx.x % p.tiles_yz, c = blockIdx.x / p.tiles_yz;
+  Tile r;
+  r.y0 = (t / p.tiles_z) * ty;
+  r.z0 = (t % p.tiles_z) * tz;
+  r.x0 = c * p.xchunk;
+  r.x1 = min(r.x0 + p.xchunk, d.nx);
+  return r;
 }
 
-// np.gradient of f along one axis at voxel v (coordinate i of extent n).
-__device__ __forceinline__ float dnp(const float* __restrict__ f, int64_t v,
-                                     int64_t s, int i, int n) {
-  if (n < 2) return 0.0f;
-  if (i == 0) return f[v + s] - f[v];
-  if (i == n - 1) return f[v] - f[v - s];
-  return (f[v + s] - f[v - s]) * 0.5f;
+// A compile-time choice between the stencils with the volume's edge rules
+// and those of the interior (where the two give the same floats).
+template <bool B>
+struct Edge {
+  static constexpr bool value = B;
+};
+
+// np.gradient at coordinate i of extent n from the values at i-1, i, i+1
+// (a value outside the volume is never used). Selects, not branches: with
+// branches nvcc moves the shared-memory reads of the three values into them
+// and reads them one after another.
+template <bool kEdge>
+__device__ __forceinline__ float dnp3(float m, float c, float p, int i, int n) {
+  if (!kEdge) return (p - m) * 0.5f;
+  const bool lo = i == 0, hi = i == n - 1;
+  const float d = ((hi ? c : p) - (lo ? c : m)) * (lo || hi ? 1.0f : 0.5f);
+  return n < 2 ? 0.0f : d;
 }
 
-// 1-(-2)-1 second difference along one axis, replicated edges.
-__device__ __forceinline__ float d2rep(const float* __restrict__ f, int64_t v,
-                                       int64_t s, int i, int n) {
-  const float c = f[v];
-  const float p = i < n - 1 ? f[v + s] : c;
-  const float m = i > 0 ? f[v - s] : c;
-  return (p - 2.0f * c) + m;
+// 1-(-2)-1 second difference, replicated edges.
+template <bool kEdge>
+__device__ __forceinline__ float d2rep3(float m, float c, float p, int i, int n) {
+  const float pp = !kEdge || i < n - 1 ? p : c;
+  const float mm = !kEdge || i > 0 ? m : c;
+  return (pp - 2.0f * c) + mm;
 }
+
+// Whether i is at least one away from both ends of [0, n).
+__device__ __forceinline__ bool inner(int i, int n) { return i >= 1 && i <= n - 2; }
 
 // Max that propagates NaN, like the reference's reductions.
-__device__ __forceinline__ double nanmax(double a, double b) {
+template <typename T>
+__device__ __forceinline__ T nanmax(T a, T b) {
   return (a != a || a > b) ? a : b;
 }
 
@@ -158,69 +232,128 @@ __device__ void block_reduce(double (&vals)[K]) {
   __syncthreads();
 }
 
-// Pass 1: grad Phi_w and (when div != nullptr) div u.
-__global__ void derivs_kernel(const float* __restrict__ w,
-                              const float* __restrict__ u,
-                              float* __restrict__ gw, float* __restrict__ div,
-                              Dims d) {
-  const int64_t v = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (v >= d.n) return;
-  int c[3];
-  coords(v, d, c);
-#pragma unroll
-  for (int a = 0; a < 3; ++a)
-    gw[a * d.n + v] = dnp(w, v, stride(d, a), c[a], extent(d, a));
-  if (div != nullptr) {
-    float s = dnp(u, v, stride(d, 0), c[0], d.nx);
-    s = s + dnp(u + d.n, v, stride(d, 1), c[1], d.ny);
-    s = s + dnp(u + 2 * d.n, v, 1, c[2], d.nz);
-    div[v] = s;
-  }
-}
+// Three CTAs per SM: the registers of the body are capped at 85 (uncapped
+// it takes 98 and two CTAs per SM, and runs slower; PERF.md).
+__global__ void __launch_bounds__(kThreads, 3)
+    terms_kernel(const float* __restrict__ w, const float* __restrict__ cn,
+                 const float* __restrict__ u, float* __restrict__ g,
+                 double* __restrict__ partial, Dims d, TermParams p, Plan pl) {
+  extern __shared__ float smem[];
+  float* const in = smem;                           // [slot][Phi_w, u0, u1, u2][kIPlane]
+  float* const dv = smem + kInSlots * 4 * kIPlane;  // [slot][gw0, gw1, gw2, div][kDPlane]
+  const int tid = threadIdx.x;
+  const Tile tl = tile_of(d, pl, kTY, kTZ);
+  const bool need_u = p.w_smooth != 0.0f;
+  const bool need_div = need_u && p.killing;
 
-// Pass 2: the combined gradient g and per-block partial energies. The bound
-// keeps the registers at 3 blocks per SM: at 91 registers the pass took
-// 221 us at 128^3, at 56 under the bound 125 us (NVIDIA H100 80GB HBM3,
-// 700 W power limit).
-__global__ void __launch_bounds__(kThreads, 3) terms_kernel(const float* __restrict__ w,
-                             const float* __restrict__ cn,
-                             const float* __restrict__ u,
-                             const float* __restrict__ gw,
-                             const float* __restrict__ div,
-                             float* __restrict__ g,
-                             double* __restrict__ partial, Dims d,
-                             TermParams p) {
-  const int64_t v = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  double e[3] = {0.0, 0.0, 0.0};  // data, smoothing, level set (unweighted)
-  if (v < d.n) {
-    int c[3];
-    coords(v, d, c);
-    int ext[3];
-    int64_t st[3];
+  // This thread's staging copies: shared index and in-plane offset in the
+  // volume (-1 outside it: those slots are never read). Where z is a
+  // multiple of 4, a row is 10 copies of 16 bytes, each inside the volume or
+  // outside it; else 40 of 4.
+  const bool vec = d.nz % 4 == 0;
+  const int per_row = vec ? kIZ / 4 : kIZ, width = vec ? 4 : 1;
+  int in_sm[kInPerThread], in_off[kInPerThread];
 #pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      ext[a] = extent(d, a);
-      st[a] = stride(d, a);
+  for (int k = 0; k < kInPerThread; ++k) {
+    const int i = tid + k * kThreads, iy = i / per_row, iz = i % per_row * width;
+    const int y = tl.y0 - 2 + iy, z = tl.z0 - kIZ0 + iz;
+    in_sm[k] = iy * kIZ + iz;
+    in_off[k] = (iy < kIY && y >= 0 && y < d.ny && z >= 0 && z < d.nz) ? y * d.nz + z : -1;
+  }
+  // Its derivative positions: shared index, (y, z) (y = -1 outside the
+  // volume), and whether its warp's positions are all inside the faces.
+  int d_sm[kDPerThread], d_y[kDPerThread], d_z[kDPerThread];
+  bool d_inner[kDPerThread];
+#pragma unroll
+  for (int k = 0; k < kDPerThread; ++k) {
+    const int i = tid + k * kThreads, dy = i / kDW, dz = i % kDW;
+    d_sm[k] = dy * kDZ + dz;
+    d_y[k] = tl.y0 - 1 + dy;
+    d_z[k] = tl.z0 - 1 + dz;
+    if (i >= kDY * kDW || d_y[k] < 0 || d_y[k] >= d.ny || d_z[k] < 0 || d_z[k] >= d.nz)
+      d_y[k] = -1;
+    d_inner[k] = __all_sync(0xffffffffu, d_y[k] >= 0 && inner(d_y[k], d.ny) &&
+                                             inner(d_z[k], d.nz));
+  }
+  // Its voxel, and whether its warp's voxels are all inside the faces.
+  const int warp = tid >> 5, lane = tid & 31;
+  const int ty = warp / (kTZ / kWarpZ) * kWarpY + lane / kWarpZ;
+  const int tz = warp % (kTZ / kWarpZ) * kWarpZ + lane % kWarpZ;
+  const int vy = tl.y0 + ty, vz = tl.z0 + tz;
+  const bool v_ok = vy < d.ny && vz < d.nz;
+  const bool v_inner = __all_sync(0xffffffffu, v_ok && inner(vy, d.ny) && inner(vz, d.nz));
+  const int ii = (ty + 2) * kIZ + tz + kIZ0, di = (ty + 1) * kDZ + tz + 1;
+  const int v_off = vy * d.nz + vz;
+
+  const auto in_slot = [&](int q) { return in + (q + kInSlots) % kInSlots * 4 * kIPlane; };
+  const auto dv_slot = [&](int q) { return dv + (q + kDerivSlots) % kDerivSlots * 4 * kDPlane; };
+  const auto load = [&](int q) {
+    if (q < 0 || q >= d.nx) return;
+    float* s = in_slot(q);
+    const int64_t base = (int64_t)q * d.plane;
+    const auto copy = [&](float* dst, const float* src) {
+      if (vec)
+        lsf_cp::cp_async16(dst, src);
+      else
+        lsf_cp::cp_async4_zfill(dst, src, true);
+    };
+#pragma unroll
+    for (int k = 0; k < kInPerThread; ++k) {
+      if (in_off[k] < 0) continue;
+      const int64_t v = base + in_off[k];
+      copy(s + in_sm[k], w + v);
+      if (need_u) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) copy(s + (1 + c) * kIPlane + in_sm[k], u + c * d.n + v);
+      }
     }
-    const float wv = w[v], cv = cn[v];
+  };
+
+  // grad Phi_w and div u of plane a at derivative position k.
+  const auto derivs = [&](auto edge, int a, int k) {
+    constexpr bool E = decltype(edge)::value;
+    const float *m = in_slot(a - 1), *c = in_slot(a), *pp = in_slot(a + 1);
+    float* out = dv_slot(a) + d_sm[k];
+    const int j = d_sm[k] + kIZ + kIZ0 - 1, y = d_y[k], z = d_z[k];  // its input index
+    out[0] = dnp3<E>(m[j], c[j], pp[j], a, d.nx);
+    out[kDPlane] = dnp3<E>(c[j - kIZ], c[j], c[j + kIZ], y, d.ny);
+    out[2 * kDPlane] = dnp3<E>(c[j - 1], c[j], c[j + 1], z, d.nz);
+    if (need_div) {
+      const int j0 = kIPlane + j, j1 = 2 * kIPlane + j, j2 = 3 * kIPlane + j;
+      float s = dnp3<E>(m[j0], c[j0], pp[j0], a, d.nx);
+      s = s + dnp3<E>(c[j1 - kIZ], c[j1], c[j1 + kIZ], y, d.ny);
+      s = s + dnp3<E>(c[j2 - 1], c[j2], c[j2 + 1], z, d.nz);
+      out[3 * kDPlane] = s;
+    }
+  };
+
+  double e[3] = {0.0, 0.0, 0.0};  // data, smoothing, level set (unweighted)
+  // The terms of this thread's voxel in plane x.
+  const auto terms = [&](auto edge, int x, float cv) {
+    constexpr bool E = decltype(edge)::value;
+    const float *m = in_slot(x - 1), *c = in_slot(x), *pp = in_slot(x + 1);
+    const float *gm = dv_slot(x - 1), *gc = dv_slot(x), *gp = dv_slot(x + 1);
+    const float wv = c[ii];
     const bool band = fabsf(cv) < kBand || fabsf(wv) < kBand;
     float diff = wv - cv;
     if (p.band_union && !band) diff = 0.0f;
     float grad[3], total[3];
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
-      grad[k] = gw[k * d.n + v];
+      grad[k] = gc[k * kDPlane + di];
       total[k] = p.w_data * (diff * grad[k]);
     }
-    e[0] = (double)(diff * diff);
+    e[0] += (double)(diff * diff);
 
-    if (p.w_smooth != 0.0f) {
+    if (need_u) {
       float jac[3][3];  // jac[i][a] = d_a u_i
 #pragma unroll
-      for (int i = 0; i < 3; ++i)
-#pragma unroll
-        for (int a = 0; a < 3; ++a)
-          jac[i][a] = dnp(u + i * d.n, v, st[a], c[a], ext[a]);
+      for (int i = 0; i < 3; ++i) {
+        const int f = (1 + i) * kIPlane + ii;
+        jac[i][0] = dnp3<E>(m[f], c[f], pp[f], x, d.nx);
+        jac[i][1] = dnp3<E>(c[f - kIZ], c[f], c[f + kIZ], vy, d.ny);
+        jac[i][2] = dnp3<E>(c[f - 1], c[f], c[f + 1], vz, d.nz);
+      }
       float sq = 0.0f, cross = 0.0f;
 #pragma unroll
       for (int i = 0; i < 3; ++i)
@@ -231,22 +364,26 @@ __global__ void __launch_bounds__(kThreads, 3) terms_kernel(const float* __restr
         }
 #pragma unroll
       for (int k = 0; k < 3; ++k) {
-        const float* uk = u + k * d.n;
-        float lap = d2rep(uk, v, st[0], c[0], ext[0]);
-        lap = lap + d2rep(uk, v, st[1], c[1], ext[1]);
-        lap = lap + d2rep(uk, v, st[2], c[2], ext[2]);
-        const float gs =
-            p.killing ? -(1.0f + p.gamma) * lap - dnp(div, v, st[k], c[k], ext[k])
-                      : -lap;
+        const int f = (1 + k) * kIPlane + ii;
+        float lap = d2rep3<E>(m[f], c[f], pp[f], x, d.nx);
+        lap = lap + d2rep3<E>(c[f - kIZ], c[f], c[f + kIZ], vy, d.ny);
+        lap = lap + d2rep3<E>(c[f - 1], c[f], c[f + 1], vz, d.nz);
+        float gs = -lap;
+        if (p.killing) {
+          const int q = 3 * kDPlane + di;
+          const float gd = k == 0   ? dnp3<E>(gm[q], gc[q], gp[q], x, d.nx)
+                           : k == 1 ? dnp3<E>(gc[q - kDZ], gc[q], gc[q + kDZ], vy, d.ny)
+                                    : dnp3<E>(gc[q - 1], gc[q], gc[q + 1], vz, d.nz);
+          gs = -(1.0f + p.gamma) * lap - gd;
+        }
         total[k] = total[k] + p.w_smooth * gs;
       }
       // 1/2 |J + J^T|^2 = |J|^2 + sum_ij J_ij J_ji
-      e[1] = p.killing ? (double)((1.0f + p.gamma) * sq + cross) : (double)sq;
+      e[1] += p.killing ? (double)((1.0f + p.gamma) * sq + cross) : (double)sq;
     }
 
     if (p.w_ls != 0.0f) {
-      const float norm =
-          sqrtf(grad[0] * grad[0] + grad[1] * grad[1] + grad[2] * grad[2]);
+      const float norm = sqrtf(grad[0] * grad[0] + grad[1] * grad[1] + grad[2] * grad[2]);
       float scale = (norm - 1.0f) / (norm + kLsEps);
       float el = (norm - 1.0f) * (norm - 1.0f);
       if (p.band_union && !band) {
@@ -256,102 +393,78 @@ __global__ void __launch_bounds__(kThreads, 3) terms_kernel(const float* __restr
 #pragma unroll
       for (int i = 0; i < 3; ++i) {
         // Row i of the Hessian dotted with grad Phi_w.
+        const int q = i * kDPlane + di;
         float hg = 0.0f;
-#pragma unroll
-        for (int j = 0; j < 3; ++j)
-          hg += dnp(gw + i * d.n, v, st[j], c[j], ext[j]) * grad[j];
+        hg += dnp3<E>(gm[q], gc[q], gp[q], x, d.nx) * grad[0];
+        hg += dnp3<E>(gc[q - kDZ], gc[q], gc[q + kDZ], vy, d.ny) * grad[1];
+        hg += dnp3<E>(gc[q - 1], gc[q], gc[q + 1], vz, d.nz) * grad[2];
         total[i] = total[i] + p.w_ls * (scale * hg);
       }
-      e[2] = (double)el;
+      e[2] += (double)el;
     }
+    const int64_t v = (int64_t)x * d.plane + v_off;
 #pragma unroll
     for (int k = 0; k < 3; ++k) g[k * d.n + v] = total[k];
+  };
+
+  for (int q = tl.x0 - 2; q < tl.x0 + kAhead; ++q) {
+    load(q);
+    lsf_cp::cp_async_commit();
+  }
+  // Phi_c of this thread's voxel one plane ahead.
+  float cv_next = v_ok ? __ldg(cn + (int64_t)tl.x0 * d.plane + v_off) : 0.0f;
+  // Step a: the derivatives of plane a and the terms of plane a - 2, which
+  // read only what earlier steps wrote, so one barrier a step. A warp whose
+  // positions all lie inside the faces takes the stencils without edge rules.
+  for (int a = tl.x0 - 1; a <= tl.x1 + 1; ++a) {
+    lsf_cp::cp_async_wait<kAhead - 1>();  // plane a + 1 has landed
+    __syncthreads();  // for every thread, and every read of the slots reused below is done
+    if (a + 1 + kAhead <= tl.x1 + 1) load(a + 1 + kAhead);
+    lsf_cp::cp_async_commit();
+    if (a <= tl.x1 && a >= 0 && a < d.nx) {
+      const bool a_inner = inner(a, d.nx);
+#pragma unroll
+      for (int k = 0; k < kDPerThread; ++k) {
+        if (d_y[k] < 0) continue;
+        if (a_inner && d_inner[k])
+          derivs(Edge<false>(), a, k);
+        else
+          derivs(Edge<true>(), a, k);
+      }
+    }
+    const int x = a - 2;
+    const float cv = cv_next;
+    if (x >= tl.x0 && x + 1 < tl.x1 && v_ok)
+      cv_next = __ldg(cn + (int64_t)(x + 1) * d.plane + v_off);
+    if (x >= tl.x0 && v_ok) {
+      if (v_inner && inner(x, d.nx))
+        terms(Edge<false>(), x, cv);
+      else
+        terms(Edge<true>(), x, cv);
+    }
   }
   block_reduce<3, false>(e);
-  if (threadIdx.x == 0) {
+  if (tid == 0) {
 #pragma unroll
-    for (int k = 0; k < 3; ++k) partial[(int64_t)blockIdx.x * kPartials + k] = e[k];
+    for (int k = 0; k < 3; ++k) partial[(int64_t)blockIdx.x * kTermCols + k] = e[k];
   }
 }
 
-// Passes 3-5: "same" 1D convolution along one axis with zero padding; grid
-// y is the component.
-__global__ void conv_axis_kernel(const float* __restrict__ in,
-                                 float* __restrict__ out, Dims d, int axis,
-                                 Taps taps) {
-  const int64_t v = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (v >= d.n) return;
-  const int64_t e = blockIdx.y * d.n + v;
-  int c[3];
-  coords(v, d, c);
-  const int i = c[axis], n = extent(d, axis);
-  const int64_t s = stride(d, axis);
-  const int r = taps.n / 2;
-  float acc = 0.0f;
-#pragma unroll
-  for (int t = 0; t < kMaxTaps; ++t) {
-    if (t < taps.n) {
-      // Convolution (not correlation): offset t - r takes tap n-1-t.
-      const int j = i + t - r;
-      const float val = (j >= 0 && j < n) ? in[e + (int64_t)(t - r) * s] : 0.0f;
-      acc = acc + taps.w[t] * val;
-    }
-  }
-  out[e] = acc;
-}
-
-// Pass 6: u' = u - rate g, and per-block update statistics.
-__global__ void update_kernel(const float* __restrict__ u,
-                              const float* __restrict__ g,
-                              const float* __restrict__ rate,
-                              float* __restrict__ new_u,
-                              double* __restrict__ partial, Dims d) {
-  double sum[1] = {0.0};
-  double mx[4] = {0.0, 0.0, 0.0, 0.0};  // max|du|, max|u'_0..2|
-  const float neg_rate = -__ldg(rate);
-  for (int64_t v = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; v < d.n;
-       v += (int64_t)gridDim.x * blockDim.x) {
-    float upd[3];
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      upd[k] = neg_rate * g[k * d.n + v];
-      const float nu = u[k * d.n + v] + upd[k];
-      new_u[k * d.n + v] = nu;
-      mx[1 + k] = nanmax(mx[1 + k], (double)fabsf(nu));
-    }
-    const float ul = sqrtf(upd[0] * upd[0] + upd[1] * upd[1] + upd[2] * upd[2]);
-    sum[0] += (double)ul;
-    mx[0] = nanmax(mx[0], (double)ul);
-  }
-  block_reduce<1, false>(sum);
-  block_reduce<4, true>(mx);
-  if (threadIdx.x == 0) {
-    double* out = partial + (int64_t)blockIdx.x * kPartials;
-    out[3] = sum[0];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) out[4 + k] = mx[k];
-  }
-}
-
-// Pass 7: one block folds the per-block partials into stats[8]: columns
-// 0-2 of the terms pass's `blocks` rows, columns 3-7 of the update pass's
-// `ublocks` rows.
-__global__ void finalize_kernel(const double* __restrict__ partial,
-                                int64_t blocks, int64_t ublocks,
-                                float* __restrict__ stats,
-                                float w_data, float w_smooth, float w_ls) {
+// The last CTA's fold of every partial row into stats[8].
+__device__ void fold_partials(const double* partial, int term_rows, int update_rows,
+                              float* stats, float w_data, float w_smooth, float w_ls) {
   double sum[4] = {0.0, 0.0, 0.0, 0.0};
   double mx[4] = {0.0, 0.0, 0.0, 0.0};
-  for (int64_t b = threadIdx.x; b < blocks; b += blockDim.x) {
-    const double* row = partial + b * kPartials;
+  for (int b = threadIdx.x; b < term_rows; b += blockDim.x) {
 #pragma unroll
-    for (int k = 0; k < 3; ++k) sum[k] += row[k];
+    for (int k = 0; k < 3; ++k) sum[k] += __ldcg(partial + (int64_t)b * kTermCols + k);
   }
-  for (int64_t b = threadIdx.x; b < ublocks; b += blockDim.x) {
-    const double* row = partial + b * kPartials;
-    sum[3] += row[3];
+  const double* rows = partial + (int64_t)term_rows * kTermCols;
+  for (int b = threadIdx.x; b < update_rows; b += blockDim.x) {
+    const double* row = rows + (int64_t)b * kUpdateCols;
+    sum[3] += __ldcg(row);
 #pragma unroll
-    for (int k = 0; k < 4; ++k) mx[k] = nanmax(mx[k], row[4 + k]);
+    for (int k = 0; k < 4; ++k) mx[k] = nanmax(mx[k], __ldcg(row + 1 + k));
   }
   block_reduce<4, false>(sum);
   block_reduce<4, true>(mx);
@@ -365,75 +478,348 @@ __global__ void finalize_kernel(const double* __restrict__ partial,
   }
 }
 
-int64_t blocks_for(int64_t n) { return (n + kThreads - 1) / kThreads; }
+constexpr int kGSlots = 3;  // input planes q+1 .. q+3 of step q, two in flight
 
-int64_t update_blocks_for(int64_t n) {
-  const int64_t b = blocks_for(n);
-  return b < kUpdateBlocks ? b : kUpdateBlocks;
+// The z halo of the update kernel's input tile: R rounded up to 4, so that
+// its rows start on 16 bytes.
+template <int R>
+__host__ __device__ constexpr int halo4() {
+  return (R + 3) / 4 * 4;
+}
+
+template <int R>
+constexpr int update_smem_bytes() {
+  return R == 0 ? 0
+                : (kGSlots * 3 * (kSY + 2 * R) * (kSZ + 2 * halo4<R>()) +
+                   2 * 3 * (kSY + 2 * R) * kSZ) *
+                      (int)sizeof(float);
+}
+
+template <int R>
+__global__ void __launch_bounds__(kThreads)
+    sobolev_update_kernel(const float* __restrict__ g, const float* __restrict__ u,
+                          const float* __restrict__ rate, float* __restrict__ new_u,
+                          double* __restrict__ partial, int term_rows,
+                          unsigned* __restrict__ ticket, float* __restrict__ stats,
+                          Dims d, Plan pl, Taps taps, float w_data, float w_smooth,
+                          float w_ls) {
+  constexpr int K = 2 * R + 1, H = halo4<R>();
+  constexpr int IY = kSY + 2 * R, IZ = kSZ + 2 * H, IPlane = IY * IZ;
+  constexpr int InPerThread = (IPlane + kThreads - 1) / kThreads;  // 4-byte copies
+  extern __shared__ float smem[];
+  float* const in = smem;  // [kGSlots][3][IY][IZ]: g, halo R in y and H in z
+  float* const mid = in + kGSlots * 3 * IPlane;  // [2][3][IY][kSZ]: filtered along z
+  const int tid = threadIdx.x, ty = tid / kLanesZ, tz = tid % kLanesZ * kVec;
+  const Tile tl = tile_of(d, pl, kSY, kSZ);
+  const int y = tl.y0 + ty, z = tl.z0 + tz;
+  const float neg_rate = -__ldg(rate);
+  double sum[1] = {0.0};
+  float mx[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // max|du|, max|u'_0..2|
+
+  // u at this thread's voxels of plane x (0 outside the volume).
+  const auto read_u = [&](int x, float (&uv)[3][kVec]) {
+    const int64_t v0 = (int64_t)x * d.plane + y * d.nz + z;
+#pragma unroll
+    for (int e = 0; e < kVec; ++e)
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+        uv[k][e] = y < d.ny && z + e < d.nz ? u[k * d.n + v0 + e] : 0.0f;
+  };
+  // u' and the statistics at this thread's voxels of plane x.
+  const auto update = [&](int x, const float (&gf)[3][kVec], const float (&uv)[3][kVec]) {
+    if (y >= d.ny) return;
+    const int64_t v0 = (int64_t)x * d.plane + y * d.nz + z;
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) {
+      if (z + e >= d.nz) break;
+      float upd[3];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        upd[k] = neg_rate * gf[k][e];
+        const float nu = uv[k][e] + upd[k];
+        new_u[k * d.n + v0 + e] = nu;
+        mx[1 + k] = nanmax(mx[1 + k], fabsf(nu));
+      }
+      const float ul = sqrtf(upd[0] * upd[0] + upd[1] * upd[1] + upd[2] * upd[2]);
+      sum[0] += (double)ul;
+      mx[0] = nanmax(mx[0], ul);
+    }
+  };
+
+  if constexpr (R == 0) {
+    for (int x = tl.x0; x < tl.x1; ++x) {
+      float gf[3][kVec] = {}, uv[3][kVec];
+      const int64_t v0 = (int64_t)x * d.plane + y * d.nz + z;
+#pragma unroll
+      for (int e = 0; e < kVec; ++e)
+        if (y < d.ny && z + e < d.nz) {
+#pragma unroll
+          for (int k = 0; k < 3; ++k) gf[k][e] = g[k * d.n + v0 + e];
+        }
+      read_u(x, uv);
+      update(x, gf, uv);
+    }
+  } else {
+    // Staging copies: shared index (-1: none) and in-plane offset (-1:
+    // outside the volume, zero-filled). Where z is a multiple of 4 a row is
+    // IZ / 4 copies of 16 bytes, each inside the volume or outside it; else
+    // IZ of 4.
+    const bool vec = d.nz % 4 == 0;
+    const int per_row = vec ? IZ / 4 : IZ, width = vec ? 4 : 1;
+    int in_sm[InPerThread], in_off[InPerThread];
+#pragma unroll
+    for (int k = 0; k < InPerThread; ++k) {
+      const int i = tid + k * kThreads, iy = i / per_row, iz = i % per_row * width;
+      const int gy = tl.y0 - R + iy, gz = tl.z0 - H + iz;
+      in_sm[k] = iy < IY ? iy * IZ + iz : -1;
+      in_off[k] = gy >= 0 && gy < d.ny && gz >= 0 && gz < d.nz ? gy * d.nz + gz : -1;
+    }
+    const int q0 = tl.x0 - R, q1 = tl.x1 + R;  // the input planes [q0, q1)
+    const auto inside = [&](int q) { return q >= 0 && q < d.nx; };
+    const auto g_slot = [&](int q) { return in + (q - q0) % kGSlots * 3 * IPlane; };
+    const auto load = [&](int q) {
+      if (q >= q1 || !inside(q)) return;
+      float* s = g_slot(q);
+      const int64_t base = (int64_t)q * d.plane;
+#pragma unroll
+      for (int k = 0; k < InPerThread; ++k) {
+        if (in_sm[k] < 0) continue;
+        const bool ok = in_off[k] >= 0;
+        const int64_t src = base + (ok ? in_off[k] : 0);
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          if (vec)
+            lsf_cp::cp_async16_zfill(s + c * IPlane + in_sm[k], g + c * d.n + src, ok);
+          else
+            lsf_cp::cp_async4_zfill(s + c * IPlane + in_sm[k], g + c * d.n + src, ok);
+        }
+      }
+    };
+    // Plane q along z, into mid slot (q - q0) & 1: an item is 4 outputs of
+    // one row of one component, from 16-byte reads.
+    const auto conv_z = [&](int q) {
+      if (q >= q1 || !inside(q)) return;
+      constexpr int kQuads = kSZ / 4, kReads = (2 * H + 4) / 4;
+      const float* s = g_slot(q);
+      float* m = mid + ((q - q0) & 1) * 3 * IY * kSZ;
+      for (int it = tid; it < 3 * IY * kQuads; it += kThreads) {
+        const int c = it / (IY * kQuads), rest = it - c * (IY * kQuads);
+        const int iy = rest / kQuads, oz = rest % kQuads * 4;
+        const float4* row = reinterpret_cast<const float4*>(s + c * IPlane + iy * IZ + oz);
+        float v[4 * kReads];  // input columns oz .. oz + 4 kReads - 1
+#pragma unroll
+        for (int h = 0; h < kReads; ++h) {
+          const float4 p4 = row[h];
+          v[4 * h] = p4.x;
+          v[4 * h + 1] = p4.y;
+          v[4 * h + 2] = p4.z;
+          v[4 * h + 3] = p4.w;
+        }
+        float o[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+        for (int t = 0; t < K; ++t)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[e] = o[e] + taps.w[t] * v[H - R + t + e];
+        *reinterpret_cast<float4*>(m + (c * IY + iy) * kSZ + oz) =
+            make_float4(o[0], o[1], o[2], o[3]);
+      }
+    };
+
+    // acc[c][e][j]: the x filter's partial sum of plane x = q - R + j, to
+    // which plane q adds its tap 2R - j; planes outside the volume add 0.
+    float acc[3][kVec][K] = {};
+    float uv[3][kVec];
+    read_u(tl.x0, uv);
+    for (int q = q0; q < q0 + kGSlots; ++q) {
+      load(q);
+      lsf_cp::cp_async_commit();
+    }
+    lsf_cp::cp_async_wait<kGSlots - 1>();
+    __syncthreads();
+    conv_z(q0);
+    // Step q: plane q + 1 along z and plane q along y, which read only what
+    // earlier steps wrote, so one barrier a step.
+    for (int q = q0; q < q1; ++q) {
+      lsf_cp::cp_async_wait<kGSlots - 2>();  // plane q + 1 has landed
+      __syncthreads();  // for every thread, and plane q's slots are free
+      load(q + kGSlots);
+      lsf_cp::cp_async_commit();
+      conv_z(q + 1);
+      float f[3][kVec] = {};  // plane q filtered along z and y
+      if (inside(q)) {
+        const float* m = mid + ((q - q0) & 1) * 3 * IY * kSZ;
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+#pragma unroll
+          for (int t = 0; t < K; ++t) {
+            const float2 m2 = *reinterpret_cast<const float2*>(m + (c * IY + ty + t) * kSZ + tz);
+            f[c][0] = f[c][0] + taps.w[t] * m2.x;
+            f[c][1] = f[c][1] + taps.w[t] * m2.y;
+          }
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+#pragma unroll
+        for (int e = 0; e < kVec; ++e)
+#pragma unroll
+          for (int j = 0; j < K; ++j) acc[c][e][j] = acc[c][e][j] + taps.w[2 * R - j] * f[c][e];
+      const int x = q - R;
+      if (x >= tl.x0) {
+        float gf[3][kVec];
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+#pragma unroll
+          for (int e = 0; e < kVec; ++e) gf[c][e] = acc[c][e][0];
+        update(x, gf, uv);
+        if (x + 1 < tl.x1) read_u(x + 1, uv);  // a plane ahead
+      }
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) {
+#pragma unroll
+          for (int j = 0; j + 1 < K; ++j) acc[c][e][j] = acc[c][e][j + 1];
+          acc[c][e][K - 1] = 0.0f;
+        }
+    }
+  }
+
+  // A max of floats is a float, so the maxes are taken in float.
+  double mxd[4] = {mx[0], mx[1], mx[2], mx[3]};
+  block_reduce<1, false>(sum);
+  block_reduce<4, true>(mxd);
+  __shared__ bool last;
+  if (tid == 0) {
+    double* row = partial + (int64_t)term_rows * kTermCols + (int64_t)blockIdx.x * kUpdateCols;
+    row[0] = sum[0];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) row[1 + k] = mxd[k];
+    __threadfence();
+    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  fold_partials(partial, term_rows, (int)gridDim.x, stats, w_data, w_smooth, w_ls);
+  if (tid == 0) *ticket = 0u;
+}
+
+// Sets a kernel's dynamic shared memory and returns how many of its CTAs
+// the card holds at once; the first call per kernel asks the CUDA runtime.
+int wave_of(const void* kernel, int smem, int& cached) {
+  if (cached > 0) return cached;
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) !=
+          cudaSuccess ||
+      cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem) !=
+          cudaSuccess)
+    return -1;
+  cached = sms * (per_sm > 0 ? per_sm : 1);
+  return cached;
+}
+
+int terms_wave() {
+  static int cached = 0;
+  return wave_of((const void*)terms_kernel, kTermsSmem, cached);
+}
+
+template <int R>
+int update_wave() {
+  static int cached = 0;
+  return wave_of((const void*)sobolev_update_kernel<R>, update_smem_bytes<R>(), cached);
+}
+
+int update_wave(int radius) {
+  static_assert(kMaxRadius == 7, "one case per radius");
+  switch (radius) {
+    case 0: return update_wave<0>();
+    case 1: return update_wave<1>();
+    case 2: return update_wave<2>();
+    case 3: return update_wave<3>();
+    case 4: return update_wave<4>();
+    case 5: return update_wave<5>();
+    case 6: return update_wave<6>();
+    default: return update_wave<7>();
+  }
+}
+
+template <int R>
+cudaError_t launch_update(const float* g, const float* u, const float* rate, float* new_u,
+                          double* partial, int term_rows, unsigned* ticket, float* stats,
+                          const Dims& d, const Plan& pl, const Taps& taps, float w_data,
+                          float w_smooth, float w_ls, cudaStream_t s) {
+  sobolev_update_kernel<R><<<pl.blocks, kThreads, update_smem_bytes<R>(), s>>>(
+      g, u, rate, new_u, partial, term_rows, ticket, stats, d, pl, taps, w_data, w_smooth,
+      w_ls);
+  return cudaGetLastError();
+}
+
+bool args_ok(int nx, int ny, int nz, int ntaps) {
+  return nx >= 1 && ny >= 1 && nz >= 1 && (int64_t)ny * nz <= INT32_MAX && ntaps >= 0 &&
+         ntaps <= kMaxTaps && (ntaps == 0 || ntaps % 2 == 1);
 }
 
 }  // namespace
 
-#define LSF_CHECK_LAUNCH()                        \
-  do {                                            \
-    const cudaError_t err_ = cudaGetLastError();  \
-    if (err_ != cudaSuccess) return (int)err_;    \
-  } while (0)
-
-// Doubles the caller must provide in `partial` for a volume of this shape.
-extern "C" int64_t lsf_fused_partials_len(int nx, int ny, int nz) {
-  return blocks_for((int64_t)nx * ny * nz) * kPartials;
+// Doubles the caller must provide in `partial` for a volume of this shape
+// and tap count (0 for arguments the kernels refuse, -1 if the CUDA runtime could
+// not be asked for the grid).
+extern "C" int64_t lsf_fused_partials_len(int nx, int ny, int nz, int ntaps) {
+  if (!args_ok(nx, ny, nz, ntaps)) return 0;
+  const int tw = terms_wave(), uw = update_wave(ntaps / 2);
+  if (tw < 0 || uw < 0) return -1;
+  const Dims d = dims(nx, ny, nz);
+  return (int64_t)plan(d, kTY, kTZ, tw).blocks * kTermCols +
+         (int64_t)plan(d, kSY, kSZ, uw).blocks * kUpdateCols;
 }
 
 // All pointers are device pointers except `taps` (host, ntaps floats).
-// Scratch: gw 3n floats, div n floats (Killing with w_smooth != 0, else may
-// be null), g 3n floats, tmp 3n floats (with taps, else may be null),
-// partial lsf_fused_partials_len doubles. Returns a cudaError_t.
+// Scratch: g 3n floats, partial lsf_fused_partials_len doubles, ticket one
+// unsigned that is 0 before the call and is 0 again after it (the kernels
+// reset it). Returns a cudaError_t.
 extern "C" int lsf_fused_gradient_update(
     const float* warped, const float* canonical, const float* warp_cm,
-    const float* rate, float* new_warp, float* stats, float* gw, float* div,
-    float* g, float* tmp, double* partial, int nx, int ny, int nz,
-    float w_data, float w_smooth, float w_ls, int killing, float gamma,
-    int band_union, const float* taps, int ntaps, void* stream_ptr) {
-  const bool need_div = killing && w_smooth != 0.0f;
-  if (ntaps < 0 || ntaps > kMaxTaps || (ntaps && ntaps % 2 == 0) ||
-      (ntaps && tmp == nullptr) || (need_div && div == nullptr))
+    const float* rate, float* new_warp, float* stats, float* g, double* partial,
+    unsigned* ticket, int nx, int ny, int nz, float w_data, float w_smooth,
+    float w_ls, int killing, float gamma, int band_union, const float* taps,
+    int ntaps, void* stream_ptr) {
+  if (!args_ok(nx, ny, nz, ntaps) || !warped || !canonical || !warp_cm || !rate ||
+      !new_warp || !stats || !g || !partial || !ticket || (ntaps && !taps))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
-  const Dims d{nx, ny, nz, (int64_t)nx * ny * nz};
-  const TermParams p{w_data, w_smooth, w_ls, gamma, killing, band_union};
-  const int64_t blocks = blocks_for(d.n);
-  const int64_t ublocks = update_blocks_for(d.n);
-
-  derivs_kernel<<<(unsigned)blocks, kThreads, 0, stream>>>(
-      warped, warp_cm, gw, need_div ? div : nullptr, d);
-  LSF_CHECK_LAUNCH();
-  terms_kernel<<<(unsigned)blocks, kThreads, 0, stream>>>(
-      warped, canonical, warp_cm, gw, need_div ? div : nullptr, g, partial, d, p);
-  LSF_CHECK_LAUNCH();
-
-  const float* filtered = g;
-  if (ntaps) {
-    Taps t;
-    t.n = ntaps;
-    for (int i = 0; i < ntaps; ++i) t.w[i] = taps[ntaps - 1 - i];
-    const dim3 blocks3((unsigned)blocks, 3);
-    conv_axis_kernel<<<blocks3, kThreads, 0, stream>>>(g, tmp, d, 0, t);
-    LSF_CHECK_LAUNCH();
-    conv_axis_kernel<<<blocks3, kThreads, 0, stream>>>(tmp, g, d, 1, t);
-    LSF_CHECK_LAUNCH();
-    conv_axis_kernel<<<blocks3, kThreads, 0, stream>>>(g, tmp, d, 2, t);
-    LSF_CHECK_LAUNCH();
-    filtered = tmp;
+  const int tw = terms_wave(), uw = update_wave(ntaps / 2);
+  if (tw < 0 || uw < 0) {
+    const cudaError_t err = cudaGetLastError();
+    return (int)(err != cudaSuccess ? err : cudaErrorUnknown);
   }
+  const cudaStream_t s = (cudaStream_t)stream_ptr;
+  const Dims d = dims(nx, ny, nz);
+  const TermParams p{w_data, w_smooth, w_ls, gamma, killing, band_union};
+  const Plan tp = plan(d, kTY, kTZ, tw), up = plan(d, kSY, kSZ, uw);
+  terms_kernel<<<tp.blocks, kThreads, kTermsSmem, s>>>(warped, canonical, warp_cm, g, partial,
+                                                      d, p, tp);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
 
-  update_kernel<<<(unsigned)ublocks, kThreads, 0, stream>>>(
-      warp_cm, filtered, rate, new_warp, partial, d);
-  LSF_CHECK_LAUNCH();
-  finalize_kernel<<<1, kFinalizeThreads, 0, stream>>>(
-      partial, blocks, ublocks, stats, w_data, w_smooth, w_ls);
-  LSF_CHECK_LAUNCH();
-  return (int)cudaSuccess;
+  Taps t = {};
+  for (int i = 0; i < ntaps; ++i) t.w[i] = taps[ntaps - 1 - i];
+  const auto args = [&](auto launch) {
+    return launch(g, warp_cm, rate, new_warp, partial, tp.blocks, ticket, stats, d, up, t,
+                  w_data, w_smooth, w_ls, s);
+  };
+  switch (ntaps / 2) {
+    case 0: err = args(launch_update<0>); break;
+    case 1: err = args(launch_update<1>); break;
+    case 2: err = args(launch_update<2>); break;
+    case 3: err = args(launch_update<3>); break;
+    case 4: err = args(launch_update<4>); break;
+    case 5: err = args(launch_update<5>); break;
+    case 6: err = args(launch_update<6>); break;
+    default: err = args(launch_update<7>); break;
+  }
+  return (int)err;
 }
 
 extern "C" const char* lsf_fused_error_string(int err) {

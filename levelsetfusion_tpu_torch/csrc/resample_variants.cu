@@ -194,7 +194,7 @@ __global__ void __launch_bounds__(kThreads) window_kernel(Params p) {
         stage_row(p, smem + sl * rps * kLane, x0 + xi + kN, y0, rps);
       }
       cp_async_commit();  // possibly empty: one group per step
-      cp_async_wait_one();  // every group but this step's has landed
+      cp_async_wait<1>();  // every group but this step's has landed
       __syncthreads();
       const int slot0 = xi % p.slots;
       for (int r = r_first; r < p.ty; r += r_step) {

@@ -176,7 +176,7 @@ __global__ void __launch_bounds__(kThreads, 2) stack_kernel(Params p) {
       stage(p, smem + ((xi + kN) % kSlots) * kSlotFloats, x0 + xi + kN, y0);
     }
     cp_async_commit();    // possibly empty: one group per step
-    cp_async_wait_one();  // every group but this step's has landed
+    cp_async_wait<1>();  // every group but this step's has landed
     __syncthreads();
     const int64_t v = ((int64_t)(x0 + xi) * p.ny + y0 + r) * kLane + z;
     p.out[v] = voxel<B, L>(smem, xi % kSlots, r, z, p.warp + 3 * v);

@@ -13,6 +13,8 @@ Ported so far: the design experiments of the fused gradient kernel —
 - ``fused_ablation`` and ``fused_gradient_bench``: the fused gradient kernel
   (``ops/kernels/fused_gradient.py``) timed with energy terms switched off,
   and against the plain torch stencil step;
+- ``fused_gradient_sweep`` (no script of its own): variants of the fused
+  gradient's CUDA source, each kernel timed (GPU only);
 
 and the resample's design space, the clamped (±2) shift-enumeration form of
 the resample (its plain version ``resample_variants.shift_sum_reference``) —

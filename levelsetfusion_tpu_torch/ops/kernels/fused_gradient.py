@@ -3,8 +3,10 @@ Sobolev filter, warp update, energies and update statistics, in one call.
 
 Port of the TPU kernel ``levelsetfusion_tpu/ops/pallas/fused_gradient.py::
 fused_gradient_update`` (whole volume; the sharded window arguments come
-with the distributed solvers); the CUDA kernels are
-``csrc/fused_gradient.cu``. ``fused_gradient_update`` launches them for
+with the distributed solvers). The CUDA version, ``csrc/fused_gradient.cu``,
+is two kernels: the terms (to g) over tiles of x planes, then the Sobolev
+filter, the update and the statistics, whose last block folds every block's
+partial sums into the stats. ``fused_gradient_update`` launches them for
 CUDA tensors and uses the plain version ``fused_gradient_update_reference``
 only for CPU tensors.
 
@@ -94,24 +96,38 @@ def fused_gradient_update_reference(
     return to_component_major(new_warp), stats
 
 
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# The prototypes of lsf_fused_partials_len and lsf_fused_gradient_update in
+# csrc/fused_gradient.cu, in order (tests/test_torch_fused_gradient.py holds
+# them together).
+PARTIALS_ARGTYPES = (_I, _I, _I, _I)  # nx, ny, nz, ntaps
+UPDATE_ARGTYPES = (
+    _P, _P, _P, _P, _P, _P,  # warped, canonical, warp_cm, rate, new_warp, stats
+    _P, _P, _P,  # scratch: g, partial, ticket
+    _I, _I, _I,  # nx, ny, nz
+    _F, _F, _F, _I, _F, _I,  # w_data, w_smooth, w_ls, killing, gamma, band_union
+    ctypes.POINTER(ctypes.c_float), _I,  # taps (host), ntaps
+    _P,  # stream
+)
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = _lib.load("fused_gradient")
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.lsf_fused_partials_len.argtypes = [i, i, i]
+    lib.lsf_fused_partials_len.argtypes = list(PARTIALS_ARGTYPES)
     lib.lsf_fused_partials_len.restype = ctypes.c_int64
-    lib.lsf_fused_gradient_update.argtypes = [
-        p, p, p, p, p, p,  # warped, canonical, warp_cm, rate, new_warp, stats
-        p, p, p, p, p,  # scratch: gw, div, g, tmp, partial
-        i, i, i,  # nx, ny, nz
-        f, f, f, i, f, i,  # w_data, w_smooth, w_ls, killing, gamma, band_union
-        ctypes.POINTER(ctypes.c_float), i,  # taps (host), ntaps
-        p,  # stream
-    ]
-    lib.lsf_fused_gradient_update.restype = i
-    lib.lsf_fused_error_string.argtypes = [i]
+    lib.lsf_fused_gradient_update.argtypes = list(UPDATE_ARGTYPES)
+    lib.lsf_fused_gradient_update.restype = _I
+    lib.lsf_fused_error_string.argtypes = [_I]
     lib.lsf_fused_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def _ticket(device: torch.device, shape: tuple) -> torch.Tensor:
+    """The completion counter of the kernels' last-block fold: zeroed once
+    here, reset to 0 by the kernels at the end of every call."""
+    return torch.zeros(1, dtype=torch.int32, device=device)
 
 
 def fused_gradient_update(
@@ -159,22 +175,18 @@ def fused_gradient_update(
     vol = (3, nx, ny, nz)
     new_warp = torch.empty(vol, dtype=torch.float32, device=device)
     stats = torch.empty(8, dtype=torch.float32, device=device)
-    gw = torch.empty(vol, dtype=torch.float32, device=device)
     g = torch.empty(vol, dtype=torch.float32, device=device)
-    need_div = bool(killing) and w_smooth != 0.0
-    div = torch.empty((nx, ny, nz), dtype=torch.float32, device=device) if need_div else None
-    tmp = torch.empty(vol, dtype=torch.float32, device=device) if taps else None
-    partial = torch.empty(
-        lib.lsf_fused_partials_len(nx, ny, nz), dtype=torch.float64, device=device
-    )
+    ticket = _ticket(device, (nx, ny, nz))
     taps_arr = (ctypes.c_float * max(len(taps), 1))(*np.asarray(taps, np.float32))
     with torch.cuda.device(device):
+        rows = lib.lsf_fused_partials_len(nx, ny, nz, len(taps))
+        if rows <= 0:
+            raise RuntimeError(f"fused_gradient_update: no grid for {(nx, ny, nz)}")
+        partial = torch.empty(rows, dtype=torch.float64, device=device)
         err = lib.lsf_fused_gradient_update(
             warped.data_ptr(), canonical.data_ptr(), warp_cm.data_ptr(),
             rate.data_ptr(), new_warp.data_ptr(), stats.data_ptr(),
-            gw.data_ptr(), div.data_ptr() if div is not None else None,
-            g.data_ptr(), tmp.data_ptr() if tmp is not None else None,
-            partial.data_ptr(),
+            g.data_ptr(), partial.data_ptr(), ticket.data_ptr(),
             nx, ny, nz,
             w_data, w_smooth, w_ls, int(bool(killing)), gamma, int(bool(band_union)),
             taps_arr, len(taps),

@@ -8,6 +8,10 @@ energies and sums rtol 1e-4, maxes rtol 1e-4 atol 1e-7. On the CPU the
 wrapper takes the plain version; chip_smoke.py holds the CUDA kernels
 against it on the card."""
 
+import ctypes
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,6 +21,7 @@ from levelsetfusion_tpu.ops import sobolev as jsob
 from levelsetfusion_tpu.ops import terms as jterms
 from levelsetfusion_tpu.ops.derivatives import gradient as jgradient
 from levelsetfusion_tpu.ops.pallas import fused_gradient as jfg
+from levelsetfusion_tpu_torch.experiments import fused_gradient_sweep
 from levelsetfusion_tpu_torch.ops.kernels import fused_gradient as kfg
 from tests.torch_parity import assert_close, n, t, tsdf_like
 
@@ -83,10 +88,13 @@ def test_matches_tpu_kernel_in_interpret_mode(case):
 
 
 @pytest.mark.parametrize("case", CASES)
-@pytest.mark.parametrize("shape", [(13, 10, 9), (3, 4, 5)])
+@pytest.mark.parametrize("shape", [(13, 10, 9), (3, 4, 5), (9, 33, 300), (1, 6, 130)])
 def test_ragged_shape_matches_golden(case, shape):
     """Shapes the TPU kernel's gates refuse; every row is a global edge row
-    at (3, 4, 5)."""
+    at (3, 4, 5). (9, 33, 300) and (1, 6, 130) straddle the CUDA kernels'
+    tiles (8 x 32 and 16 x 32 (y, z) columns: z over many tiles with a
+    ragged tail, an extent of 1); chip_smoke.py holds the kernels to this
+    plain version at the same shapes."""
     canonical, warped, warp = tsdf_like(shape, 21)
     kw = _kwargs(*case)
     kernel = jnp.asarray(jsob.generate_1d_sobolev_kernel(7, 0.1)) if case[3] else None
@@ -125,3 +133,47 @@ def test_rejects_bad_inputs(change, err):
     with pytest.raises(err):
         kfg.fused_gradient_update(args.pop("warped"), args.pop("canonical"),
                                   args.pop("warp_cm"), args.pop("rate"), **args)
+
+
+def _prototype(name):
+    """Kinds of the parameters of ``extern "C" ... name(...)`` in
+    csrc/fused_gradient.cu: "pointer", "int" or "float"."""
+    src = (Path(kfg.__file__).resolve().parents[2] / "csrc" / "fused_gradient.cu").read_text()
+    m = re.search(r'extern "C" [\w ]+\b' + name + r"\(([^)]*)\)", src)
+    assert m, f"no prototype of {name}"
+    kinds = []
+    for param in m.group(1).split(","):
+        words = param.split()
+        kinds.append("pointer" if "*" in param else {"int": "int", "float": "float"}[words[0]])
+    return kinds
+
+
+def _kind(argtype):
+    if argtype is ctypes.c_void_p or issubclass(argtype, ctypes._Pointer):
+        return "pointer"
+    return {ctypes.c_int: "int", ctypes.c_float: "float"}[argtype]
+
+
+@pytest.mark.parametrize("name,argtypes", [
+    ("lsf_fused_gradient_update", kfg.UPDATE_ARGTYPES),
+    ("lsf_fused_partials_len", kfg.PARTIALS_ARGTYPES),
+])
+def test_argtypes_match_c_prototype(name, argtypes):
+    """A mismatch would pass arguments in the wrong registers at launch,
+    which nothing on the CPU can see."""
+    assert [_kind(a) for a in argtypes] == _prototype(name)
+
+
+@pytest.mark.parametrize("name", list(fused_gradient_sweep.VARIANTS))
+def test_sweep_variant_applies_to_the_kernel_source(name):
+    """Every substitution of the sweep finds its anchor exactly once in
+    csrc/fused_gradient.cu, so the variants built on the card are the ones
+    the sweep names."""
+    text = fused_gradient_sweep.variant_source(name)
+    assert ("__global__" in text) and (text != fused_gradient_sweep.SOURCE.read_text()
+                                       or name == "base")
+
+
+def test_sweep_needs_the_gpu():
+    with pytest.raises(RuntimeError):
+        fused_gradient_sweep.main(device="cpu")
