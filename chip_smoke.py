@@ -43,6 +43,7 @@ import torch.nn.functional as F
 
 from levelsetfusion_tpu_torch.cli import _grid, _pair_3d, run_experiment
 from levelsetfusion_tpu_torch.experiments import (
+    _sweep,
     bisect_kernel,
     dma_probe,
     fused_ablation,
@@ -53,7 +54,7 @@ from levelsetfusion_tpu_torch.experiments import (
     resample_variants,
     v10_xslab,
 )
-from levelsetfusion_tpu_torch.experiments._timing import best_ms
+from levelsetfusion_tpu_torch.experiments._timing import SPIN_CYCLES, best_ms
 from levelsetfusion_tpu_torch.models.single_level import solve_single_level
 from levelsetfusion_tpu_torch.ops.interpolation import warp_field
 from levelsetfusion_tpu_torch.ops.kernels import _lib, fused_gradient, resample
@@ -71,6 +72,8 @@ from levelsetfusion_tpu_torch.utils.config import PRESETS
 PRESET = "config3_3d_full_energy"
 FULL = (128, 128, 128)
 RAGGED = (37, 50, 61)
+CONFIG1 = (96, 48)  # config1's 2D grid (utils/config.py)
+STREAM_ROUNDS = 20
 # B2's tiles are 8 x 32 (terms) and 16 x 32 (update) (y, z) columns: shapes
 # that straddle them (z over many tiles with a ragged tail, an extent of 1),
 # and config5's per-shard shape, z 16 tiles wide.
@@ -104,7 +107,7 @@ OPS_B9_FULL = 1 + 2 * 35 + 3  # floor; the sums of the 36 z0c and z1c values; 2 
 OPS_CONV_YZ = 2 * (2 * 7 - 1)  # the 7-tap y and z passes, 7 muls and 6 adds a tap row
 
 
-def _fields(shape, seed, warp_scale):
+def _fields(shape, seed, warp_scale, device="cuda"):
     """TSDF-like canonical and warped fields and a (3, *shape) warp, as the
     JAX package's fused-gradient tests build them."""
     rng = np.random.default_rng(seed)
@@ -112,7 +115,7 @@ def _fields(shape, seed, warp_scale):
     canonical = np.tanh(base * 0.4)
     warped = np.tanh(np.roll(base, 1, axis=0) * 0.4)
     warp = (rng.standard_normal((3,) + shape) * warp_scale).astype(np.float32)
-    return [torch.from_numpy(a).cuda() for a in (canonical, warped, warp)]
+    return [torch.from_numpy(a).to(device) for a in (canonical, warped, warp)]
 
 
 def _close(name, got, want, rtol, atol=0.0):
@@ -188,10 +191,15 @@ def _stack_bytes(warp):
 
 
 def _time_ms(fn, reps):
-    """Mean ms per call over ``reps`` calls, CUDA events, after a warm-up."""
+    """Mean ms per call over ``reps`` calls, CUDA events, after a warm-up. A
+    spin of about 100 us a call is queued before the start event, so that
+    the host has enqueued the calls by the time the device reaches them
+    (where a call takes the host less) and the events time the device's
+    work."""
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES * reps // 10)
     start.record()
     for _ in range(reps):
         fn()
@@ -222,25 +230,39 @@ def phase1_build():
 
 
 def phase2_resample():
+    """B1 is bit-exact with its plain version: at 128^3, RAGGED (Z = 61, a
+    ragged last z tile) and config1's 2D grid (run as (X, 1, Z)), with |u|
+    up to 6 voxels, so that many corners read outside."""
     worst = 0.0
-    for shape, seed in ((FULL, 1), (RAGGED, 2)):
+    for shape, seed in ((FULL, 1), (RAGGED, 2), (CONFIG1, 3)):
         rng = np.random.default_rng(seed)
         live = torch.from_numpy(
             np.tanh(rng.standard_normal(shape).astype(np.float32))
         ).cuda()
-        # |u| up to 6 voxels: many corners read outside the volume.
         warp = torch.from_numpy(
-            rng.uniform(-6.0, 6.0, (3,) + shape).astype(np.float32)
+            rng.uniform(-6.0, 6.0, (len(shape),) + shape).astype(np.float32)
         ).cuda()
         got = warp_field_cm(live, warp)
         torch.cuda.synchronize()
         want = warp_field_cm_reference(live, warp)
-        err = float(torch.max(torch.abs(got - want)))
-        if not err <= 1e-5:
-            raise AssertionError(f"resample {shape}: max|Δ| {err:.3e} > 1e-5")
-        worst = max(worst, err)
-    print(f"[2] resample vs plain at {FULL} and {RAGGED}: max|Δ| {worst:.3e} (tol 1e-5)")
+        worst = max(worst, _close(f"resample {shape}", got, want, 0.0, 0.0))
+    print(f"[2] resample vs plain at {FULL}, {RAGGED} and {CONFIG1}, |u| <= 6: "
+          f"max|Δ| {worst} (exact)")
     return worst
+
+
+def _case_kw(w_smooth, w_ls, killing, sob, band):
+    return dict(w_data=1.0, w_smooth=w_smooth, w_ls=w_ls, killing=killing, gamma=0.1,
+                band_union=band, taps=sobolev_taps(7, 0.1) if sob else ())
+
+
+def _check_fused(case, got, want):
+    """B2's output against its plain version at phase 3's tolerances; returns
+    the warp's max|Δ|."""
+    (got_w, got_s), (want_w, want_s) = got, want
+    _close(case + " sums", got_s[:4], want_s[:4], 1e-4)
+    _close(case + " maxes", got_s[4:], want_s[4:], 1e-5)
+    return _close(case + " warp", got_w, want_w, 2e-5, 2e-5)
 
 
 def phase3_fused():
@@ -248,22 +270,69 @@ def phase3_fused():
     for seed, shape in enumerate(B2_SHAPES, 3):
         canonical, warped, warp = _fields(shape, seed, 0.8)
         rate = torch.tensor(0.3, device="cuda")
-        for w_smooth, w_ls, killing, sob, band in CASES:
-            kw = dict(w_data=1.0, w_smooth=w_smooth, w_ls=w_ls, killing=killing,
-                      gamma=0.1, band_union=band,
-                      taps=sobolev_taps(7, 0.1) if sob else ())
-            got_w, got_s = fused_gradient_update(warped, canonical, warp, rate, **kw)
+        for case in CASES:
+            kw = _case_kw(*case)
+            got = fused_gradient_update(warped, canonical, warp, rate, **kw)
             torch.cuda.synchronize()
-            want_w, want_s = fused_gradient_update_reference(
-                warped, canonical, warp, rate, **kw
-            )
-            case = f"fused {shape} case {(w_smooth, w_ls, killing, sob, band)}"
-            worst = max(worst, _close(case + " warp", got_w, want_w, 2e-5, 2e-5))
-            _close(case + " sums", got_s[:4], want_s[:4], 1e-4)
-            _close(case + " maxes", got_s[4:], want_s[4:], 1e-5)
+            want = fused_gradient_update_reference(warped, canonical, warp, rate, **kw)
+            worst = max(worst, _check_fused(f"fused {shape} case {case}", got, want))
     print(f"[3] fused gradient vs plain, 5 cases at {B2_SHAPES}: "
           f"warp max|Δ| {worst:.3e} (rtol/atol 2e-5; sums rtol 1e-4, maxes rtol 1e-5)")
+    worst = max(worst, _two_streams())
+    _second_device()
     return worst
+
+
+def _two_streams():
+    """Two same-shape B2 calls enqueued on two CUDA streams, STREAM_ROUNDS
+    rounds: each call counts its completion on its own stream's ticket, so
+    each one's warp and stats equal its plain version's."""
+    kw = _case_kw(*CASES[2])
+    worst = 0.0
+    for shape in (RAGGED, FULL):
+        inputs = [_fields(shape, seed, 0.8) for seed in (11, 12)]
+        rate = torch.tensor(0.3, device="cuda")
+        wants = [fused_gradient_update_reference(w, c, u, rate, **kw) for c, w, u in inputs]
+        streams = [torch.cuda.Stream() for _ in inputs]
+        torch.cuda.synchronize()
+        for r in range(STREAM_ROUNDS):
+            outs = []
+            for stream, (c, w, u) in zip(streams, inputs):
+                with torch.cuda.stream(stream):
+                    outs.append(fused_gradient_update(w, c, u, rate, **kw))
+            torch.cuda.synchronize()
+            for i, (got, want) in enumerate(zip(outs, wants)):
+                worst = max(worst, _check_fused(f"fused {shape} stream {i} round {r}", got,
+                                                want))
+    print(f"[3] fused gradient, two same-shape calls on two streams, {STREAM_ROUNDS} rounds "
+          f"at {RAGGED} and {FULL}: each held to its plain version, warp max|Δ| {worst:.3e}")
+    return worst
+
+
+def _second_device():
+    """One B2 case on device 1 where the process sees one, after B2 ran on
+    device 0: the kernels' shared memory opt-in and occupancy are asked for
+    per device. B1 and v10, whose grids use the same per-device cache, run
+    there too."""
+    if torch.cuda.device_count() < 2:
+        print(f"[3] C2's second device was not exercised: this process sees "
+              f"{torch.cuda.device_count()} device")
+        return
+    device = torch.device("cuda", 1)
+    canonical, warped, warp = _fields(FULL, 13, 0.8, device)
+    rate = torch.tensor(0.3, device=device)
+    kw = _case_kw(*CASES[2])
+    got = fused_gradient_update(warped, canonical, warp, rate, **kw)
+    torch.cuda.synchronize(device)
+    want = fused_gradient_update_reference(warped, canonical, warp, rate, **kw)
+    err = _check_fused(f"fused {FULL} on {device}", got, want)
+    b1 = _close(f"resample {FULL} on {device}", warp_field_cm(warped, warp),
+                warp_field_cm_reference(warped, warp), 0.0, 0.0)
+    field, warps = v10_xslab.inputs(FULL, device)
+    v10 = _close(f"v10 {FULL} on {device}", v10_xslab.run_v10(field, warps[0][2]),
+                 v10_xslab.run_v10_reference(field, warps[0][2]), 0.0, 1e-5)
+    print(f"[3] on {device} ({torch.cuda.get_device_name(device)}): fused gradient warp "
+          f"max|Δ| {err:.3e}, resample {b1}, v10 {v10:.3e}")
 
 
 def phase4_solve_parity():
@@ -351,6 +420,13 @@ def phase6_timing():
     r_plain = [_time_ms(lambda: warp_field_cm_reference(live, warp), 10)]
     r_lib = [_time_ms(gs_call, 100)]
     r_kern = [_time_ms(lambda: warp_field_cm(live, warp), 100) for _ in range(2)]
+    # What the host takes to enqueue one call, against the kernel's time.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(100):
+        warp_field_cm(live, warp)
+    enqueue_us = (time.perf_counter() - t0) * 1e4
+    torch.cuda.synchronize()
     r_lib.append(_time_ms(gs_call, 100))
     r_plain.append(_time_ms(lambda: warp_field_cm_reference(live, warp), 10))
     f_plain = [_time_ms(lambda: fused_gradient_update_reference(
@@ -374,7 +450,9 @@ def phase6_timing():
           f"{solve_ms:.1f} ms, {per_iter * 1e3:.1f} us/iter, {rate:.4e} voxel*iter/s; "
           f"resample {times['resample'][0] * 1e3:.1f} us (plain "
           f"{times['resample'][1] * 1e3:.1f} us, grid_sample {min(r_lib) * 1e3:.1f} us, "
-          f"max|Δ| {gs_err:.2e} vs B1, bound {bounds['resample'][0] * 1e3:.1f} us); "
+          f"max|Δ| {gs_err:.2e} vs B1, bound {bounds['resample'][0] * 1e3:.1f} us, "
+          f"B1/grid_sample {times['resample'][0] / min(r_lib):.3f}, host enqueue "
+          f"{enqueue_us:.1f} us a call); "
           f"fused gradient {times['fused_gradient'][0] * 1e3:.1f} us (plain "
           f"{times['fused_gradient'][1] * 1e3:.1f} us, bound "
           f"{bounds['fused_gradient'][0] * 1e3:.1f} us); runs kernel "
@@ -444,8 +522,9 @@ def _profile_solve(canonical, live, params, wall_us):
 
 
 def _kernel_name(mangled):
-    """``name<template ints>`` of a kernel in an anonymous namespace, from
-    its mangled name (``_ZN<len><namespace><len><name>I...E...``)."""
+    """``name<template ints>`` (or ``<uint32_t>``, ``<uint64_t>``) of a
+    kernel in an anonymous namespace, from its mangled name
+    (``_ZN<len><namespace><len><name>I...E...``)."""
     m = re.match(r"_ZN(\d+)", mangled)
     if not m:
         return mangled
@@ -455,6 +534,9 @@ def _kernel_name(mangled):
         return mangled
     name, tail = rest[m.end():m.end() + int(m.group(1))], rest[m.end() + int(m.group(1)):]
     args = re.findall(r"L[ib](\d+)E", tail.split("EEv")[0]) if tail.startswith("I") else []
+    offset = re.match(r"I([jm])E", tail)  # resample.cu's offset type
+    if offset:
+        args = ["uint32_t" if offset.group(1) == "j" else "uint64_t"]
     return f"{name}<{','.join(args)}>" if args else name
 
 
@@ -764,8 +846,12 @@ def phase13_v10():
     lib_ms = best_ms(gs_call, field.device, 20)
     bound = _bound(4 * 5 * field.numel(), OPS_CLAMPED_RESAMPLE * field.numel())
     table = ", ".join(f"{r['warp']} xb {r['xb']} {r['ms_per_call'] * 1e3:.1f}" for r in rows)
+    grids = ", ".join(f"xb {xb} {v10_xslab.grids(FULL, xb)}" for xb in v10_xslab.XBS)
+    passes = {tag: _sweep.kernel_us(lambda warp=warp: v10_xslab.run_v10(field, warp, 8))
+              for tag, _, warp in warps}
     print(f"[13] v10 vs plain at {FULL} (both warps, xb {v10_xslab.XBS}) and {RAGGED_X}: "
-          f"max|Δ| {worst:.3e} (tol 1e-5); us per call: {table}; plain "
+          f"max|Δ| {worst:.3e} (tol 1e-5); CTAs (bounds pass, compute pass) at yb 64: "
+          f"{grids}; us per call: {table}; device us per pass at xb 8: {passes}; plain "
           f"{plain_ms * 1e3:.0f}; grid_sample {lib_ms * 1e3:.1f} (max|Δ| {gs_err:.2e}); "
           f"random xb 8 bound {bound[0] * 1e3:.1f} ({bound[1]}); launches {launches}; "
           f"{time.perf_counter() - t0:.1f} s")

@@ -56,10 +56,13 @@
 //     directly.
 //   The last CTA of the second kernel to finish (an atomic ticket after a
 //   __threadfence) folds both kernels' partial rows into stats[8] in double
-//   and resets the ticket: no third launch.
+//   and resets the ticket: no third launch. Calls in flight at once must
+//   hold distinct tickets; calls on one stream run in order, so the wrapper
+//   keeps one ticket per stream.
 // The filter runs z, y, x where the reference runs x, y, z: the same sums
 // in another order. Each kernel's x chunks fill one wave of CTAs (the
-// occupancy the CUDA runtime reports), at least kMinXChunk planes each. A
+// occupancy the CUDA runtime reports for the current device), at least
+// kMinXChunk planes each. A
 // thread's staging offsets within a plane are computed once per CTA in 32
 // bits, a plane's base once per plane in 64; the entry point refuses planes
 // of 2^31 voxels or more. The learning rate is read from device memory, so
@@ -75,6 +78,7 @@
 #include <stdint.h>
 
 #include "cp_async.cuh"
+#include "occupancy.cuh"
 
 namespace {
 
@@ -705,31 +709,18 @@ __global__ void __launch_bounds__(kThreads)
   if (tid == 0) *ticket = 0u;
 }
 
-// Sets a kernel's dynamic shared memory and returns how many of its CTAs
-// the card holds at once; the first call per kernel asks the CUDA runtime.
-int wave_of(const void* kernel, int smem, int& cached) {
-  if (cached > 0) return cached;
-  int dev = 0, sms = 0, per_sm = 0;
-  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) !=
-          cudaSuccess ||
-      cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem) !=
-          cudaSuccess)
-    return -1;
-  cached = sms * (per_sm > 0 ? per_sm : 1);
-  return cached;
-}
-
+// Each kernel's CTAs in one wave, with its shared memory opt-in, once per
+// device (occupancy.cuh).
 int terms_wave() {
-  static int cached = 0;
-  return wave_of((const void*)terms_kernel, kTermsSmem, cached);
+  static lsf_occ::WaveCache cache;
+  return lsf_occ::wave((const void*)terms_kernel, kThreads, kTermsSmem, cache);
 }
 
 template <int R>
 int update_wave() {
-  static int cached = 0;
-  return wave_of((const void*)sobolev_update_kernel<R>, update_smem_bytes<R>(), cached);
+  static lsf_occ::WaveCache cache;
+  return lsf_occ::wave((const void*)sobolev_update_kernel<R>, kThreads,
+                       update_smem_bytes<R>(), cache);
 }
 
 int update_wave(int radius) {
@@ -779,7 +770,8 @@ extern "C" int64_t lsf_fused_partials_len(int nx, int ny, int nz, int ntaps) {
 // All pointers are device pointers except `taps` (host, ntaps floats).
 // Scratch: g 3n floats, partial lsf_fused_partials_len doubles, ticket one
 // unsigned that is 0 before the call and is 0 again after it (the kernels
-// reset it). Returns a cudaError_t.
+// reset it), not shared with a call that may run at the same time. Returns
+// a cudaError_t.
 extern "C" int lsf_fused_gradient_update(
     const float* warped, const float* canonical, const float* warp_cm,
     const float* rate, float* new_warp, float* stats, float* g, double* partial,

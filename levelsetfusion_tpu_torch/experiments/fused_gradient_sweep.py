@@ -19,14 +19,13 @@ from __future__ import annotations
 
 import ctypes
 import json
-import re
-import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
+from levelsetfusion_tpu_torch.experiments import _sweep
 from levelsetfusion_tpu_torch.experiments._timing import device_name, resolve_device
 from levelsetfusion_tpu_torch.ops.kernels import _lib
 from levelsetfusion_tpu_torch.ops.kernels import fused_gradient as fg
@@ -67,37 +66,20 @@ VARIANTS = {
 def variant_source(name: str) -> str:
     """``csrc/fused_gradient.cu`` with the variant's substitutions; each
     anchor must occur exactly once."""
-    text = SOURCE.read_text()
-    for old, new in VARIANTS[name][0]:
-        if text.count(old) != 1:
-            raise ValueError(f"{name}: anchor found {text.count(old)} times: {old!r}")
-        text = text.replace(old, new)
-    return text
+    return _sweep.substituted(SOURCE, VARIANTS[name][0], name)
+
+
+def _kernel_key(mangled: str):
+    if "terms_kernel" in mangled:
+        return "terms_kernel"
+    return "sobolev_update_kernel<3>" if "update_kernelILi3E" in mangled else None
 
 
 def _build(name: str):
-    """Compile a variant next to the package's sources (it includes
-    ``cp_async.cuh``); returns its library and registers/spills per kernel."""
-    BUILD.mkdir(parents=True, exist_ok=True)
-    src = _lib.SOURCE_DIR / f".sweep_{name}.cu"
-    lib = BUILD / f"lib{name}.so"
-    src.write_text(variant_source(name))
-    try:
-        proc = subprocess.run([_lib._nvcc(), *_lib.NVCC_FLAGS, "-o", str(lib), str(src)],
-                              capture_output=True, text=True)
-    finally:
-        src.unlink()
-    if proc.returncode:
-        raise RuntimeError(f"nvcc failed for {name}:\n{proc.stderr}")
-    regs = {}
-    for entry in (proc.stdout + proc.stderr).split("Compiling entry function '")[1:]:
-        mangled = entry.split("'", 1)[0]
-        if "terms_kernel" in mangled or "update_kernelILi3E" in mangled:
-            used = re.search(r"Used (\d+) registers", entry)
-            spill = sum(int(v) for v in re.findall(r"(\d+) bytes spill (?:stores|loads)", entry))
-            key = "terms_kernel" if "terms_kernel" in mangled else "sobolev_update_kernel<3>"
-            regs[key] = f"{used.group(1) if used else '?'}r/{spill}B"
-    return name, lib, regs
+    """Compile a variant; returns its name, library and registers/spills
+    per kernel."""
+    lib, log = _sweep.build(variant_source(name), f"fused_gradient_{name}", BUILD)
+    return name, lib, _sweep.registers(log, _kernel_key)
 
 
 def _bind(path) -> ctypes.CDLL:
@@ -119,25 +101,6 @@ def _inputs(shape, device):
     warped = np.tanh(np.roll(base, 1, axis=0) * 0.4)
     warp = (rng.standard_normal((3,) + shape) * 0.8).astype(np.float32)
     return [torch.from_numpy(a).to(device) for a in (canonical, warped, warp)]
-
-
-def _kernel_us(call, n=20) -> dict:
-    """Device µs per call of each kernel that ``call`` launches."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    call()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            call()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            key = e.name.replace("(anonymous namespace)::", "").removeprefix("void ").split("(")[0]
-            out[key] = out.get(key, 0.0) + e.time_range.elapsed_us() / n
-    return {k: round(v, 1) for k, v in out.items()}
 
 
 def _call_us(call, n=20) -> float:
@@ -186,7 +149,7 @@ def main(device="cuda", names=None) -> list:
                 c, w, u = full
                 cb, wb, ub = big
                 row = {"variant": name, "repeat": rep, "registers": regs, "max_abs_err": err,
-                       **{f"us_{case}": _kernel_us(lambda k=k: fg.fused_gradient_update(
+                       **{f"us_{case}": _sweep.kernel_us(lambda k=k: fg.fused_gradient_update(
                            w, c, u, rate, **k)) for case, k in cases.items()},
                        "us_call_256": round(_call_us(lambda: fg.fused_gradient_update(
                            wb, cb, ub, rate, **kw), 10), 1),

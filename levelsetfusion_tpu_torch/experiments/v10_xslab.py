@@ -2,12 +2,15 @@
 
 Port of ``experiments/v10_xslab.py``. ``run_v10`` computes the clamped
 shift-enumeration resample of ``resample_variants`` (ux and uy clamped to
-±2 inside the kernel, the warp passed raw), one CTA per (xb-row slab, y
-block of yb), its pair loop restricted to the shifts
-[⌊min u⌋ + K, ⌊max u⌋ + K + 1] per axis over the slab
-(``csrc/v10_xslab.cu``). A pair outside that range has weight exactly 0, so
-the value is the full enumeration's: the plain version is
-``resample_variants.shift_sum_reference``.
+±2 inside the kernel, the warp passed raw), its pair loop restricted to the
+shifts [⌊min u⌋ + K, ⌊max u⌋ + K + 1] per axis over each (xb-row slab, y
+block of yb) (``csrc/v10_xslab.cu``). The kernel is two launches: a bounds
+pass writes each (x plane, y block)'s min and max into a scratch allocated
+per call, and a compute pass, whose CTAs walk x chunks of 8 y rows, folds
+each slab's rows and sums the active pairs, so its grid does not depend on
+xb.
+A pair outside that range has weight exactly 0, so the value is the full
+enumeration's: the plain version is ``resample_variants.shift_sum_reference``.
 
 ``main`` is the JAX script's: field tanh(0.3 N(0, 1)) from seed 0, then a
 random warp (scale 1.5) and a smooth one (scale 0.5; the normal draw it
@@ -56,15 +59,35 @@ def run_v10_reference(field: torch.Tensor, warp: torch.Tensor) -> torch.Tensor:
     return shift_sum_reference(field, warp, "full")
 
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# The prototypes of csrc/v10_xslab.cu's entry points, in order
+# (tests/test_torch_resample_variants.py holds them together).
+XSLAB_ARGTYPES = (
+    _P, _P, _P, _P,  # field, warp, out, partial
+    _I, _I, _I, _I, _I,  # nx, ny, nz, xb, yb
+    _P,  # stream
+)
+PARTIALS_ARGTYPES = (_I, _I, _I, _I, _I)  # nx, ny, nz, xb, yb
+CTAS_ARGTYPES = (_I, _I, _I, _I, _I, _I)  # nx, ny, nz, xb, yb, pass
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = _lib.load("v10_xslab")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.lsf_v10_xslab.argtypes = [p, p, p, i, i, i, i, i, p]
-    lib.lsf_v10_xslab.restype = i
-    lib.lsf_v10_xslab_error_string.argtypes = [i]
-    lib.lsf_v10_xslab_error_string.restype = ctypes.c_char_p
+    for name, argtypes, restype in (("lsf_v10_xslab", XSLAB_ARGTYPES, _I),
+                                    ("lsf_v10_partials_len", PARTIALS_ARGTYPES, ctypes.c_int64),
+                                    ("lsf_v10_ctas", CTAS_ARGTYPES, ctypes.c_int64),
+                                    ("lsf_v10_xslab_error_string", (_I,), ctypes.c_char_p)):
+        getattr(lib, name).argtypes = list(argtypes)
+        getattr(lib, name).restype = restype
     return lib
+
+
+def grids(shape, xb=8, yb=64) -> tuple:
+    """CTAs of the kernel's two launches, (bounds pass, compute pass), for a
+    field of ``shape`` (GPU only: asks the built library)."""
+    lib = _library()
+    return tuple(int(lib.lsf_v10_ctas(*shape, xb, yb, p)) for p in (0, 1))
 
 
 def run_v10(field, warp, xb=8, yb=64, chunk=128) -> torch.Tensor:
@@ -87,9 +110,15 @@ def run_v10(field, warp, xb=8, yb=64, chunk=128) -> torch.Tensor:
         return run_v10_reference(field, warp)
     lib = _library()
     out = torch.empty_like(field)
+    rows = lib.lsf_v10_partials_len(nx, ny, nz, xb, yb)
+    if rows <= 0:
+        raise ValueError(f"run_v10: the kernel refuses {tuple(field.shape)}, xb {xb}, yb {yb}")
+    # Scratch per call: calls in flight at once share nothing.
+    partial = torch.empty(rows, dtype=torch.int32, device=field.device)
     with torch.cuda.device(field.device):
         err = lib.lsf_v10_xslab(field.data_ptr(), warp.data_ptr(), out.data_ptr(),
-                                nx, ny, nz, xb, yb, _lib.stream_handle(field.device))
+                                partial.data_ptr(), nx, ny, nz, xb, yb,
+                                _lib.stream_handle(field.device))
     _lib.check(err, lib.lsf_v10_xslab_error_string, "run_v10 launch")
     launch_count += 1
     return out

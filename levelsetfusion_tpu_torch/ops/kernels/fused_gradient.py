@@ -124,9 +124,12 @@ def _library() -> ctypes.CDLL:
 
 
 @functools.cache
-def _ticket(device: torch.device, shape: tuple) -> torch.Tensor:
+def _ticket(device: torch.device, shape: tuple, stream: int) -> torch.Tensor:
     """The completion counter of the kernels' last-block fold: zeroed once
-    here, reset to 0 by the kernels at the end of every call."""
+    here, reset to 0 by the kernels at the end of every call. One per
+    stream (``stream`` is its raw handle): calls on one stream run in order,
+    so none of them finds the counter mid-count, while two calls on two
+    streams may run at once and would mix their counts on a shared one."""
     return torch.zeros(1, dtype=torch.int32, device=device)
 
 
@@ -176,7 +179,8 @@ def fused_gradient_update(
     new_warp = torch.empty(vol, dtype=torch.float32, device=device)
     stats = torch.empty(8, dtype=torch.float32, device=device)
     g = torch.empty(vol, dtype=torch.float32, device=device)
-    ticket = _ticket(device, (nx, ny, nz))
+    stream = _lib.stream_handle(device)
+    ticket = _ticket(device, (nx, ny, nz), stream)
     taps_arr = (ctypes.c_float * max(len(taps), 1))(*np.asarray(taps, np.float32))
     with torch.cuda.device(device):
         rows = lib.lsf_fused_partials_len(nx, ny, nz, len(taps))
@@ -189,8 +193,7 @@ def fused_gradient_update(
             g.data_ptr(), partial.data_ptr(), ticket.data_ptr(),
             nx, ny, nz,
             w_data, w_smooth, w_ls, int(bool(killing)), gamma, int(bool(band_union)),
-            taps_arr, len(taps),
-            _lib.stream_handle(device),
+            taps_arr, len(taps), stream,
         )
     _lib.check(err, lib.lsf_fused_error_string, "fused_gradient_update launch")
     launch_count += 1

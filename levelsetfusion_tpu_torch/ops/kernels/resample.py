@@ -25,17 +25,25 @@ from levelsetfusion_tpu_torch.ops.kernels import _lib
 launch_count = 0
 
 
-@functools.cache
-def _library() -> ctypes.CDLL:
-    lib = _lib.load("resample")
-    lib.lsf_warp_field_cm.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ]
-    lib.lsf_warp_field_cm.restype = ctypes.c_int
-    lib.lsf_resample_error_string.argtypes = [ctypes.c_int]
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# The prototype of lsf_warp_field_cm in csrc/resample.cu
+# (tests/test_torch_resample.py holds them together).
+ARGTYPES = (_P, _P, _P, _I, _I, _I, _P)  # live, warp_cm, out, nx, ny, nz, stream
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the entry points of a library built from csrc/resample.cu
+    (or from a variant of it, experiments/resample_sweep.py)."""
+    lib.lsf_warp_field_cm.argtypes = list(ARGTYPES)
+    lib.lsf_warp_field_cm.restype = _I
+    lib.lsf_resample_error_string.argtypes = [_I]
     lib.lsf_resample_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    return bind(_lib.load("resample"))
 
 
 def warp_field_cm_reference(live: torch.Tensor, warp_cm: torch.Tensor) -> torch.Tensor:

@@ -8,10 +8,6 @@ energies and sums rtol 1e-4, maxes rtol 1e-4 atol 1e-7. On the CPU the
 wrapper takes the plain version; chip_smoke.py holds the CUDA kernels
 against it on the card."""
 
-import ctypes
-import re
-from pathlib import Path
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,7 +19,7 @@ from levelsetfusion_tpu.ops.derivatives import gradient as jgradient
 from levelsetfusion_tpu.ops.pallas import fused_gradient as jfg
 from levelsetfusion_tpu_torch.experiments import fused_gradient_sweep
 from levelsetfusion_tpu_torch.ops.kernels import fused_gradient as kfg
-from tests.torch_parity import assert_close, n, t, tsdf_like
+from tests.torch_parity import assert_close, c_prototype, ctypes_kind, n, t, tsdf_like
 
 # (w_smooth, w_ls, killing, sobolev, band_union), as tests/test_fused_gradient.py
 CASES = [
@@ -135,25 +131,6 @@ def test_rejects_bad_inputs(change, err):
                                   args.pop("warp_cm"), args.pop("rate"), **args)
 
 
-def _prototype(name):
-    """Kinds of the parameters of ``extern "C" ... name(...)`` in
-    csrc/fused_gradient.cu: "pointer", "int" or "float"."""
-    src = (Path(kfg.__file__).resolve().parents[2] / "csrc" / "fused_gradient.cu").read_text()
-    m = re.search(r'extern "C" [\w ]+\b' + name + r"\(([^)]*)\)", src)
-    assert m, f"no prototype of {name}"
-    kinds = []
-    for param in m.group(1).split(","):
-        words = param.split()
-        kinds.append("pointer" if "*" in param else {"int": "int", "float": "float"}[words[0]])
-    return kinds
-
-
-def _kind(argtype):
-    if argtype is ctypes.c_void_p or issubclass(argtype, ctypes._Pointer):
-        return "pointer"
-    return {ctypes.c_int: "int", ctypes.c_float: "float"}[argtype]
-
-
 @pytest.mark.parametrize("name,argtypes", [
     ("lsf_fused_gradient_update", kfg.UPDATE_ARGTYPES),
     ("lsf_fused_partials_len", kfg.PARTIALS_ARGTYPES),
@@ -161,7 +138,7 @@ def _kind(argtype):
 def test_argtypes_match_c_prototype(name, argtypes):
     """A mismatch would pass arguments in the wrong registers at launch,
     which nothing on the CPU can see."""
-    assert [_kind(a) for a in argtypes] == _prototype(name)
+    assert [ctypes_kind(a) for a in argtypes] == c_prototype("fused_gradient.cu", name)
 
 
 @pytest.mark.parametrize("name", list(fused_gradient_sweep.VARIANTS))
@@ -177,3 +154,13 @@ def test_sweep_variant_applies_to_the_kernel_source(name):
 def test_sweep_needs_the_gpu():
     with pytest.raises(RuntimeError):
         fused_gradient_sweep.main(device="cpu")
+
+
+def test_ticket_is_one_per_stream():
+    """Calls in flight on two streams count their completion on two
+    tickets; calls on one stream, which run in order, share one."""
+    cpu, shape = torch.device("cpu"), (4, 5, 6)
+    first, second = kfg._ticket(cpu, shape, 101), kfg._ticket(cpu, shape, 102)
+    assert first is not second and first.data_ptr() != second.data_ptr()
+    assert kfg._ticket(cpu, shape, 101) is first
+    assert int(first.item()) == int(second.item()) == 0

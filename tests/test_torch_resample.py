@@ -12,9 +12,10 @@ import torch
 
 from levelsetfusion_tpu.ops import interpolation as ji
 from levelsetfusion_tpu.ops.pallas.resample import warp_field_pallas
+from levelsetfusion_tpu_torch.experiments import resample_sweep
 from levelsetfusion_tpu_torch.ops import interpolation as ti
 from levelsetfusion_tpu_torch.ops.kernels import resample as kr
-from tests.torch_parity import assert_close, n, t
+from tests.torch_parity import assert_close, c_prototype, ctypes_kind, n, t
 
 
 def _field_and_warp(shape, seed, lo, hi):
@@ -99,3 +100,25 @@ def test_matches_tpu_kernel_in_interpret_mode():
 def test_warp_field_cm_rejects_bad_inputs(live, warp_cm, err):
     with pytest.raises(err):
         kr.warp_field_cm(live, warp_cm)
+
+
+def test_argtypes_match_c_prototype():
+    """A mismatch would pass arguments in the wrong registers at launch,
+    which nothing on the CPU can see."""
+    assert [ctypes_kind(a) for a in kr.ARGTYPES] == c_prototype("resample.cu",
+                                                               "lsf_warp_field_cm")
+
+
+@pytest.mark.parametrize("name", list(resample_sweep.VARIANTS))
+def test_sweep_variant_applies_to_the_kernel_source(name):
+    """Every substitution of the sweep finds its anchor exactly once in
+    csrc/resample.cu, so the variants built on the card are the ones the
+    sweep names."""
+    text = resample_sweep.variant_source(name)
+    assert ("__global__" in text) and (text != resample_sweep.SOURCE.read_text()
+                                       or name == "base")
+
+
+def test_sweep_needs_the_gpu():
+    with pytest.raises(RuntimeError):
+        resample_sweep.main(device="cpu")

@@ -25,7 +25,7 @@ import torch
 from levelsetfusion_tpu_torch.experiments import resample_variants as rv
 from levelsetfusion_tpu_torch.experiments import v10_xslab
 from levelsetfusion_tpu_torch.ops.interpolation import warp_field
-from tests.torch_parity import assert_close, interpreted, n, t
+from tests.torch_parity import assert_close, c_prototype, ctypes_kind, interpreted, n, t
 
 SMALL = (4, 16, 128)
 SLAB = (8, 16, 128)
@@ -246,3 +246,14 @@ def test_entry_point_requires_cuda(entry):
         pytest.skip("CUDA is present: the refusal applies only without it")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         entry()
+
+
+@pytest.mark.parametrize("name,argtypes", [
+    ("lsf_v10_xslab", v10_xslab.XSLAB_ARGTYPES),
+    ("lsf_v10_partials_len", v10_xslab.PARTIALS_ARGTYPES),
+    ("lsf_v10_ctas", v10_xslab.CTAS_ARGTYPES),
+])
+def test_v10_argtypes_match_c_prototype(name, argtypes):
+    """A mismatch would pass arguments in the wrong registers at launch,
+    which nothing on the CPU can see."""
+    assert [ctypes_kind(a) for a in argtypes] == c_prototype("v10_xslab.cu", name)

@@ -2,8 +2,10 @@
 PyTorch port (tests/test_torch_*.py): the same seeded numpy inputs go to
 both, and outputs are compared as numpy arrays."""
 
+import ctypes
 import functools
 import importlib.util
+import re
 from pathlib import Path
 
 import numpy as np
@@ -60,3 +62,23 @@ def tsdf_like(shape, seed, warp_scale=0.8):
     live = np.tanh(np.roll(base, 1, axis=0) * 0.4)
     warp = (rng.standard_normal(shape + (len(shape),)) * warp_scale).astype(np.float32)
     return canonical, live, warp
+
+
+def c_prototype(source, name):
+    """Kinds of the parameters of ``extern "C" ... name(...)`` in
+    ``levelsetfusion_tpu_torch/csrc/<source>``: "pointer", "int" or "float"."""
+    src = (REPO / "levelsetfusion_tpu_torch" / "csrc" / source).read_text()
+    m = re.search(r'extern "C" [\w ]+\b' + name + r"\(([^)]*)\)", src)
+    assert m, f"no prototype of {name} in {source}"
+    kinds = []
+    for param in m.group(1).split(","):
+        words = param.split()
+        kinds.append("pointer" if "*" in param else {"int": "int", "float": "float"}[words[0]])
+    return kinds
+
+
+def ctypes_kind(argtype):
+    """The kind (as ``c_prototype`` names it) of a ctypes argument type."""
+    if argtype is ctypes.c_void_p or issubclass(argtype, ctypes._Pointer):
+        return "pointer"
+    return {ctypes.c_int: "int", ctypes.c_float: "float"}[argtype]
