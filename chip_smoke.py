@@ -28,14 +28,11 @@ from __future__ import annotations
 
 import dataclasses
 import json
-import re
-import shutil
 import subprocess
 import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
-from pathlib import Path
 
 import numpy as np
 import torch
@@ -92,6 +89,7 @@ BENCH_ITERS = 300  # bench.py's N_ITER
 LIBRARIES = ("resample", "fused_gradient", "conv_yz", "fused_io_probe", "dma_probe",
              "resample_variants", "v10_xslab", "stack_bodies")
 RAGGED_X = (20, 64, 128)  # a ragged x for the resample variants (their Z is 128)
+RAGGED_B3 = (5, 6, 128)  # a Y off B3's 8-row tiles (yb = Y): its runtime geometry
 B45_VARIANTS = ("vf_fori", "vf_chunk", "vf_unroll", "v7_chunk", "v7_unroll")
 
 # The card's peaks (NVIDIA's H100 SXM data sheet): HBM bytes/s and f32
@@ -226,7 +224,7 @@ def phase1_build():
     seconds = time.perf_counter() - t0
     parts = [f"{name}: {', '.join(_ptxas(name))}" for name in ("resample", "fused_gradient")]
     print(f"[1] build of {len(LIBRARIES)} libraries: {seconds:.1f} s; ptxas, registers r / "
-          f"spill bytes B / shared bytes S: {'; '.join(parts)}")
+          f"spill bytes B / stack frame bytes B / static shared S: {'; '.join(parts)}")
 
 
 def phase2_resample():
@@ -521,91 +519,55 @@ def _profile_solve(canonical, live, params, wall_us):
             f"{profiled_us / iters:.1f} us/iter); device us/iter by kernel: {table}")
 
 
-def _kernel_name(mangled):
-    """``name<template ints>`` (or ``<uint32_t>``, ``<uint64_t>``) of a
-    kernel in an anonymous namespace, from its mangled name
-    (``_ZN<len><namespace><len><name>I...E...``)."""
-    m = re.match(r"_ZN(\d+)", mangled)
-    if not m:
-        return mangled
-    rest = mangled[m.end() + int(m.group(1)):]
-    m = re.match(r"(\d+)", rest)
-    if not m:
-        return mangled
-    name, tail = rest[m.end():m.end() + int(m.group(1))], rest[m.end() + int(m.group(1)):]
-    args = re.findall(r"L[ib](\d+)E", tail.split("EEv")[0]) if tail.startswith("I") else []
-    offset = re.match(r"I([jm])E", tail)  # resample.cu's offset type
-    if offset:
-        args = ["uint32_t" if offset.group(1) == "j" else "uint64_t"]
-    return f"{name}<{','.join(args)}>" if args else name
-
-
 def _ptxas(library):
-    """``name<template ints> <registers>r/<spill bytes>B/<static shared>S``
-    of every kernel in a library's ``nvcc -Xptxas -v`` log (built in phase
-    1)."""
+    """``name<template ints> <registers>r/<spill bytes>B/<stack frame
+    bytes>B/<static shared bytes>S`` of every kernel in a library's ``nvcc
+    -Xptxas -v`` log (built in phase 1)."""
     log = (_lib.BUILD_DIR / f"lib{library}.log").read_text()
-    kernels = []
-    for entry in log.split("Compiling entry function '")[1:]:
-        short = _kernel_name(entry.split("'", 1)[0])
-        regs = re.search(r"Used (\d+) registers", entry)
-        spill = sum(int(v) for v in re.findall(r"(\d+) bytes spill (?:stores|loads)", entry))
-        smem = re.search(r"(\d+) bytes smem", entry)
-        kernels.append(f"{short} {regs.group(1) if regs else '?'}r/{spill}B/"
-                       f"{smem.group(1) if smem else 0}S")
-    return kernels
+    return [f"{_sweep.kernel_name(mangled)} {'?' if regs is None else regs}r/{spill}B/{stack}B/"
+            f"{smem}S" for mangled, (regs, spill, stack, smem) in _sweep.ptxas(log).items()]
+
+
+# Phase 7's SASS counts: (library, kernel, what it runs, shared loads of its
+# pair loop: one pair's, since each runtime loop must run one pair a step;
+# None for the static unroll).
+SASS_KERNELS = (
+    ("stack_bodies", "stack_kernel<4,0>", "B9 full fori", 2),
+    ("stack_bodies", "stack_kernel<4,1>", "B9 full static", None),
+    ("stack_bodies", "table_kernel<9,4>", "B7 v8", 4),
+    ("stack_bodies", "table_kernel<10,1>", "B7 v8c", 3),
+    ("resample_variants", "tile_kernel<0,0>", "B3 v6", 2),
+)
 
 
 def phase7_ptxas():
-    """Registers and spills of every experiment kernel instantiation (built in
-    phase 1), from each library's ``nvcc -Xptxas -v`` log."""
+    """Registers, spills and stack frames of every experiment kernel
+    instantiation (built in phase 1), from each library's ``nvcc -Xptxas
+    -v`` log, and the SASS a voxel of the pair-loop kernels."""
     parts = [f"{name}: {', '.join(_ptxas(name))}" for name in LIBRARIES[2:]]
-    print(f"[7] ptxas, registers r / spill bytes B / static shared S (window_kernel<loop, body, tents_once> "
-          f"as codes of resample_variants.LOOPS and BODIES, stack_kernel<body, loop> of "
-          f"loop_cost.BODIES and LOOP_KINDS): {'; '.join(parts)}")
-    print(f"[7] SASS of B9 full (stack_kernel<4,0> fori, <4,1> static): {_sass_loops()}")
-
-
-def _sass_loops():
-    """Per B9 ``full`` kernel, from ``cuobjdump -sass``: the SASS
-    instructions a voxel runs, i.e. the code between the x step's two
-    barriers with its pair loop (if any) counted once per pair, and the pair
-    loop's own size. A voxel makes 72 shared loads, so a loop with L of them
-    runs 72 / L times. Instructions predicated off (``@!PT``, nvcc's
-    padding) are not counted."""
-    tool = shutil.which("cuobjdump") or str(Path(_lib._nvcc()).parent / "cuobjdump")
-    if not Path(tool).exists():
-        return "cuobjdump not found"
-    sass = subprocess.run([tool, "-sass", str(_lib.BUILD_DIR / "libstack_bodies.so")],
-                          capture_output=True, text=True, check=True).stdout
+    print(f"[7] ptxas, registers r / spill bytes B / stack frame bytes B / static shared S "
+          f"(window_kernel<loop, body, tents_once> and tile_kernel<loop, body> as codes of "
+          f"resample_variants.LOOPS and BODIES, stack_kernel<body, loop> and "
+          f"table_kernel<body, TY> of loop_cost.BODIES and LOOP_KINDS): {'; '.join(parts)}")
     found = []
-    for chunk in sass.split("Function : ")[1:]:
-        name = _kernel_name(chunk.split()[0])
-        if name not in ("stack_kernel<4,0>", "stack_kernel<4,1>"):
-            continue
-        code = []  # (address, instruction)
-        for line in chunk.splitlines():
-            ins = re.search(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", line)
-            if ins and not ins.group(2).startswith("@!PT"):
-                code.append((int(ins.group(1), 16), ins.group(2).strip()))
-        bars = [a for a, text in code if text.startswith("BAR.SYNC")]
-        if len(bars) < 2:
-            found.append(f"{name}: barriers not found")
-            continue
-        step = [(a, text) for a, text in code if bars[0] < a < bars[-1]]
-        loops = []  # (instructions, shared loads) of each loop with shared loads
-        for addr, text in step:
-            target = re.search(r"BRA\s+(?:`\()?(0x[0-9a-f]+)", text)
-            if target and int(target.group(1), 16) < addr:
-                body = [t for a, t in step if int(target.group(1), 16) <= a <= addr]
-                lds = sum(1 for t in body if re.search(r"\bLDS\b", t))
-                if lds:
-                    loops.append((len(body), lds))
-        loop = min(loops) if loops else None  # the pair loop, innermost
-        per_voxel = len(step) + (loop[0] * (72 // loop[1] - 1) if loop else 0)
-        found.append(f"{name}: {per_voxel} instructions per voxel"
-                     + (f", pair loop {loop[0]} ({loop[1]} LDS)" if loop else ", no loop"))
-    return "; ".join(found) or "stack_kernel<4,*> not in the SASS"
+    for library in dict.fromkeys(row[0] for row in SASS_KERNELS):
+        kernels = {name: (what, lds) for lib, name, what, lds in SASS_KERNELS if lib == library}
+        counts = _sweep.sass_per_voxel(_lib.BUILD_DIR / f"lib{library}.so", kernels)
+        if not counts:
+            break  # no cuobjdump
+        for name, (what, lds) in kernels.items():
+            c = counts.get(name)
+            if c is None or "error" in c:
+                raise AssertionError(f"{name}: {c['error'] if c else 'not in the SASS'}")
+            if c["pair_loop_lds"] != lds:
+                raise AssertionError(f"{name} ({what}): pair loop with {c['pair_loop_lds']} "
+                                     f"shared loads, want {lds} (one pair a step)")
+            loop = (f", pair loop {c['pair_loop']} ({c['pair_loop_lds']} LDS)"
+                    if c["pair_loop"] else ", no loop")
+            found.append(f"{name} ({what}): {c['instructions']} instructions{loop}, "
+                         f"LDL {c['ldl']}, STL {c['stl']}")
+    print(f"[7] SASS a voxel (the step's code once, its pair loop {_sweep.PAIRS} times): "
+          f"{'; '.join(found) or 'cuobjdump not found'}")
 
 
 def phase8_mxu_conv():
@@ -780,13 +742,17 @@ def phase12_resample_variants():
     launches = dict(rv.launch_counts)
     if min(launches.values()) == 0:
         raise AssertionError(f"resample_variants.main left a kernel unlaunched: {launches}")
+    # Every variant equals its plain version (max|Δ| 0) at 128^3 and a ragged
+    # X; B3 also at a Y that is not a multiple of 8, which takes its runtime
+    # geometry (window_kernel) instead of the compile-time tiles.
     err = dict.fromkeys(names, 0.0)
-    for shape in (FULL, RAGGED_X):
+    for shape, group in ((FULL, names), (RAGGED_X, names), (RAGGED_B3, tuple(rv.KERNELS))):
         field, warp = rv.inputs(shape, "cuda")
-        for name in names:
+        for name in group:
             got = rv.variant_call(name)(field, warp)
             want = rv.resample_variant_reference(field, warp, name)
-            err[name] = max(err[name], _close(f"{name} {shape}", got, want, 0.0, 1e-5))
+            err[name] = max(err[name], _close(f"{name} {shape}", got, want, 0.0, 0.0))
+    kernels = {shape: rv.b3_geometry(shape)["kernel"] for shape in (FULL, RAGGED_X, RAGGED_B3)}
     field, warp = rv.inputs(FULL, "cuda")
     warp_cm = rv.clamp_warp(warp).movedim(-1, 0).contiguous()
     b1 = warp_field_cm(field, warp_cm)
@@ -803,8 +769,9 @@ def phase12_resample_variants():
     table = ", ".join(f"{name} {ms[name] * 1e3:.1f} ({plain_ms[name] * 1e3:.0f})"
                       for name in names)
     vox = field.numel()
-    print(f"[12] resample variants vs plain at {FULL} and {RAGGED_X}: max|Δ| "
-          f"{max(err.values()):.3e}, value-preserving vs B1 {vs_b1:.3e} (tol 1e-5); "
+    print(f"[12] resample variants vs plain at {FULL} and {RAGGED_X}, B3 also at {RAGGED_B3} "
+          f"(B3 kernels {kernels}): max|Δ| {max(err.values())} (exact), value-preserving vs "
+          f"B1 {vs_b1:.3e} (tol 1e-5); "
           f"us per call at {FULL}, kernel (plain): {table}; B1 {b1_ms * 1e3:.1f}; "
           f"grid_sample {lib_ms * 1e3:.1f} (max|Δ| {gs_err:.2e} vs B1); "
           f"launches {launches}; {time.perf_counter() - t0:.1f} s")

@@ -32,10 +32,17 @@
 //         shift (0, 0)), kNoSlice (the same value, its two z reads hoisted
 //         out of the loop), kNoGather (no z gather), kPassthrough
 //         (P(x, y, z) + ux), kOnePair (one pair).
-// - B3 (XC = 1, per-step windows): one CTA per (x row, y block of yb); yb 64
-//   stages 6 x 69 x 128 floats = 212 KB (one CTA per SM). yb 128 would need
-//   408 KB and does not fit: its CTA stages and computes two tiles of 64 y
-//   rows in turn.
+// - B3 (XC = 1, per-step windows), tile_kernel: a CTA owns one x row and 64
+//   y rows and stages its window of the 6 padded x rows 8 y rows at a time
+//   (6 x 13 x 128 floats, 39 KB) into two buffers, the next tile's cp.async
+//   in flight while the current tile's sums run; 78 KB, so two CTAs (32
+//   warps) share an SM, and 128^3 is 256 CTAs, one wave. The geometry is
+//   compile-time, so the staged strides are constants, and the pair loop
+//   reads each pair's row and shifts from a table in constant memory
+//   (resample_z.cuh's Pair): one LDC a pair and one LEA an address, not
+//   t / kN. yb only gates the shapes. A Y that is not a multiple
+//   of 8 (yb = Y) goes to window_kernel, the runtime geometry: one CTA per
+//   (x row, y block of yb), staging yb rows (or gcd(yb, 64)) at a time.
 // - B4/B5 (XC = 8, a ring): the TPU grid of Y/yb x-walking steps would be 2
 //   CTAs at 128^3 on 132 SMs, so a CTA here walks a chunk of 8 x rows over
 //   TY = gcd(yb, 16) y rows (128 CTAs at 128^3) and keeps a ring of kN + 1
@@ -80,6 +87,18 @@ struct Params {
   int slots;  // staged x rows: kN, or kN + 1 for a ring (xc > 1)
 };
 
+// B3's compile-time geometry (tile_kernel): a CTA owns one x row and
+// kCtaRows y rows, and stages its window of the kN padded x rows kTileRows y
+// rows at a time into two buffers.
+constexpr int kTileRows = 8;
+constexpr int kCtaRows = 64;
+constexpr int kTileStage = kTileRows + kN - 1;        // padded y rows of a slot
+constexpr int kTileFloats = kN * kTileStage * kLane;  // one tile: kN slots
+constexpr int kTileSmem = 2 * kTileFloats * (int)sizeof(float);  // 79,872 B: two CTAs an SM
+
+// Pair t's staged row in a tile: slot cx, row cy (resample_z.cuh).
+__constant__ PairTable<1> kTilePairs = pair_table<1>(kN, kTileStage);
+
 // Stage padded x row px, padded y rows [y0, y0 + rows), into `slot`: a
 // cp.async per 16 bytes inside the volume, a store of the +1 fill outside.
 __device__ __forceinline__ void stage_row(const Params& p, float* slot, int px, int y0,
@@ -99,8 +118,10 @@ __device__ __forceinline__ void stage_row(const Params& p, float* slot, int px, 
 }
 
 // One output voxel from the staged rows: slot (slot0 + cx) mod slots holds x
-// shift cx, row r + cy of a slot holds y shift cy.
-template <int L, int B, bool kTentsOnce>
+// shift cx, row r + cy of a slot holds y shift cy. kTile (B3's tiles, slot0
+// 0, kN slots of kTileStage rows): the pair loop reads its pairs from
+// kTilePairs, not t / kN.
+template <int L, int B, bool kTentsOnce, bool kTile = false>
 __device__ __forceinline__ float voxel(const float* smem, int slot0, int slots, int rps,
                                        int r, int z, float ux, float uy, const ZSetup& zs) {
   auto row = [&](int cy, int cx) -> const float* {
@@ -137,7 +158,30 @@ __device__ __forceinline__ float voxel(const float* smem, int slot0, int slots, 
     }
   }
 
-  if (L == kPairLoop) {
+  if (L == kPairLoop && kTile) {
+    // Pair t reads row0[pr.row kLane + z0c, z1c or z], row0 the voxel's row
+    // in slot 0; its tents take cx - K and cy - K from the table (exact).
+    const float* row0 = smem + r * kLane;
+    const float* q0 = row0 + zs.z0c;
+    const float* q1 = row0 + zs.z1c;
+    const float* qz = row0 + z;
+#pragma unroll 1
+    for (int t = 0; t < kN * kN; ++t) {
+      const Pair& pr = kTilePairs.p[0][t];
+      const int o = pr.row * kLane;
+      float g;
+      if (B == kFull) {
+        g = zmix(zs, q0[o], q1[o]);
+      } else if (B == kNoGather) {
+        const float v = qz[o];
+        g = zmix(zs, v, v);
+      } else {
+        g = pair_g(0, 0);  // static00, noslice: rows fixed at shift (0, 0)
+      }
+      const float w = __fmul_rn(tent(__fsub_rn(uy, pr.fy)), tent(__fsub_rn(ux, pr.fx)));
+      acc = add_pair(acc, w, g);
+    }
+  } else if (L == kPairLoop) {
 #pragma unroll 1
     for (int t = 0; t < kN * kN; ++t) {
       const int cy = t / kN, cx = t - cy * kN;
@@ -209,6 +253,63 @@ __global__ void __launch_bounds__(kThreads) window_kernel(Params p) {
   }
 }
 
+template <int L, int B>
+__global__ void __launch_bounds__(kThreads, 2) tile_kernel(Params p) {
+  extern __shared__ __align__(16) float smem[];
+  const int x = blockIdx.x;
+  const int y_begin = blockIdx.y * kCtaRows;
+  const int tiles = min(kCtaRows, p.ny - y_begin) / kTileRows;
+  const int z = threadIdx.x % kLane, r_first = threadIdx.x / kLane;
+  auto stage_tile = [&](int k) {
+    float* buf = smem + (k & 1) * kTileFloats;
+    for (int c = 0; c < kN; ++c) {
+      stage_row(p, buf + c * kTileStage * kLane, x + c, y_begin + k * kTileRows, kTileStage);
+    }
+  };
+  // A thread's voxels, in order: rows r_first, r_first + 4 of each tile. It
+  // loads the next one's warp before it sums the current one, so that no
+  // warp waits for memory after the tile's barrier.
+  constexpr int kRowStep = kThreads / kLane;
+  auto voxel_at = [&](int k, int r) {
+    return ((int64_t)x * p.ny + y_begin + k * kTileRows + r) * kLane + z;
+  };
+  auto warp_at = [&](int64_t w) {
+    return make_float3(__ldg(p.warp + 3 * w), __ldg(p.warp + 3 * w + 1), __ldg(p.warp + 3 * w + 2));
+  };
+  int64_t v = voxel_at(0, r_first);
+  float3 u = warp_at(v);
+  stage_tile(0);
+  cp_async_commit();
+  for (int k = 0; k < tiles; ++k) {
+    if (k + 1 < tiles) stage_tile(k + 1);  // into the buffer tile k - 1 used
+    cp_async_commit();    // possibly empty: one group per tile
+    cp_async_wait<1>();  // every group but this tile's has landed
+    __syncthreads();
+    const float* buf = smem + (k & 1) * kTileFloats;
+    for (int r = r_first; r < kTileRows; r += kRowStep) {
+      const bool tile_end = r + kRowStep >= kTileRows;
+      const int64_t v_next = tile_end ? voxel_at(k + 1, r_first) : v + kRowStep * kLane;
+      const float3 u_next = !tile_end || k + 1 < tiles ? warp_at(v_next) : u;
+      const ZSetup zs = z_setup(u.z, z);
+      p.out[v] = voxel<L, B, false, true>(buf, 0, kN, kTileStage, r, z, clamp_k(u.x),
+                                          clamp_k(u.y), zs);
+      u = u_next;
+      v = v_next;
+    }
+    __syncthreads();  // the buffer is refilled at the next tile
+  }
+}
+
+template <int L, int B>
+int launch_tiled(const Params& p, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute((const void*)tile_kernel<L, B>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kTileSmem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(p.nx, (p.ny + kCtaRows - 1) / kCtaRows);
+  tile_kernel<L, B><<<grid, kThreads, kTileSmem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
 template <int L, int B, bool kTentsOnce>
 int launch(const Params& p, cudaStream_t stream) {
   const int smem = p.slots * (p.ty + kN - 1) * kLane * (int)sizeof(float);
@@ -218,6 +319,38 @@ int launch(const Params& p, cudaStream_t stream) {
   const dim3 grid((p.nx + p.xc - 1) / p.xc, p.ny / p.yb);
   window_kernel<L, B, kTentsOnce><<<grid, kThreads, smem, stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+template <int L_, int B_>
+struct Variant {
+  static constexpr int L = L_, B = B_;
+};
+
+// launch(Variant<L, B>{}) for the loop and body codes of a window or tile
+// launch without B5's tents.
+template <class F>
+int with_variant(int loop, int body, F&& launch) {
+  switch (body) {
+    case kPassthrough: return launch(Variant<kPairLoop, kPassthrough>{});
+    case kOnePair: return launch(Variant<kPairLoop, kOnePair>{});
+    case kStatic00:
+      return loop == kPairLoop ? launch(Variant<kPairLoop, kStatic00>{})
+                               : (int)cudaErrorInvalidValue;
+    case kNoSlice:
+      return loop == kPairLoop ? launch(Variant<kPairLoop, kNoSlice>{})
+                               : (int)cudaErrorInvalidValue;
+    case kNoGather:
+      return loop == kPairLoop ? launch(Variant<kPairLoop, kNoGather>{})
+                               : (int)cudaErrorInvalidValue;
+    case kFull:
+      switch (loop) {
+        case kPairLoop: return launch(Variant<kPairLoop, kFull>{});
+        case kTwoLevel: return launch(Variant<kTwoLevel, kFull>{});
+        case kChunk: return launch(Variant<kChunk, kFull>{});
+        case kUnroll: return launch(Variant<kUnroll, kFull>{});
+      }
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -245,27 +378,26 @@ extern "C" int lsf_resample_variant(const float* field, const float* warp, float
     if (loop == kUnroll) return launch<kUnroll, kFull, true>(p, s);
     return (int)cudaErrorInvalidValue;
   }
-  switch (body) {
-    case kPassthrough: return launch<kPairLoop, kPassthrough, false>(p, s);
-    case kOnePair: return launch<kPairLoop, kOnePair, false>(p, s);
-    case kStatic00:
-      return loop == kPairLoop ? launch<kPairLoop, kStatic00, false>(p, s)
-                               : (int)cudaErrorInvalidValue;
-    case kNoSlice:
-      return loop == kPairLoop ? launch<kPairLoop, kNoSlice, false>(p, s)
-                               : (int)cudaErrorInvalidValue;
-    case kNoGather:
-      return loop == kPairLoop ? launch<kPairLoop, kNoGather, false>(p, s)
-                               : (int)cudaErrorInvalidValue;
-    case kFull:
-      switch (loop) {
-        case kPairLoop: return launch<kPairLoop, kFull, false>(p, s);
-        case kTwoLevel: return launch<kTwoLevel, kFull, false>(p, s);
-        case kChunk: return launch<kChunk, kFull, false>(p, s);
-        case kUnroll: return launch<kUnroll, kFull, false>(p, s);
-      }
+  return with_variant(loop, body, [&](auto v) {
+    return launch<decltype(v)::L, decltype(v)::B, false>(p, s);
+  });
+}
+
+// B3 on its compile-time geometry (tile_kernel): loop and body as above.
+// Shape rules (else cudaErrorInvalidValue): nz 128, nx >= 1, ny a positive
+// multiple of kTileRows (8), field 16-byte aligned.
+extern "C" int lsf_resample_variant_tiled(const float* field, const float* warp, float* out,
+                                          int nx, int ny, int nz, int loop, int body,
+                                          void* stream) {
+  if (nz != kLane || nx < 1 || ny < kTileRows || ny % kTileRows != 0 ||
+      (ny + kCtaRows - 1) / kCtaRows > 65535 || (uintptr_t)field % 16 != 0) {
+    return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaErrorInvalidValue;
+  const Params p{field, warp, out, nx, ny, kCtaRows, kTileRows, 1, kN};
+  const cudaStream_t s = (cudaStream_t)stream;
+  return with_variant(loop, body, [&](auto v) {
+    return launch_tiled<decltype(v)::L, decltype(v)::B>(p, s);
+  });
 }
 
 extern "C" const char* lsf_resample_variants_error_string(int err) {

@@ -59,4 +59,43 @@ __device__ __forceinline__ float add_pair(float acc, float w, float g) {
   return __fadd_rn(acc, __fmul_rn(w, g));
 }
 
+// The runtime pair loops (csrc/resample_variants.cu's B3 tiles,
+// csrc/stack_bodies.cu's v8 and v8c) read pair t = kN cy + cx (cy outer)
+// from a table in constant memory, a uniform LDC a pair, in place of t / kN
+// and the ring's wrap: the staged row it reads, counted in rows from the
+// voxel's row in slot 0 (each kernel scales it by its row's bytes, a power
+// of two: one LEA an address), cx - K and cy - K as floats (exact), and cx,
+// cy. The table is built at compile time for each start slot of a ring; a
+// 37th pair, a copy of pair 0, lets a loop load pair t + 1 while it sums
+// pair t. (Counters carried through the loop cost more: ptxas predicates the
+// new-cy update into every step.)
+struct Pair {
+  int row;
+  float fx, fy;  // with row, one 16-byte LDC (B3)
+  int pad0;
+  int cx, cy;  // with row, two LDCs (v8); a third when cx, cy straddle 16 bytes
+  int pad1[2];
+};
+
+template <int kStarts>
+struct PairTable {
+  Pair p[kStarts][kN * kN + 1];
+};
+
+// Pair t of a voxel whose x shift cx sits in slot (s0 + cx) mod `slots`, for
+// each start slot s0 < kStarts: slot s begins at row s `slot_rows`, and y
+// shift cy is cy rows further in.
+template <int kStarts>
+constexpr PairTable<kStarts> pair_table(int slots, int slot_rows) {
+  PairTable<kStarts> table{};
+  for (int s0 = 0; s0 < kStarts; ++s0) {
+    for (int t = 0; t <= kN * kN; ++t) {
+      const int cy = t % (kN * kN) / kN, cx = t % kN;
+      table.p[s0][t] = Pair{(s0 + cx) % slots * slot_rows + cy, (float)(cx - kK),
+                            (float)(cy - kK), 0, cx, cy, {0, 0}};
+    }
+  }
+  return table;
+}
+
 }  // namespace lsf_rz

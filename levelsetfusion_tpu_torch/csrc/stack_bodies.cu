@@ -17,8 +17,8 @@
 //                                                        (B8 level 2)
 //   acc0      tents, summed from acc0 = 1 - w0 - w1 (the +1 fill) (level 3)
 //   clampin   acc0 with ux, uy clamped to ±K                (level 4)
-//   v8        clampin, the 12 tent values computed once into scratch (B7)
-//   v8c       the 36 weight products once into scratch, summed from 0, the
+//   v8        clampin, the 12 tent values computed once into a table (B7)
+//   v8c       the 36 weight products once into a table, summed from 0, the
 //             fill added after the loop                   (B7)
 //
 // Replaces three TPU kernels, each a grid of (Y / yb, X) steps over the whole
@@ -44,23 +44,40 @@
 // per step). TY and XC are compile-time constants, so the ring's strides fold
 // into the address arithmetic. A slot is 6 x 4 x 512 B and the ring 86 KB, so
 // two CTAs (32 warps) share an SM; 128^3 is 512 CTAs. The TPU's yb only gates
-// the shapes (Y must also be a multiple of TY). v8's and v8c's scratch is a
-// per-thread array indexed by the runtime pair, which nvcc places in local
-// memory: the counterpart of the TPU's VMEM scratch planes. The arithmetic is
+// the shapes (Y must also be a multiple of TY). The arithmetic is
 // resample_z.cuh's, in the float steps of the JAX bodies, so each body
 // equals its plain torch version bit for bit.
+//
+// v8 and v8c (table_kernel) keep the TPU's VMEM scratch planes as a table in
+// shared memory after the ring, laid out [entry][thread], so that a warp's
+// read of an entry is one conflict-free wavefront. v8's 12 tent values take
+// 24 KB beside the 86 KB ring (TY = 4: two CTAs, 32 warps an SM). v8c's 36
+// products (and a copy of the first) take 148 B a voxel, which with the
+// ring's 168 B leaves room for at most ~23 warps an SM; its tiles are 1 y
+// row (128 threads, 40 KB: five CTAs, 20 warps), which times faster than
+// TY = 4 or 2 (16 warps) and than a table in local memory kept in L1
+// (experiments/stack_bodies_sweep.py). The
+// pair loop stays one runtime step a pair in t order: it reads pair t's ring
+// row (and v8's cy, cx) from a table in constant memory (resample_z.cuh's
+// Pair), not t / N and the ring's wrap, so an address is one LEA from the
+// voxel's z0c or z1c row, and it issues pair t + 1's loads before pair t's
+// sum. The grid splits the (tile, x row) steps into equal ranges, one wave of
+// CTAs on the current device (occupancy.cuh).
 //
 // What bounds it on the H100: bytes. At 128^3 the function reads the 52 MB
 // of stack rows it uses and the 25 MB warp once and writes 8 MB, 86 MB or
 // ~26 us at 3.35 TB/s; even the arithmetic this design spends (145 to 513
 // float operations per voxel, 5-16 us at 67 TFLOP/s) is below that. The ring reads each staged
-// row from L2 or memory once per chunk of XC x rows (13 rows for 8 outputs),
+// row from L2 or memory once per chunk of x rows (13 rows for 8 outputs),
 // and the pairs' 72 z reads per voxel come from shared memory.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 #include "cp_async.cuh"
+#include "occupancy.cuh"
 #include "resample_z.cuh"
 
 namespace {
@@ -91,11 +108,12 @@ struct Params {
 
 // Stage padded x row px, y rows [y0, y0 + TY) of every plane, into `slot`
 // (plane c at rows [c TY, (c + 1) TY)): a cp.async per 16 bytes.
+template <int TY = kTY>
 __device__ __forceinline__ void stage(const Params& p, float* slot, int px, int y0) {
-  constexpr int kPerPlane = kTY * kLane / 4;
-  for (int q = threadIdx.x; q < kN * kPerPlane; q += kThreads) {
+  constexpr int kPerPlane = TY * kLane / 4;
+  for (int q = threadIdx.x; q < kN * kPerPlane; q += TY * kLane) {
     const int c = q / kPerPlane, e = q - c * kPerPlane;
-    cp_async16(slot + c * kTY * kLane + 4 * e,
+    cp_async16(slot + c * TY * kLane + 4 * e,
                p.stack + (((int64_t)c * p.xp + px) * p.ny + y0) * kLane + 4 * e);
   }
 }
@@ -128,15 +146,6 @@ __device__ __forceinline__ float voxel(const float* smem, int slot0, int r, int 
     ux = __ldg(u), uy = __ldg(u + 1);
     if constexpr (B >= kClampIn) ux = clamp_k(ux), uy = clamp_k(uy);
   }
-  float tx[kN], ty_[kN], wt[kPairs];  // scratch of v8 and v8c
-  if constexpr (B == kV8 || B == kV8c) {
-#pragma unroll
-    for (int c = 0; c < kN; ++c) tx[c] = tent_at(ux, c), ty_[c] = tent_at(uy, c);
-  }
-  if constexpr (B == kV8c) {
-#pragma unroll
-    for (int t = 0; t < kPairs; ++t) wt[t] = __fmul_rn(ty_[t / kN], tx[t % kN]);
-  }
   auto step = [&](int t, float acc) -> float {
     const int cy = t / kN, cx = t - cy * kN;
     if constexpr (B == kNothing) return __fadd_rn(acc, 1.0f);
@@ -146,11 +155,9 @@ __device__ __forceinline__ float voxel(const float* smem, int slot0, int r, int 
     const float* rw = row(cy, cx);
     const float g = zmix(zs, rw[zs.z0c], rw[zs.z1c]);
     if constexpr (B == kFull || B == kZSetup) return __fadd_rn(acc, g);
-    if constexpr (B == kV8) return add_pair(acc, __fmul_rn(ty_[cy], tx[cx]), g);
-    if constexpr (B == kV8c) return add_pair(acc, wt[t], g);
     return add_pair(acc, __fmul_rn(tent_at(uy, cy), tent_at(ux, cx)), g);
   };
-  float acc = (B >= kAcc0 && B != kV8c) ? acc0(zs) : 0.0f;
+  float acc = B >= kAcc0 ? acc0(zs) : 0.0f;
   if constexpr (L == kFori) {
 #pragma unroll 1
     for (int t = 0; t < kPairs; ++t) acc = step(t, acc);
@@ -158,7 +165,6 @@ __device__ __forceinline__ float voxel(const float* smem, int slot0, int r, int 
 #pragma unroll
     for (int t = 0; t < kPairs; ++t) acc = step(t, acc);
   }
-  if constexpr (B == kV8c) acc = __fadd_rn(acc, acc0(zs));
   return acc;
 }
 
@@ -182,6 +188,133 @@ __global__ void __launch_bounds__(kThreads, 2) stack_kernel(Params p) {
     p.out[v] = voxel<B, L>(smem, xi % kSlots, r, z, p.warp + 3 * v);
     __syncthreads();  // slot xi is refilled at the next step
   }
+}
+
+// v8 and v8c: the table's entries, the tile's y rows, and the CTA's shared
+// bytes (the ring, then the table) and threads.
+template <int B>
+constexpr int kEntries = B == kV8 ? 2 * kN : kPairs + 1;  // v8c: wt[36] = wt[0]
+constexpr int kV8TY = 4;
+constexpr int kV8cTY = 1;
+template <int B, int TY>
+struct TableGeom {
+  static constexpr int kThreadsT = TY * kLane;
+  static constexpr int kSlotF = kN * TY * kLane;
+  static constexpr int kRingF = kSlots * kSlotF;
+  static constexpr int kSmemB = (kRingF + kEntries<B> * kThreadsT) * (int)sizeof(float);
+  // CTAs an SM holds: 228 KB of shared memory, 1 KB reserved a CTA, and
+  // 2048 threads (the launch bounds cap the registers to match).
+  static constexpr int kCtasPerSm = std::min(233472 / (kSmemB + 1024), 2048 / kThreadsT);
+};
+
+// Pair t's ring row from start slot s0: slot (s0 + cx) mod kSlots, plane cy,
+// in units of a plane's TY rows (resample_z.cuh).
+__constant__ PairTable<kSlots> kRingPairs = pair_table<kSlots>(kSlots, kN);
+
+// One v8 or v8c voxel at the warp u. `rows` is the voxel's row (row r of
+// plane 0) in slot 0 of the ring, `tab` its column of the table (entry e at
+// tab[e * TY 128]); slot (slot0 + cx) mod kSlots holds padded x row x + cx.
+template <int B, int TY>
+__device__ __forceinline__ float table_voxel(const float* rows, float* tab, int slot0, int z,
+                                             float3 u) {
+  constexpr int kUnit = TY * kLane;        // floats of a plane's rows in a slot
+  constexpr int kTabStride = TY * kLane;  // floats between two entries of a thread
+  const ZSetup zs = z_setup(u.z, z);
+  const float ux = clamp_k(u.x), uy = clamp_k(u.y);
+  float tx[kN], ty[kN];
+#pragma unroll
+  for (int c = 0; c < kN; ++c) tx[c] = tent_at(ux, c), ty[c] = tent_at(uy, c);
+  if constexpr (B == kV8) {  // ty[0..N) then tx[0..N)
+#pragma unroll
+    for (int c = 0; c < kN; ++c) tab[c * kTabStride] = ty[c], tab[(kN + c) * kTabStride] = tx[c];
+  } else {  // wt[t] = ty[cy] tx[cx], and wt[36] = wt[0] for the loop's last prefetch
+#pragma unroll
+    for (int t = 0; t <= kPairs; ++t) {
+      tab[t * kTabStride] = __fmul_rn(ty[t % kPairs / kN], tx[t % kN]);
+    }
+  }
+  const float* q0 = rows + zs.z0c;
+  const float* q1 = rows + zs.z1c;
+  // v8's weight is ty[cy] tx[cx], v8c's wt[t]; pair t's rows come from the
+  // table of pairs.
+  const Pair* pairs = kRingPairs.p[slot0];
+  auto weight = [&](int t) {
+    return B == kV8 ? __fmul_rn(tab[pairs[t].cy * kTabStride], tab[(kN + pairs[t].cx) * kTabStride])
+                    : tab[t * kTabStride];
+  };
+  float acc = B == kV8 ? acc0(zs) : 0.0f;  // v8c adds the fill after the loop
+  // Pair t + 1's loads are issued before pair t's sum (the table's pair 36
+  // is a copy of pair 0, as is v8c's wt[36]).
+  float w = weight(0), r0 = q0[pairs[0].row * kUnit], r1 = q1[pairs[0].row * kUnit];
+#pragma unroll 1
+  for (int t = 0; t < kPairs; ++t) {
+    const float wn = weight(t + 1);
+    const float r0n = q0[pairs[t + 1].row * kUnit], r1n = q1[pairs[t + 1].row * kUnit];
+    acc = add_pair(acc, w, zmix(zs, r0, r1));
+    w = wn, r0 = r0n, r1 = r1n;
+  }
+  return B == kV8c ? __fadd_rn(acc, acc0(zs)) : acc;
+}
+
+// The grid splits the (y tile, x row) steps, x fastest, into equal ranges,
+// one a CTA, one wave on the current device. A CTA walks its range's x rows
+// of TY y rows, one voxel of each a thread, through the ring as
+// stack_kernel does, restarting the ring where the range enters a new tile;
+// its table follows the ring in shared memory. A thread loads the next x
+// row's warp before it sums the current row, so that no warp waits for
+// memory after the step's barrier.
+template <int B, int TY>
+__global__ void __launch_bounds__(TableGeom<B, TY>::kThreadsT, TableGeom<B, TY>::kCtasPerSm)
+    table_kernel(Params p) {
+  using G = TableGeom<B, TY>;
+  extern __shared__ __align__(16) float smem[];
+  const int z = threadIdx.x % kLane, r = threadIdx.x / kLane;
+  float* const tab = smem + G::kRingF + threadIdx.x;
+  const int64_t steps = (int64_t)p.nx * (p.ny / TY);
+  const int64_t end = (blockIdx.x + 1) * steps / gridDim.x;
+  const int64_t row_step = (int64_t)p.ny * kLane;  // voxels from one x row to the next
+  auto warp_at = [&](int64_t w) {
+    return make_float3(__ldg(p.warp + 3 * w), __ldg(p.warp + 3 * w + 1), __ldg(p.warp + 3 * w + 2));
+  };
+  for (int64_t f = blockIdx.x * steps / gridDim.x; f < end;) {
+    const int y0 = (int)(f / p.nx) * TY, x0 = (int)(f % p.nx);
+    const int xn = (int)min((int64_t)(p.nx - x0), end - f);
+    f += xn;
+    int64_t v = ((int64_t)x0 * p.ny + y0 + r) * kLane + z;
+    float3 u = warp_at(v);
+    for (int c = 0; c < kN; ++c) stage<TY>(p, smem + c * G::kSlotF, x0 + c, y0);
+    cp_async_commit();
+    for (int xi = 0, slot0 = 0; xi < xn; ++xi, slot0 = slot0 + 1 == kSlots ? 0 : slot0 + 1) {
+      if (xi + 1 < xn) {  // the ring's next row, into the slot row xi - 1 used
+        const int next = slot0 + kN >= kSlots ? slot0 + kN - kSlots : slot0 + kN;
+        stage<TY>(p, smem + next * G::kSlotF, x0 + xi + kN, y0);
+      }
+      cp_async_commit();    // possibly empty: one group per step
+      cp_async_wait<1>();  // every group but this step's has landed
+      __syncthreads();
+      const float3 u_next = xi + 1 < xn ? warp_at(v + row_step) : u;
+      p.out[v] = table_voxel<B, TY>(smem + r * kLane, tab, slot0, z, u);
+      u = u_next;
+      v += row_step;
+      __syncthreads();  // slot xi is refilled at the next step (or the next range's start)
+    }
+  }
+}
+
+template <int B, int TY>
+int launch_table(const Params& p, cudaStream_t stream) {
+  using G = TableGeom<B, TY>;
+  static lsf_occ::WaveCache cache;
+  if (p.ny % TY != 0) return (int)cudaErrorInvalidValue;
+  const int wave = lsf_occ::wave((const void*)table_kernel<B, TY>, G::kThreadsT, G::kSmemB, cache);
+  if (wave < 0) {
+    const cudaError_t err = cudaGetLastError();
+    return (int)(err != cudaSuccess ? err : cudaErrorUnknown);
+  }
+  const int64_t steps = (int64_t)p.nx * (p.ny / TY);
+  table_kernel<B, TY><<<(unsigned)std::min<int64_t>(wave, steps), G::kThreadsT, G::kSmemB,
+                        stream>>>(p);
+  return (int)cudaGetLastError();
 }
 
 template <int B, int L>
@@ -228,8 +361,9 @@ extern "C" int lsf_stack_body(const float* stack, const float* warp, float* out,
     case kTents: return launch_loop<kTents>(p, loop, s);
     case kAcc0: return launch_loop<kAcc0>(p, loop, s);
     case kClampIn: return launch_loop<kClampIn>(p, loop, s);
-    case kV8: return launch_loop<kV8>(p, loop, s);
-    case kV8c: return launch_loop<kV8c>(p, loop, s);
+    case kV8: return loop == kFori ? launch_table<kV8, kV8TY>(p, s) : (int)cudaErrorInvalidValue;
+    case kV8c:
+      return loop == kFori ? launch_table<kV8c, kV8cTY>(p, s) : (int)cudaErrorInvalidValue;
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -1,11 +1,14 @@
 """Variants of a kernel source made by text substitution, as the sweeps
-(``fused_gradient_sweep``, ``resample_sweep``) build them: each anchor must
-occur exactly once in the source, so a variant built on the card is the one
-its name says. GPU only at build time (nvcc)."""
+(``fused_gradient_sweep``, ``resample_sweep``, ``stack_bodies_sweep``)
+build them: each anchor must occur exactly once in the source, so a variant
+built on the card is the one its name says; and what the compiler made of a
+kernel (``ptxas``, ``sass_per_voxel``), which ``chip_smoke.py`` prints too.
+GPU only at build time (nvcc)."""
 
 from __future__ import annotations
 
 import re
+import shutil
 import subprocess
 from pathlib import Path
 
@@ -42,17 +45,108 @@ def build(text: str, stem: str, build_dir: Path) -> tuple:
     return lib, proc.stdout + proc.stderr
 
 
-def registers(log: str, key) -> dict:
-    """``{key(mangled): "<registers>r/<spill bytes>B"}`` for each kernel of
-    an ``-Xptxas -v`` report for which ``key`` returns a name."""
-    regs = {}
+def kernel_name(mangled: str) -> str:
+    """``name<template ints>`` (or ``<uint32_t>``, ``<uint64_t>``) of a
+    kernel in an anonymous namespace, from its mangled name
+    (``_ZN<len><namespace><len><name>I...E...``)."""
+    m = re.match(r"_ZN(\d+)", mangled)
+    if not m:
+        return mangled
+    rest = mangled[m.end() + int(m.group(1)):]
+    m = re.match(r"(\d+)", rest)
+    if not m:
+        return mangled
+    name, tail = rest[m.end():m.end() + int(m.group(1))], rest[m.end() + int(m.group(1)):]
+    args = re.findall(r"L[ib](\d+)E", tail.split("EEv")[0]) if tail.startswith("I") else []
+    offset = re.match(r"I([jm])E", tail)  # resample.cu's offset type
+    if offset:
+        args = ["uint32_t" if offset.group(1) == "j" else "uint64_t"]
+    return f"{name}<{','.join(args)}>" if args else name
+
+
+def ptxas(log: str) -> dict:
+    """``{mangled: (registers, spill bytes, stack frame bytes, static shared
+    bytes)}`` for each kernel of an ``-Xptxas -v`` report (``None`` where
+    the report gives no register count)."""
+    found = {}
     for entry in log.split("Compiling entry function '")[1:]:
-        name = key(entry.split("'", 1)[0])
+        used = re.search(r"Used (\d+) registers", entry)
+        spill = sum(int(v) for v in re.findall(r"(\d+) bytes spill (?:stores|loads)", entry))
+        stack = re.search(r"(\d+) bytes stack frame", entry)
+        smem = re.search(r"(\d+) bytes smem", entry)
+        found[entry.split("'", 1)[0]] = (int(used.group(1)) if used else None, spill,
+                                          int(stack.group(1)) if stack else 0,
+                                          int(smem.group(1)) if smem else 0)
+    return found
+
+
+def registers(log: str, key) -> dict:
+    """``{key(mangled): "<registers>r/<spill bytes>B/<stack frame bytes>B"}``
+    for each kernel of an ``-Xptxas -v`` report for which ``key`` returns a
+    name."""
+    regs = {}
+    for mangled, (used, spill, stack, _) in ptxas(log).items():
+        name = key(mangled)
         if name:
-            used = re.search(r"Used (\d+) registers", entry)
-            spill = sum(int(v) for v in re.findall(r"(\d+) bytes spill (?:stores|loads)", entry))
-            regs[name] = f"{used.group(1) if used else '?'}r/{spill}B"
+            regs[name] = f"{used if used is not None else '?'}r/{spill}B/{stack}B"
     return regs
+
+
+PAIRS = 36  # a voxel's pairs: each runtime pair loop runs once per pair
+
+
+def sass_per_voxel(library: Path, names) -> dict:
+    """For each kernel of ``library`` named in ``names`` (as ``kernel_name``
+    gives them), from ``cuobjdump -sass``: the SASS instructions a voxel
+    runs and its local-memory loads and stores (LDL, STL), counting the code
+    between the step's first and last barrier once and its pair loop (the
+    innermost loop with shared loads, if any) ``PAIRS`` times, and the pair
+    loop's size and shared loads. Where a loop holds a block that runs at a
+    new cy only, it is counted every pair. Instructions predicated off
+    (``@!PT``, nvcc's padding) are not counted. ``{}`` without cuobjdump."""
+    tool = shutil.which("cuobjdump") or str(Path(_lib._nvcc()).parent / "cuobjdump")
+    if not Path(tool).exists():
+        return {}
+    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True,
+                          check=True).stdout
+    found = {}
+    for chunk in sass.split("Function : ")[1:]:
+        name = kernel_name(chunk.split()[0])
+        if name not in names:
+            continue
+        code = []  # (address, instruction)
+        for line in chunk.splitlines():
+            ins = re.search(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", line)
+            if ins and not ins.group(2).startswith("@!PT"):
+                code.append((int(ins.group(1), 16), ins.group(2).strip()))
+        bars = [a for a, text in code if text.startswith("BAR.SYNC")]
+        if len(bars) < 2:
+            found[name] = {"error": "barriers not found"}
+            continue
+        step = [(a, text) for a, text in code if bars[0] < a < bars[-1]]
+        loops = []  # (instructions, shared loads, first address, last address)
+        for addr, text in step:
+            target = re.search(r"BRA\s+(?:`\()?(0x[0-9a-f]+)", text)
+            if target and int(target.group(1), 16) < addr:
+                first = int(target.group(1), 16)
+                body = [t for a, t in step if first <= a <= addr]
+                lds = sum(1 for t in body if re.search(r"\bLDS\b", t))
+                if lds:
+                    loops.append((len(body), lds, first, addr))
+        loop = min(loops) if loops else None  # the pair loop, innermost
+
+        def per_voxel(pattern):
+            hits = [a for a, t in step if re.search(pattern, t)]
+            inside = sum(1 for a in hits if loop and loop[2] <= a <= loop[3])
+            return len(hits) + inside * (PAIRS - 1)
+
+        found[name] = {
+            "instructions": len(step) + (loop[0] * (PAIRS - 1) if loop else 0),
+            "pair_loop": loop[0] if loop else None,
+            "pair_loop_lds": loop[1] if loop else None,
+            "ldl": per_voxel(r"\bLDL\b"), "stl": per_voxel(r"\bSTL\b"),
+        }
+    return found
 
 
 def kernel_us(call, n=20) -> dict:

@@ -115,15 +115,28 @@ def loop_cost_reference(stacked, warp, body_kind: str) -> torch.Tensor:
     return stack_body_reference(stacked, warp, body_kind)
 
 
-@functools.cache
-def _library() -> ctypes.CDLL:
-    lib = _lib.load("stack_bodies")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.lsf_stack_body.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
-    lib.lsf_stack_body.restype = i
-    lib.lsf_stack_bodies_error_string.argtypes = [i]
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# The prototype of csrc/stack_bodies.cu's entry point
+# (tests/test_torch_loop_cost.py holds them together).
+STACK_BODY_ARGTYPES = (
+    _P, _P, _P,  # stack, warp, out
+    _I, _I, _I, _I, _I, _I, _I,  # n, xp, nx, ny, nz, body, loop
+    _P,  # stream
+)
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Sets the argument and result types of the library's entry points."""
+    lib.lsf_stack_body.argtypes = list(STACK_BODY_ARGTYPES)
+    lib.lsf_stack_body.restype = _I
+    lib.lsf_stack_bodies_error_string.argtypes = [_I]
     lib.lsf_stack_bodies_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    return bind(_lib.load("stack_bodies"))
 
 
 def check_stack_inputs(stacked, warp, yb) -> None:

@@ -14,8 +14,9 @@ its z index falls outside [0, 128), the gathered index clipped, and
 tent(t) = max(0, 1 − |t|). For |ux|, |uy| ≤ 2 this is the golden
 ``warp_field``. Three kernel entries (``csrc/resample_variants.cu``):
 
-- ``run_variant`` (B3): the ``KERNELS`` table, one CTA per (x row, y block);
-  TIMING-ONLY bodies ``static00``/``noslice`` (rows fixed at shift (0, 0)),
+- ``run_variant`` (B3): the ``KERNELS`` table, each CTA staging its own
+  window of the 6 padded x rows of one x row (``b3_geometry``); TIMING-ONLY
+  bodies ``static00``/``noslice`` (rows fixed at shift (0, 0)),
   ``nogather`` (no z gather), ``passthrough`` (P(x, y, z) + ux) and
   ``onepair`` (the single shift (0, 0) with the centre tents);
 - ``run_vmemfull`` (B4): the rows staged once per chunk of x rows, inner
@@ -73,7 +74,12 @@ TIMING_ONLY = ("static00", "nogather", "noslice", "passthrough", "onepair")
 DEFAULT_NAMES = ("v6", "static00", "nogather", "noslice", "twolevel", "chunk", "yb128")
 VMEMFULL_INNERS = ("fori", "chunk", "unroll")
 V7_STRUCTURES = ("chunk", "unroll")
-B3_STAGE_ROWS = 64  # y rows a B3 CTA stages at a time: 6 x 69 x 128 floats, 212 KB
+# B3's compile-time geometry (csrc/resample_variants.cu kTileRows, kCtaRows):
+# a CTA owns one x row and 64 y rows and stages them 8 at a time, into two
+# buffers of 6 x 13 x 128 floats.
+B3_TILE_ROWS = 8
+B3_CTA_ROWS = 64
+B3_STAGE_ROWS = 64  # at most this many y rows a runtime-geometry B3 CTA stages at a time
 RING_X_ROWS = 8  # x rows a B4/B5 CTA walks
 RING_Y_ROWS = 16  # at most this many y rows per B4/B5 CTA
 
@@ -150,15 +156,32 @@ def resample_variant_reference(field, warp, variant="v6", k=K) -> torch.Tensor:
     return shift_sum_reference(field, warp, _parse(variant)[2], k)
 
 
-@functools.cache
-def _library() -> ctypes.CDLL:
-    lib = _lib.load("resample_variants")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.lsf_resample_variant.argtypes = [p, p, p, i, i, i, i, i, i, i, i, i, p]
-    lib.lsf_resample_variant.restype = i
-    lib.lsf_resample_variants_error_string.argtypes = [i]
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# The prototypes of csrc/resample_variants.cu's entry points
+# (tests/test_torch_resample_variants.py holds them together).
+VARIANT_ARGTYPES = (
+    _P, _P, _P,  # field, warp, out
+    _I, _I, _I, _I, _I, _I,  # nx, ny, nz, loop, body, tents_once
+    _I, _I, _I,  # yb, ty, xc
+    _P,  # stream
+)
+TILED_ARGTYPES = (_P, _P, _P, _I, _I, _I, _I, _I, _P)  # the same, less tents_once, yb, ty, xc
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Sets the argument and result types of the library's entry points."""
+    lib.lsf_resample_variant.argtypes = list(VARIANT_ARGTYPES)
+    lib.lsf_resample_variant.restype = _I
+    lib.lsf_resample_variant_tiled.argtypes = list(TILED_ARGTYPES)
+    lib.lsf_resample_variant_tiled.restype = _I
+    lib.lsf_resample_variants_error_string.argtypes = [_I]
     lib.lsf_resample_variants_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    return bind(_lib.load("resample_variants"))
 
 
 def check_inputs(field, warp, yb, k) -> None:
@@ -187,24 +210,48 @@ def check_inputs(field, warp, yb, k) -> None:
         raise ValueError(f"no resample variant kernel for device {field.device}")
 
 
-def _launch(entry, field, warp, loop, body, tents_once, yb, ty, xc) -> torch.Tensor:
+def b3_geometry(shape, variant="v6") -> dict:
+    """The launch ``run_variant`` makes for a field of ``shape`` (a shape
+    ``check_inputs`` accepts): the kernel (``"tiled"``, the compile-time
+    geometry, where Y is a multiple of ``B3_TILE_ROWS``; else ``"window"``,
+    the runtime one), the y rows it stages at a time, the padded y rows a
+    staged x row holds, its dynamic shared bytes a CTA, and its CTAs."""
+    nx, ny, _ = shape
+    if ny % B3_TILE_ROWS == 0:
+        rows = B3_TILE_ROWS + 2 * K + 1
+        return {"kernel": "tiled", "tile_rows": B3_TILE_ROWS, "staged_rows": rows,
+                "smem_bytes": 2 * (2 * K + 2) * rows * LANE * 4,
+                "ctas": nx * -(-ny // B3_CTA_ROWS)}
+    yb = min(KERNELS[variant][2], ny)
+    ty = yb if yb <= B3_STAGE_ROWS else math.gcd(yb, B3_STAGE_ROWS)
+    rows = ty + 2 * K + 1
+    return {"kernel": "window", "tile_rows": ty, "staged_rows": rows,
+            "smem_bytes": (2 * K + 2) * rows * LANE * 4, "ctas": nx * (ny // yb)}
+
+
+def _launch(entry, field, warp, loop, body, window=None) -> torch.Tensor:
+    """One launch: of B3's tiles, or with ``window`` = (tents_once, yb, ty,
+    xc) of the runtime-geometry kernel."""
     lib = _library()
     out = torch.empty_like(field)
+    args = (field.data_ptr(), warp.data_ptr(), out.data_ptr(), *field.shape,
+            LOOPS.index(loop), BODIES.index(body))
     with torch.cuda.device(field.device):
-        err = lib.lsf_resample_variant(
-            field.data_ptr(), warp.data_ptr(), out.data_ptr(), *field.shape,
-            LOOPS.index(loop), BODIES.index(body), int(tents_once), yb, ty, xc,
-            _lib.stream_handle(field.device),
-        )
+        stream = _lib.stream_handle(field.device)
+        if window is None:
+            err = lib.lsf_resample_variant_tiled(*args, stream)
+        else:
+            tents_once, yb, ty, xc = window
+            err = lib.lsf_resample_variant(*args, int(tents_once), yb, ty, xc, stream)
     _lib.check(err, lib.lsf_resample_variants_error_string, f"{entry} launch")
     launch_counts[entry] += 1
     return out
 
 
 def run_variant(field, warp, variant="v6", k=K) -> torch.Tensor:
-    """B3: a ``KERNELS`` variant, one CTA per (x row, y block of
-    min(yb, Y)); the warp unclamped. CUDA tensors run the kernel, CPU
-    tensors the plain version."""
+    """B3: a ``KERNELS`` variant, y block min(yb, Y), each CTA staging the
+    window of one x row (``b3_geometry``); the warp unclamped. CUDA tensors
+    run the kernel, CPU tensors the plain version."""
     if variant not in KERNELS:
         raise ValueError(f"variant must be one of {sorted(KERNELS)}, got {variant!r}")
     loop, body, yb = KERNELS[variant]
@@ -212,8 +259,9 @@ def run_variant(field, warp, variant="v6", k=K) -> torch.Tensor:
     check_inputs(field, warp, yb, k)
     if field.device.type == "cpu":
         return shift_sum_reference(field, warp, body, k)
-    ty = yb if yb <= B3_STAGE_ROWS else math.gcd(yb, B3_STAGE_ROWS)
-    return _launch("run_variant", field, warp, loop, body, False, yb, ty, 1)
+    geometry = b3_geometry(field.shape, variant)
+    window = None if geometry["kernel"] == "tiled" else (False, yb, geometry["tile_rows"], 1)
+    return _launch("run_variant", field, warp, loop, body, window)
 
 
 def _ring(entry, field, warp, loop, yb, k) -> torch.Tensor:
@@ -221,7 +269,7 @@ def _ring(entry, field, warp, loop, yb, k) -> torch.Tensor:
     if field.device.type == "cpu":
         return shift_sum_reference(field, warp, "full", k)
     ty = math.gcd(yb, RING_Y_ROWS)
-    return _launch(entry, field, warp, loop, "full", entry == "run_v7", ty, ty, RING_X_ROWS)
+    return _launch(entry, field, warp, loop, "full", (entry == "run_v7", ty, ty, RING_X_ROWS))
 
 
 def run_vmemfull(field, warp, inner="fori", k=K, yb=64) -> torch.Tensor:

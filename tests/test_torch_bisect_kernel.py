@@ -28,6 +28,7 @@ import torch
 
 from levelsetfusion_tpu_torch.experiments import bisect_kernel as bk
 from levelsetfusion_tpu_torch.experiments import loop_cost as lc
+from levelsetfusion_tpu_torch.experiments import stack_bodies_sweep
 from levelsetfusion_tpu_torch.experiments.resample_variants import clamp_warp
 from levelsetfusion_tpu_torch.ops.interpolation import warp_field
 from tests.torch_parity import assert_close, interpreted, n, t
@@ -199,3 +200,18 @@ def test_entry_point_requires_cuda(mode):
         pytest.skip("CUDA is present: the refusal applies only without it")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         bk.main(mode=mode, shape=(2, 128))
+
+
+@pytest.mark.parametrize("name", list(stack_bodies_sweep.VARIANTS))
+def test_sweep_variant_applies_to_the_kernel_source(name):
+    """Every substitution of the table sweep finds its anchor exactly once
+    in csrc/stack_bodies.cu, so each variant built on the card is the one
+    the sweep names."""
+    text = stack_bodies_sweep.variant_source(name)
+    assert ("__global__" in text) and (text != stack_bodies_sweep.SOURCE.read_text()
+                                       or name == "base")
+
+
+def test_sweep_needs_the_gpu():
+    with pytest.raises(RuntimeError):
+        stack_bodies_sweep.main(device="cpu")

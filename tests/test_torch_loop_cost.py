@@ -20,8 +20,9 @@ import numpy as np
 import pytest
 import torch
 
+from levelsetfusion_tpu_torch.experiments import _sweep
 from levelsetfusion_tpu_torch.experiments import loop_cost as lc
-from tests.torch_parity import assert_close, interpreted, n, t
+from tests.torch_parity import assert_close, c_prototype, ctypes_kind, interpreted, n, t
 
 X, Y = 128, 16
 
@@ -170,3 +171,41 @@ def test_entry_point_requires_cuda():
         pytest.skip("CUDA is present: the refusal applies only without it")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         lc.main(shape=(2, 64))
+
+
+@pytest.mark.parametrize("name,argtypes", [("lsf_stack_body", lc.STACK_BODY_ARGTYPES)])
+def test_stack_body_argtypes_match_c_prototype(name, argtypes):
+    """A mismatch would pass arguments in the wrong registers at launch,
+    which nothing on the CPU can see."""
+    assert [ctypes_kind(a) for a in argtypes] == c_prototype("stack_bodies.cu", name)
+
+
+@pytest.mark.parametrize("mangled,name", [
+    ("_ZN12_GLOBAL__N_112stack_kernelILi4ELi0EEEvNS_6ParamsE", "stack_kernel<4,0>"),
+    ("_ZN12_GLOBAL__N_112table_kernelILi10ELi1EEEvNS_6ParamsE", "table_kernel<10,1>"),
+    ("_ZN12_GLOBAL__N_111tile_kernelILi0ELi0EEEvNS_6ParamsE", "tile_kernel<0,0>"),
+    ("_ZN12_GLOBAL__N_120warp_field_cm_kernelIjEEvPKfS2_Pfiiiii", "warp_field_cm_kernel<uint32_t>"),
+    ("_Z6kernelPf", "_Z6kernelPf"),
+])
+def test_kernel_name_demangles_the_instantiation(mangled, name):
+    assert _sweep.kernel_name(mangled) == name
+
+
+def test_ptxas_report_gives_registers_spills_and_stack_frame():
+    """chip_smoke phase 7 and the sweeps read each kernel's stack frame,
+    where a table indexed by the runtime pair shows as local memory."""
+    log = """ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_112table_kernelILi10ELi1EEEvNS_6ParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_112table_kernelILi10ELi1EEEvNS_6ParamsE
+    144 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 40 registers, 380 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z1kv' for 'sm_90a'
+ptxas info    : Function properties for _Z1kv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 8 registers, 1024 bytes smem, 352 bytes cmem[0]
+"""
+    assert _sweep.ptxas(log) == {
+        "_ZN12_GLOBAL__N_112table_kernelILi10ELi1EEEvNS_6ParamsE": (40, 12, 144, 0),
+        "_Z1kv": (8, 0, 0, 1024),
+    }
+    assert _sweep.registers(log, _sweep.kernel_name) == {
+        "table_kernel<10,1>": "40r/12B/144B", "_Z1kv": "8r/0B/0B"}

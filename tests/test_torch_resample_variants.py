@@ -14,7 +14,8 @@ warp) abs 1e-5: the enumeration and the 8-corner trilinear sum round in
 another order (4.7e-6 measured at these shapes).
 
 Z must be 128 (the TPU lane width fixes the z bounds), so the shapes are
-(4, 16, 128) and (8, 16, 128)."""
+(4, 16, 128) and (8, 16, 128), and (3, 12, 128) for B3's runtime geometry
+(a Y that is not a multiple of its 8-row tiles)."""
 
 import functools
 
@@ -25,7 +26,15 @@ import torch
 from levelsetfusion_tpu_torch.experiments import resample_variants as rv
 from levelsetfusion_tpu_torch.experiments import v10_xslab
 from levelsetfusion_tpu_torch.ops.interpolation import warp_field
-from tests.torch_parity import assert_close, c_prototype, ctypes_kind, interpreted, n, t
+from tests.torch_parity import (
+    REPO,
+    assert_close,
+    c_prototype,
+    ctypes_kind,
+    interpreted,
+    n,
+    t,
+)
 
 SMALL = (4, 16, 128)
 SLAB = (8, 16, 128)
@@ -257,3 +266,76 @@ def test_v10_argtypes_match_c_prototype(name, argtypes):
     """A mismatch would pass arguments in the wrong registers at launch,
     which nothing on the CPU can see."""
     assert [ctypes_kind(a) for a in argtypes] == c_prototype("v10_xslab.cu", name)
+
+
+@pytest.mark.parametrize("name,argtypes", [
+    ("lsf_resample_variant", rv.VARIANT_ARGTYPES),
+    ("lsf_resample_variant_tiled", rv.TILED_ARGTYPES),
+])
+def test_resample_variant_argtypes_match_c_prototype(name, argtypes):
+    """A mismatch would pass arguments in the wrong registers at launch,
+    which nothing on the CPU can see."""
+    assert [ctypes_kind(a) for a in argtypes] == c_prototype("resample_variants.cu", name)
+
+
+# ----------------------------------------------------- B3's launch geometry
+
+B3_SHAPES = [SMALL, (2, 64, 128), (20, 64, 128), (128, 128, 128), (3, 12, 128), (2, 8, 128),
+             (2, 200, 128)]
+MAX_DYNAMIC_SMEM = 232448  # bytes of dynamic shared memory a CTA may use on the H100
+
+
+def _b3_accepts(shape, variant):
+    field = torch.empty(shape)
+    try:
+        rv.check_inputs(field, torch.empty(shape + (3,)), min(rv.KERNELS[variant][2], shape[1]),
+                        rv.K)
+    except ValueError:
+        return False
+    return True
+
+
+@pytest.mark.parametrize("shape", B3_SHAPES, ids=str)
+def test_b3_geometry_fits_shared_memory(shape):
+    """Every accepted shape and variant gets a launch whose staged rows fit
+    a CTA's shared memory, covering Y with its tiles."""
+    accepted = [v for v in rv.KERNELS if _b3_accepts(shape, v)]
+    assert accepted
+    for variant in accepted:
+        g = rv.b3_geometry(shape, variant)
+        assert 0 < g["smem_bytes"] <= MAX_DYNAMIC_SMEM
+        assert g["staged_rows"] == g["tile_rows"] + 5 and shape[1] % g["tile_rows"] == 0
+        assert g["ctas"] >= shape[0]
+
+
+def test_b3_geometry_picks_the_compile_time_tiles():
+    """The compile-time tiles at 128^3 and at chip_smoke's ragged X (their Y
+    is a multiple of 8: the geometry does not depend on X); the runtime
+    geometry where Y is not."""
+    full = rv.b3_geometry((128, 128, 128))
+    assert full == {"kernel": "tiled", "tile_rows": 8, "staged_rows": 13,
+                    "smem_bytes": 79872, "ctas": 256}
+    assert rv.b3_geometry((20, 64, 128))["kernel"] == "tiled"
+    for shape, variant in (((3, 12, 128), "v6"), ((3, 4, 128), "unroll"),
+                           ((3, 20, 128), "yb128")):
+        g = rv.b3_geometry(shape, variant)
+        assert g["kernel"] == "window" and g["tile_rows"] == shape[1]
+        assert g["smem_bytes"] == 6 * (shape[1] + 5) * 512 and g["ctas"] == 3
+
+
+def test_b3_geometry_matches_the_kernel_source():
+    """The wrapper's tile constants are the kernel's."""
+    src = (REPO / "levelsetfusion_tpu_torch" / "csrc" / "resample_variants.cu").read_text()
+    assert f"constexpr int kTileRows = {rv.B3_TILE_ROWS};" in src
+    assert f"constexpr int kCtaRows = {rv.B3_CTA_ROWS};" in src
+    assert f"{rv.b3_geometry((128, 128, 128))['smem_bytes']:,} B" in src
+
+
+def test_b3_ragged_y_matches_jax(interpret):
+    """A Y that is not a multiple of 8 (yb = Y), the runtime geometry's
+    shape, through the JAX script and the port."""
+    jm = interpret("resample_variants")
+    field, warp = _inputs((3, 12, 128), 12)
+    want = jm.run_variant(field, warp, variant="v6")
+    got = rv.run_variant(t(field), t(warp), variant="v6")
+    assert_close(got, want, rtol=0, atol=1e-6)
