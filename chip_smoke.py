@@ -89,8 +89,9 @@ BENCH_ITERS = 300  # bench.py's N_ITER
 LIBRARIES = ("resample", "fused_gradient", "conv_yz", "fused_io_probe", "dma_probe",
              "resample_variants", "v10_xslab", "stack_bodies")
 RAGGED_X = (20, 64, 128)  # a ragged x for the resample variants (their Z is 128)
-RAGGED_B3 = (5, 6, 128)  # a Y off B3's 8-row tiles (yb = Y): its runtime geometry
+RAGGED_B3 = (5, 6, 128)  # a Y off B3's and B4's 8-row tiles (yb = Y): their runtime geometry
 B45_VARIANTS = ("vf_fori", "vf_chunk", "vf_unroll", "v7_chunk", "v7_unroll")
+B4_WINDOW = ("vf_fori_yb6", "vf_chunk_yb6", "vf_unroll_yb6")  # B4 at RAGGED_B3
 
 # The card's peaks (NVIDIA's H100 SXM data sheet): HBM bytes/s and f32
 # operations/s outside the tensor cores (every bound below counts f32 work).
@@ -536,7 +537,9 @@ SASS_KERNELS = (
     ("stack_bodies", "stack_kernel<4,1>", "B9 full static", None),
     ("stack_bodies", "table_kernel<9,4>", "B7 v8", 4),
     ("stack_bodies", "table_kernel<10,1>", "B7 v8c", 3),
+    ("stack_bodies", "table_kernel<8,4>", "B8 level 4", 2),
     ("resample_variants", "tile_kernel<0,0>", "B3 v6", 2),
+    ("resample_variants", "ring_kernel<0>", "B4 vf_fori", 2),
 )
 
 
@@ -546,9 +549,10 @@ def phase7_ptxas():
     -v`` log, and the SASS a voxel of the pair-loop kernels."""
     parts = [f"{name}: {', '.join(_ptxas(name))}" for name in LIBRARIES[2:]]
     print(f"[7] ptxas, registers r / spill bytes B / stack frame bytes B / static shared S "
-          f"(window_kernel<loop, body, tents_once> and tile_kernel<loop, body> as codes of "
+          f"(window_kernel<loop, body, tents_once>, tile_kernel<loop, body> and "
+          f"ring_kernel<loop> as codes of "
           f"resample_variants.LOOPS and BODIES, stack_kernel<body, loop> and "
-          f"table_kernel<body, TY> of loop_cost.BODIES and LOOP_KINDS): {'; '.join(parts)}")
+          f"table_kernel<body, TY> of loop_cost.BODIES and LOOPS): {'; '.join(parts)}")
     found = []
     for library in dict.fromkeys(row[0] for row in SASS_KERNELS):
         kernels = {name: (what, lds) for lib, name, what, lds in SASS_KERNELS if lib == library}
@@ -743,16 +747,21 @@ def phase12_resample_variants():
     if min(launches.values()) == 0:
         raise AssertionError(f"resample_variants.main left a kernel unlaunched: {launches}")
     # Every variant equals its plain version (max|Δ| 0) at 128^3 and a ragged
-    # X; B3 also at a Y that is not a multiple of 8, which takes its runtime
-    # geometry (window_kernel) instead of the compile-time tiles.
-    err = dict.fromkeys(names, 0.0)
-    for shape, group in ((FULL, names), (RAGGED_X, names), (RAGGED_B3, tuple(rv.KERNELS))):
+    # X; B3 and B4 also at a Y that is not a multiple of their tiles' 8 rows,
+    # which takes their runtime geometry (window_kernel) instead of the
+    # compile-time tiles or ring.
+    err = dict.fromkeys((*names, *B4_WINDOW), 0.0)
+    for shape, group in ((FULL, names), (RAGGED_X, names),
+                         (RAGGED_B3, (*rv.KERNELS, *B4_WINDOW))):
         field, warp = rv.inputs(shape, "cuda")
         for name in group:
             got = rv.variant_call(name)(field, warp)
             want = rv.resample_variant_reference(field, warp, name)
             err[name] = max(err[name], _close(f"{name} {shape}", got, want, 0.0, 0.0))
-    kernels = {shape: rv.b3_geometry(shape)["kernel"] for shape in (FULL, RAGGED_X, RAGGED_B3)}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    kernels = {shape: (rv.b3_geometry(shape)["kernel"],
+                       rv.b4_geometry(shape, min(64, shape[1]), sms=sms)["kernel"])
+               for shape in (FULL, RAGGED_X, RAGGED_B3)}
     field, warp = rv.inputs(FULL, "cuda")
     warp_cm = rv.clamp_warp(warp).movedim(-1, 0).contiguous()
     b1 = warp_field_cm(field, warp_cm)
@@ -769,9 +778,10 @@ def phase12_resample_variants():
     table = ", ".join(f"{name} {ms[name] * 1e3:.1f} ({plain_ms[name] * 1e3:.0f})"
                       for name in names)
     vox = field.numel()
-    print(f"[12] resample variants vs plain at {FULL} and {RAGGED_X}, B3 also at {RAGGED_B3} "
-          f"(B3 kernels {kernels}): max|Δ| {max(err.values())} (exact), value-preserving vs "
-          f"B1 {vs_b1:.3e} (tol 1e-5); "
+    print(f"[12] resample variants vs plain at {FULL} and {RAGGED_X}, B3 and {B4_WINDOW} "
+          f"also at {RAGGED_B3} (B3, B4 kernels {kernels}; B4's ring at {FULL}, CTAs on {sms} "
+          f"SMs: {({i: rv.b4_geometry(FULL, 64, i, sms)['ctas'] for i in rv.VMEMFULL_INNERS})}): "
+          f"max|Δ| {max(err.values())} (exact), value-preserving vs B1 {vs_b1:.3e} (tol 1e-5); "
           f"us per call at {FULL}, kernel (plain): {table}; B1 {b1_ms * 1e3:.1f}; "
           f"grid_sample {lib_ms * 1e3:.1f} (max|Δ| {gs_err:.2e} vs B1); "
           f"launches {launches}; {time.perf_counter() - t0:.1f} s")
@@ -784,7 +794,7 @@ def phase12_resample_variants():
                         plain_ms[name], bound, lib_ms)
 
     return {"run_variant": numbers("run_variant", "v6", rv.KERNELS),
-            "run_vmemfull": numbers("run_vmemfull", "vf_fori", B45_VARIANTS[:3]),
+            "run_vmemfull": numbers("run_vmemfull", "vf_fori", (*B45_VARIANTS[:3], *B4_WINDOW)),
             "run_v7": numbers("run_v7", "v7_chunk", B45_VARIANTS[3:])}
 
 
@@ -864,6 +874,10 @@ def phase14_bisect():
     gs_err = _close("grid_sample vs level 4", gs_value(gs_call()),
                     bk.bisect_reference(stacked, warp, 4), 0.0, 1e-3)
     lib_ms = best_ms(gs_call, stacked.device, 20)
+    # Level 0 and B9's full/fori are one function in two designs (table_kernel's
+    # frame and stack_kernel): the difference is what the old loop's
+    # mechanics cost.
+    b9_full_ms = best_ms(lambda: loop_cost.run(stacked, warp, "full", "fori"), stacked.device)
     plain_ms = {
         "level4": best_ms(lambda: bk.bisect_reference(stacked, warp, 4), stacked.device, 3),
         **{w: best_ms(lambda w=w: bk.v8_reference(stacked, warp, w), stacked.device, 3)
@@ -873,7 +887,8 @@ def phase14_bisect():
     # Level 4, v8 and v8c are one function, the clamped resample off the stack.
     bound = _bound(_stack_bytes(warp), OPS_CLAMPED_RESAMPLE * warp[..., 0].numel())
     print(f"[14] bisect_kernel at {FULL}: levels us per call "
-          f"{[round(r['us_per_call'], 1) for r in levels]}; v8/v8c at yb 64, 128 "
+          f"{[round(r['us_per_call'], 1) for r in levels]} (level 0 {levels[0]['us_per_call']:.1f} "
+          f"against B9 full/fori {b9_full_ms * 1e3:.1f} on the same stack); v8/v8c at yb 64, 128 "
           f"{[(r['which'], r['yb'], round(r['us_per_call'], 1)) for r in v8_rows]}; "
           f"every instantiation exact vs plain at {FULL} and X, Y = {RAGGED_STACK} on the "
           f"random stack; level 4, v8, v8c on a real stack vs golden max|Δ| "

@@ -43,13 +43,28 @@
 //   t / kN. yb only gates the shapes. A Y that is not a multiple
 //   of 8 (yb = Y) goes to window_kernel, the runtime geometry: one CTA per
 //   (x row, y block of yb), staging yb rows (or gcd(yb, 64)) at a time.
-// - B4/B5 (XC = 8, a ring): the TPU grid of Y/yb x-walking steps would be 2
-//   CTAs at 128^3 on 132 SMs, so a CTA here walks a chunk of 8 x rows over
+// - B4 (ring_kernel): the TPU grid of Y/yb x-walking steps would be 2 CTAs
+//   at 128^3 on 132 SMs, so the (y tile, x row) steps, tiles of kRingTY = 8
+//   y rows and x fastest, are split into equal ranges, one a CTA, one wave
+//   of CTAs on the current device (occupancy.cuh). A CTA (512 threads, two
+//   voxels a thread a step) walks its range's x rows through a ring of
+//   kN + 1 staged x rows (7 x 13 x 128 floats = 46,592 B: four CTAs, 64
+//   warps, share an SM for fori, two for chunk and unroll), the next row's
+//   cp.async in flight while the current row's sums run (one commit group
+//   per step, as csrc/dma_probe.cu), and restarts the ring where its range
+//   enters a new tile. Each padded row is staged once per range. The
+//   geometry is compile-time: the pair loop (fori, resample_z.cuh's
+//   pair_sum) reads pair t's row and shifts from kRingPairs (one table per
+//   start slot) and addresses its two loads with one IMAD each; chunk and
+//   unroll index their static pairs. A thread loads its next voxel's warp
+//   before the sum. Tiles of 8 rows time faster than 4 or 16, and fori at
+//   64 warps faster than at 48 or 16 (experiments/resample_variants_sweep.py).
+//   A Y that is not a multiple of 8 goes to window_kernel.
+// - B5 (window_kernel, XC = 8, a ring): a CTA walks a chunk of 8 x rows over
 //   TY = gcd(yb, 16) y rows (128 CTAs at 128^3) and keeps a ring of kN + 1
 //   staged x rows (7 x 21 x 128 floats = 75 KB): each padded row is loaded
-//   once per chunk, the next row's cp.async in flight while the current
-//   row's sum runs (one commit group per step, as csrc/dma_probe.cu).
-//   B5 keeps its 2n tent values in registers (static indices only).
+//   once per chunk. B5 keeps its 2n tent values in registers (static
+//   indices only).
 //
 // What bounds it on the H100: shared-memory reads. Each voxel makes 36
 // pairs x 2 z reads, 72 x 4 B = 288 B of shared-memory traffic, 604 MB at
@@ -60,7 +75,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 #include "cp_async.cuh"
+#include "occupancy.cuh"
 #include "resample_z.cuh"
 
 namespace {
@@ -98,6 +116,22 @@ constexpr int kTileSmem = 2 * kTileFloats * (int)sizeof(float);  // 79,872 B: tw
 
 // Pair t's staged row in a tile: slot cx, row cy (resample_z.cuh).
 __constant__ PairTable<1> kTilePairs = pair_table<1>(kN, kTileStage);
+
+// B4's ring (ring_kernel<L>): tiles of kRingTY y rows, kN + 1 slots of
+// kRingRows padded y rows, kRingCtas<L> CTAs an SM (the launch bounds cap
+// the registers to match: 32 for fori, 64 for the static loops, which run
+// faster with the registers than with the warps).
+constexpr int kRingTY = 8;
+constexpr int kRingRows = kRingTY + kN - 1;
+constexpr int kRingSlots = kN + 1;
+constexpr int kRingSlotF = kRingRows * kLane;
+constexpr int kRingSmem = kRingSlots * kRingSlotF * (int)sizeof(float);  // 46,592 B
+template <int L>
+constexpr int kRingCtas = L == kPairLoop ? 4 : 2;
+
+// Pair t's staged row from start slot s0: slot (s0 + cx) mod kRingSlots,
+// row cy.
+__constant__ PairTable<kRingSlots> kRingPairs = pair_table<kRingSlots>(kRingSlots, kRingRows);
 
 // Stage padded x row px, padded y rows [y0, y0 + rows), into `slot`: a
 // cp.async per 16 bytes inside the volume, a store of the +1 fill outside.
@@ -300,6 +334,78 @@ __global__ void __launch_bounds__(kThreads, 2) tile_kernel(Params p) {
   }
 }
 
+// B4, body full, loop fori, chunk or unroll. The grid splits the (y tile,
+// x row) steps, x fastest, into equal ranges, one a CTA.
+template <int L>
+__global__ void __launch_bounds__(kThreads, kRingCtas<L>) ring_kernel(Params p) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int kRowStep = kThreads / kLane;  // y rows a thread's voxels step by
+  constexpr int kVox = kRingTY / kRowStep;    // voxels a thread a step
+  const int z = threadIdx.x % kLane, r_first = threadIdx.x / kLane;
+  // 32-bit step counters (the entry's shape rule): fori fits its 32
+  // registers without spilling.
+  const int steps = p.nx * (p.ny / kRingTY);
+  const int end = (int)((int64_t)(blockIdx.x + 1) * steps / gridDim.x);
+  const int64_t row_step = (int64_t)p.ny * kLane;  // voxels from one x row to the next
+  auto warp_at = [&](int64_t w) {
+    return make_float3(__ldg(p.warp + 3 * w), __ldg(p.warp + 3 * w + 1), __ldg(p.warp + 3 * w + 2));
+  };
+  for (int f = (int)((int64_t)blockIdx.x * steps / gridDim.x); f < end;) {
+    const int y0 = f / p.nx * kRingTY, x0 = f % p.nx;
+    const int xn = min(p.nx - x0, end - f);
+    f += xn;
+    // A thread's voxels, in order: rows r_first, r_first + kRowStep, ... of
+    // each x row.
+    int64_t v = ((int64_t)x0 * p.ny + y0 + r_first) * kLane + z;
+    float3 u = warp_at(v);
+    for (int c = 0; c < kN; ++c) stage_row(p, smem + c * kRingSlotF, x0 + c, y0, kRingRows);
+    cp_async_commit();
+    for (int xi = 0, slot0 = 0; xi < xn; ++xi, slot0 = slot0 + 1 == kRingSlots ? 0 : slot0 + 1) {
+      if (xi + 1 < xn) {  // the ring's next row, into the slot row xi - 1 used
+        const int next = slot0 + kN >= kRingSlots ? slot0 + kN - kRingSlots : slot0 + kN;
+        stage_row(p, smem + next * kRingSlotF, x0 + xi + kN, y0, kRingRows);
+      }
+      cp_async_commit();    // possibly empty: one group per step
+      cp_async_wait<1>();  // every group but this step's has landed
+      __syncthreads();
+#pragma unroll 1
+      for (int k = 0; k < kVox; ++k) {
+        const int r = r_first + k * kRowStep;
+        const bool last = k + 1 == kVox;
+        const int64_t v_next = last ? v + row_step - (kVox - 1) * kRowStep * kLane
+                                    : v + kRowStep * kLane;
+        const float3 u_next = !last || xi + 1 < xn ? warp_at(v_next) : u;
+        const ZSetup zs = z_setup(u.z, z);
+        const float ux = clamp_k(u.x), uy = clamp_k(u.y);
+        if constexpr (L == kPairLoop) {  // a staged row is kLane floats
+          const float* row0 = smem + r * kLane;
+          p.out[v] = pair_sum<kLane * (int)sizeof(float), true>(
+              acc0(zs), kRingPairs.p[slot0], (unsigned)__cvta_generic_to_shared(row0 + zs.z0c),
+              (unsigned)__cvta_generic_to_shared(row0 + zs.z1c), ux, uy, zs);
+        } else {
+          p.out[v] = voxel<L, kFull, false>(smem, slot0, kRingSlots, kRingRows, r, z, ux, uy, zs);
+        }
+        u = u_next;
+        v = v_next;
+      }
+      __syncthreads();  // slot xi is refilled at the next step (or the next range's start)
+    }
+  }
+}
+
+template <int L>
+int launch_ring(const Params& p, cudaStream_t stream) {
+  static lsf_occ::WaveCache cache;
+  const int wave = lsf_occ::wave((const void*)ring_kernel<L>, kThreads, kRingSmem, cache);
+  if (wave < 0) {
+    const cudaError_t err = cudaGetLastError();
+    return (int)(err != cudaSuccess ? err : cudaErrorUnknown);
+  }
+  const int64_t steps = (int64_t)p.nx * (p.ny / kRingTY);
+  ring_kernel<L><<<(unsigned)std::min<int64_t>(wave, steps), kThreads, kRingSmem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
 template <int L, int B>
 int launch_tiled(const Params& p, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute((const void*)tile_kernel<L, B>,
@@ -398,6 +504,27 @@ extern "C" int lsf_resample_variant_tiled(const float* field, const float* warp,
   return with_variant(loop, body, [&](auto v) {
     return launch_tiled<decltype(v)::L, decltype(v)::B>(p, s);
   });
+}
+
+// B4 on its compile-time ring (ring_kernel): loop 0 (fori), 2 (chunk) or 3
+// (unroll), body 0 (full). Shape rules (else cudaErrorInvalidValue): nz 128,
+// nx >= 1, ny a positive multiple of kRingTY (8), nx ny / 8 < 2^31, field
+// 16-byte aligned.
+extern "C" int lsf_resample_variant_ring(const float* field, const float* warp, float* out,
+                                         int nx, int ny, int nz, int loop, int body,
+                                         void* stream) {
+  if (nz != kLane || nx < 1 || ny < kRingTY || ny % kRingTY != 0 || body != kFull ||
+      (int64_t)nx * (ny / kRingTY) > INT32_MAX || (uintptr_t)field % 16 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const Params p{field, warp, out, nx, ny, kRingTY, kRingTY, 1, kRingSlots};
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (loop) {
+    case kPairLoop: return launch_ring<kPairLoop>(p, s);
+    case kChunk: return launch_ring<kChunk>(p, s);
+    case kUnroll: return launch_ring<kUnroll>(p, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" const char* lsf_resample_variants_error_string(int err) {

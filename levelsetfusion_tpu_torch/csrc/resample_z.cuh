@@ -59,19 +59,19 @@ __device__ __forceinline__ float add_pair(float acc, float w, float g) {
   return __fadd_rn(acc, __fmul_rn(w, g));
 }
 
-// The runtime pair loops (csrc/resample_variants.cu's B3 tiles,
-// csrc/stack_bodies.cu's v8 and v8c) read pair t = kN cy + cx (cy outer)
-// from a table in constant memory, a uniform LDC a pair, in place of t / kN
-// and the ring's wrap: the staged row it reads, counted in rows from the
-// voxel's row in slot 0 (each kernel scales it by its row's bytes, a power
-// of two: one LEA an address), cx - K and cy - K as floats (exact), and cx,
-// cy. The table is built at compile time for each start slot of a ring; a
-// 37th pair, a copy of pair 0, lets a loop load pair t + 1 while it sums
-// pair t. (Counters carried through the loop cost more: ptxas predicates the
-// new-cy update into every step.)
-struct Pair {
+// The runtime pair loops (csrc/resample_variants.cu's B3 tiles and B4 ring,
+// csrc/stack_bodies.cu's B8 levels, v8 and v8c) read pair t = kN cy + cx
+// (cy outer) from a table in constant memory, a uniform LDC a pair, in place
+// of t / kN and the ring's wrap: the staged row it reads, counted in rows
+// from the voxel's row in slot 0 (each kernel scales it by its row's bytes,
+// a power of two), cx - K and cy - K as floats (exact), and cx, cy. The
+// table is built at compile time for each start slot of a ring; a 37th
+// pair, a copy of pair 0, lets a loop load pair t + 1 while it sums pair t.
+// (Counters carried through the loop cost more: ptxas predicates the new-cy
+// update into every step.)
+struct alignas(16) Pair {
   int row;
-  float fx, fy;  // with row, one 16-byte LDC (B3)
+  float fx, fy;  // with row, one 16-byte line (pair_sum)
   int pad0;
   int cx, cy;  // with row, two LDCs (v8); a third when cx, cy straddle 16 bytes
   int pad1[2];
@@ -96,6 +96,41 @@ constexpr PairTable<kStarts> pair_table(int slots, int slot_rows) {
     }
   }
   return table;
+}
+
+// The float at byte `addr` of this CTA's shared memory window.
+__device__ __forceinline__ float ld_shared(unsigned addr) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];" : "=f"(v) : "r"(addr));
+  return v;
+}
+
+// The runtime pair loop of B4's ring and B8's levels: acc plus, over the 36
+// pairs of `pairs` (one start slot's table) in t order, w0 R[z0c] + w1
+// R[z1c] of pair t's staged row R, weighted by tent(uy - fy) tent(ux - fx)
+// when kWeighted. a0 and a1 are the shared addresses of the voxel's z0c and
+// z1c in its row of slot 0, and a table row is kRowBytes further on: pair t
+// is two LDCs (row, fx, fy) and one IMAD or LEA an address, 22-23 SASS in
+// all. (A pointer walk over the table made the loop's counter 64 bits: 3
+// more SASS a pair; loading pair t + 1 before summing pair t timed slower,
+// experiments/*_sweep.py.)
+template <int kRowBytes, bool kWeighted>
+__device__ __forceinline__ float pair_sum(float acc, const Pair* pairs, unsigned a0, unsigned a1,
+                                          float ux, float uy, const ZSetup& zs) {
+#pragma unroll 1
+  for (int t = 0; t < kN * kN; ++t) {
+    const int4 q = *reinterpret_cast<const int4*>(&pairs[t]);  // row, fx, fy, pad0
+    const unsigned off = (unsigned)q.x * kRowBytes;
+    const float g = zmix(zs, ld_shared(a0 + off), ld_shared(a1 + off));
+    if constexpr (kWeighted) {
+      const float w = __fmul_rn(tent(__fsub_rn(uy, __int_as_float(q.z))),
+                                tent(__fsub_rn(ux, __int_as_float(q.y))));
+      acc = add_pair(acc, w, g);
+    } else {
+      acc = __fadd_rn(acc, g);
+    }
+  }
+  return acc;
 }
 
 }  // namespace lsf_rz

@@ -35,34 +35,44 @@
 // them on a random stack, whose planes are independent: the kernel reads
 // plane cy at row y, never plane 0 at row y + cy.
 //
-// Design: the ring of csrc/resample_variants.cu (B4) with the stack's rows
-// staged instead of the field's. A CTA computes XC = 8 x rows by TY = 4 y
-// rows by 128 z lanes, 512 threads, one voxel of each x row per thread, so
-// warp reads and output writes coalesce. It keeps a ring of N + 1 slots, each
-// holding the N planes' TY rows of one padded x row, staged with cp.async,
-// the next row in flight while the current row's sums run (one commit group
-// per step). TY and XC are compile-time constants, so the ring's strides fold
-// into the address arithmetic. A slot is 6 x 4 x 512 B and the ring 86 KB, so
-// two CTAs (32 warps) share an SM; 128^3 is 512 CTAs. The TPU's yb only gates
+// Design: a ring of staged x rows, as csrc/resample_variants.cu's B4, with
+// the stack's rows staged instead of the field's. B9 (stack_kernel, loops
+// fori and static): a CTA computes XC = 8 x rows by TY = 4 y rows by 128 z
+// lanes, 512 threads, one voxel of each x row per thread, so warp reads and
+// output writes coalesce. It keeps a ring of N + 1 slots, each holding the N
+// planes' TY rows of one padded x row, staged with cp.async, the next row in
+// flight while the current row's sums run (one commit group per step). TY
+// and XC are compile-time constants, so the ring's strides fold into the
+// address arithmetic. A slot is 6 x 4 x 512 B and the ring 86 KB, so two
+// CTAs (32 warps) share an SM; 128^3 is 512 CTAs. The TPU's yb only gates
 // the shapes (Y must also be a multiple of TY). The arithmetic is
 // resample_z.cuh's, in the float steps of the JAX bodies, so each body
 // equals its plain torch version bit for bit.
 //
-// v8 and v8c (table_kernel) keep the TPU's VMEM scratch planes as a table in
-// shared memory after the ring, laid out [entry][thread], so that a warp's
-// read of an entry is one conflict-free wavefront. v8's 12 tent values take
-// 24 KB beside the 86 KB ring (TY = 4: two CTAs, 32 warps an SM). v8c's 36
+// B8's levels and B7 (table_kernel, loop frame) run on another frame: the
+// grid splits the (tile, x row) steps into equal ranges, one wave of CTAs on
+// the current device (occupancy.cuh), a CTA walking its range through the
+// ring and loading its next x row's warp before the step's barrier. The pair
+// loop stays one runtime step a pair in t order: it reads pair t's ring row
+// (and its shifts, or v8's cy, cx) from a table in constant memory
+// (resample_z.cuh's Pair), not t / N and the ring's wrap, so an address is
+// a multiply-add from the voxel's z0c or z1c row, and it issues pair t + 1's
+// loads before pair t's sum (v8, v8c). The levels run resample_z.cuh's pair_sum,
+// levels 2-4 computing each pair's tents in the loop, from the shifts; their
+// tiles are kLevelTY = 4 y rows (512 threads, the 86 KB ring: two CTAs, 32
+// warps an SM), which times faster than 2 or 1 (40 warps), and the loop
+// loads pair t's values in the step that sums it, which times faster than
+// loading them a step ahead (experiments/stack_bodies_sweep.py).
+//
+// v8 and v8c keep the TPU's VMEM scratch planes as a table in shared memory
+// after the ring, laid out [entry][thread], so that a warp's read of an
+// entry is one conflict-free wavefront. v8's 12 tent values take 24 KB
+// beside the 86 KB ring (TY = 4: two CTAs, 32 warps an SM). v8c's 36
 // products (and a copy of the first) take 148 B a voxel, which with the
 // ring's 168 B leaves room for at most ~23 warps an SM; its tiles are 1 y
 // row (128 threads, 40 KB: five CTAs, 20 warps), which times faster than
 // TY = 4 or 2 (16 warps) and than a table in local memory kept in L1
-// (experiments/stack_bodies_sweep.py). The
-// pair loop stays one runtime step a pair in t order: it reads pair t's ring
-// row (and v8's cy, cx) from a table in constant memory (resample_z.cuh's
-// Pair), not t / N and the ring's wrap, so an address is one LEA from the
-// voxel's z0c or z1c row, and it issues pair t + 1's loads before pair t's
-// sum. The grid splits the (tile, x row) steps into equal ranges, one wave of
-// CTAs on the current device (occupancy.cuh).
+// (experiments/stack_bodies_sweep.py).
 //
 // What bounds it on the H100: bytes. At 128^3 the function reads the 52 MB
 // of stack rows it uses and the 25 MB warp once and writes 8 MB, 86 MB or
@@ -85,7 +95,7 @@ namespace {
 using namespace lsf_cp;
 using namespace lsf_rz;
 
-enum Loop { kFori = 0, kStatic = 1 };
+enum Loop { kFori = 0, kStatic = 1, kFrame = 2 };
 enum Body {
   kNothing = 0, kSlice = 1, kSlice0 = 2, kGather = 3, kFull = 4,
   kZSetup = 5, kTents = 6, kAcc0 = 7, kClampIn = 8, kV8 = 9, kV8c = 10,
@@ -130,22 +140,19 @@ __device__ __forceinline__ ZSetup z_setup_const(float uz, int z) {
   return s;
 }
 
-// One output voxel: slot (slot0 + cx) mod kSlots holds padded x row x + cx,
-// and row r of plane cy in a slot is stacked[cy, x + cx, y0 + r].
+// One output voxel of B9's bodies (B <= kFull): slot (slot0 + cx) mod
+// kSlots holds padded x row x + cx, and row r of plane cy in a slot is
+// stacked[cy, x + cx, y0 + r].
 template <int B, int L>
 __device__ __forceinline__ float voxel(const float* smem, int slot0, int r, int z,
                                        const float* u) {
+  static_assert(B <= kFull, "stack_kernel runs B9's bodies");
   auto row = [&](int cy, int cx) -> const float* {
     int sl = slot0 + cx;
     if (sl >= kSlots) sl -= kSlots;
     return smem + sl * kSlotFloats + (cy * kTY + r) * kLane;
   };
-  const ZSetup zs = B >= kZSetup ? z_setup(__ldg(u + 2), z) : z_setup_const(__ldg(u + 2), z);
-  float ux = 0.0f, uy = 0.0f;
-  if constexpr (B >= kTents) {
-    ux = __ldg(u), uy = __ldg(u + 1);
-    if constexpr (B >= kClampIn) ux = clamp_k(ux), uy = clamp_k(uy);
-  }
+  const ZSetup zs = z_setup_const(__ldg(u + 2), z);
   auto step = [&](int t, float acc) -> float {
     const int cy = t / kN, cx = t - cy * kN;
     if constexpr (B == kNothing) return __fadd_rn(acc, 1.0f);
@@ -153,11 +160,9 @@ __device__ __forceinline__ float voxel(const float* smem, int slot0, int r, int 
     if constexpr (B == kSlice0) return __fadd_rn(acc, row(0, 0)[z]);
     if constexpr (B == kGather) return __fadd_rn(acc, row(0, 0)[zs.z0c]);
     const float* rw = row(cy, cx);
-    const float g = zmix(zs, rw[zs.z0c], rw[zs.z1c]);
-    if constexpr (B == kFull || B == kZSetup) return __fadd_rn(acc, g);
-    return add_pair(acc, __fmul_rn(tent_at(uy, cy), tent_at(ux, cx)), g);
+    return __fadd_rn(acc, zmix(zs, rw[zs.z0c], rw[zs.z1c]));
   };
-  float acc = B >= kAcc0 ? acc0(zs) : 0.0f;
+  float acc = 0.0f;
   if constexpr (L == kFori) {
 #pragma unroll 1
     for (int t = 0; t < kPairs; ++t) acc = step(t, acc);
@@ -190,10 +195,11 @@ __global__ void __launch_bounds__(kThreads, 2) stack_kernel(Params p) {
   }
 }
 
-// v8 and v8c: the table's entries, the tile's y rows, and the CTA's shared
-// bytes (the ring, then the table) and threads.
+// table_kernel: the weight table's entries (v8 and v8c only), the tile's y
+// rows, and the CTA's shared bytes (the ring, then the table) and threads.
 template <int B>
-constexpr int kEntries = B == kV8 ? 2 * kN : kPairs + 1;  // v8c: wt[36] = wt[0]
+constexpr int kEntries = B == kV8 ? 2 * kN : B == kV8c ? kPairs + 1 : 0;  // v8c: wt[36] = wt[0]
+constexpr int kLevelTY = 4;
 constexpr int kV8TY = 4;
 constexpr int kV8cTY = 1;
 template <int B, int TY>
@@ -211,33 +217,43 @@ struct TableGeom {
 // in units of a plane's TY rows (resample_z.cuh).
 __constant__ PairTable<kSlots> kRingPairs = pair_table<kSlots>(kSlots, kN);
 
-// One v8 or v8c voxel at the warp u. `rows` is the voxel's row (row r of
-// plane 0) in slot 0 of the ring, `tab` its column of the table (entry e at
-// tab[e * TY 128]); slot (slot0 + cx) mod kSlots holds padded x row x + cx.
+// One voxel of a level (B8, kFull to kClampIn), v8 or v8c at the warp u.
+// `rows` is the voxel's row (row r of plane 0) in slot 0 of the ring, `tab`
+// its column of the weight table (entry e at tab[e * TY 128]); slot
+// (slot0 + cx) mod kSlots holds padded x row x + cx.
 template <int B, int TY>
 __device__ __forceinline__ float table_voxel(const float* rows, float* tab, int slot0, int z,
                                              float3 u) {
   constexpr int kUnit = TY * kLane;        // floats of a plane's rows in a slot
   constexpr int kTabStride = TY * kLane;  // floats between two entries of a thread
-  const ZSetup zs = z_setup(u.z, z);
-  const float ux = clamp_k(u.x), uy = clamp_k(u.y);
-  float tx[kN], ty[kN];
+  const ZSetup zs = B >= kZSetup ? z_setup(u.z, z) : z_setup_const(u.z, z);
+  const float ux = B >= kClampIn ? clamp_k(u.x) : u.x, uy = B >= kClampIn ? clamp_k(u.y) : u.y;
+  if constexpr (B >= kV8) {
+    float tx[kN], ty[kN];
 #pragma unroll
-  for (int c = 0; c < kN; ++c) tx[c] = tent_at(ux, c), ty[c] = tent_at(uy, c);
-  if constexpr (B == kV8) {  // ty[0..N) then tx[0..N)
+    for (int c = 0; c < kN; ++c) tx[c] = tent_at(ux, c), ty[c] = tent_at(uy, c);
+    if constexpr (B == kV8) {  // ty[0..N) then tx[0..N)
 #pragma unroll
-    for (int c = 0; c < kN; ++c) tab[c * kTabStride] = ty[c], tab[(kN + c) * kTabStride] = tx[c];
-  } else {  // wt[t] = ty[cy] tx[cx], and wt[36] = wt[0] for the loop's last prefetch
+      for (int c = 0; c < kN; ++c) tab[c * kTabStride] = ty[c], tab[(kN + c) * kTabStride] = tx[c];
+    } else {  // wt[t] = ty[cy] tx[cx], and wt[36] = wt[0] for the loop's last prefetch
 #pragma unroll
-    for (int t = 0; t <= kPairs; ++t) {
-      tab[t * kTabStride] = __fmul_rn(ty[t % kPairs / kN], tx[t % kN]);
+      for (int t = 0; t <= kPairs; ++t) {
+        tab[t * kTabStride] = __fmul_rn(ty[t % kPairs / kN], tx[t % kN]);
+      }
     }
   }
   const float* q0 = rows + zs.z0c;
   const float* q1 = rows + zs.z1c;
+  const Pair* pairs = kRingPairs.p[slot0];
+  if constexpr (B < kV8) {
+    // The levels: resample_z.cuh's pair loop, levels 2-4 computing each
+    // pair's tents from its shifts, levels 0 and 1 summing unweighted.
+    return pair_sum<kUnit * (int)sizeof(float), (B >= kTents)>(
+        B >= kAcc0 ? acc0(zs) : 0.0f, pairs, (unsigned)__cvta_generic_to_shared(q0),
+        (unsigned)__cvta_generic_to_shared(q1), ux, uy, zs);
+  }
   // v8's weight is ty[cy] tx[cx], v8c's wt[t]; pair t's rows come from the
   // table of pairs.
-  const Pair* pairs = kRingPairs.p[slot0];
   auto weight = [&](int t) {
     return B == kV8 ? __fmul_rn(tab[pairs[t].cy * kTabStride], tab[(kN + pairs[t].cx) * kTabStride])
                     : tab[t * kTabStride];
@@ -330,16 +346,15 @@ int launch(const Params& p, cudaStream_t stream) {
 template <int B>
 int launch_loop(const Params& p, int loop, cudaStream_t stream) {
   if (loop == kFori) return launch<B, kFori>(p, stream);
-  if constexpr (B <= kFull) {
-    if (loop == kStatic) return launch<B, kStatic>(p, stream);
-  }
+  if (loop == kStatic) return launch<B, kStatic>(p, stream);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // body: 0 nothing, 1 slice, 2 slice0, 3 gather, 4 full, 5 zsetup, 6 tents,
-// 7 acc0, 8 clampin, 9 v8, 10 v8c; loop: 0 fori, 1 static (bodies 0-4 only).
+// 7 acc0, 8 clampin, 9 v8, 10 v8c; loop: 0 fori and 1 static (stack_kernel,
+// bodies 0-4: B9), 2 frame (table_kernel, bodies 4-10: B8's levels 0-4, B7).
 // Shape rules (else cudaErrorInvalidValue): n = 6 planes, nz 128, nx >= 1,
 // xp >= nx + 5, ny a multiple of 4 (TY), stack 16-byte aligned.
 extern "C" int lsf_stack_body(const float* stack, const float* warp, float* out, int n,
@@ -351,19 +366,24 @@ extern "C" int lsf_stack_body(const float* stack, const float* warp, float* out,
   }
   const Params p{stack, warp, out, xp, nx, ny};
   const cudaStream_t s = (cudaStream_t)stream;
+  if (loop == kFrame) {
+    switch (body) {
+      case kFull: return launch_table<kFull, kLevelTY>(p, s);
+      case kZSetup: return launch_table<kZSetup, kLevelTY>(p, s);
+      case kTents: return launch_table<kTents, kLevelTY>(p, s);
+      case kAcc0: return launch_table<kAcc0, kLevelTY>(p, s);
+      case kClampIn: return launch_table<kClampIn, kLevelTY>(p, s);
+      case kV8: return launch_table<kV8, kV8TY>(p, s);
+      case kV8c: return launch_table<kV8c, kV8cTY>(p, s);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
   switch (body) {
     case kNothing: return launch_loop<kNothing>(p, loop, s);
     case kSlice: return launch_loop<kSlice>(p, loop, s);
     case kSlice0: return launch_loop<kSlice0>(p, loop, s);
     case kGather: return launch_loop<kGather>(p, loop, s);
     case kFull: return launch_loop<kFull>(p, loop, s);
-    case kZSetup: return launch_loop<kZSetup>(p, loop, s);
-    case kTents: return launch_loop<kTents>(p, loop, s);
-    case kAcc0: return launch_loop<kAcc0>(p, loop, s);
-    case kClampIn: return launch_loop<kClampIn>(p, loop, s);
-    case kV8: return loop == kFori ? launch_table<kV8, kV8TY>(p, s) : (int)cudaErrorInvalidValue;
-    case kV8c:
-      return loop == kFori ? launch_table<kV8c, kV8cTY>(p, s) : (int)cudaErrorInvalidValue;
   }
   return (int)cudaErrorInvalidValue;
 }

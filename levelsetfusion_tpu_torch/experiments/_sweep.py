@@ -17,14 +17,43 @@ import torch
 from levelsetfusion_tpu_torch.ops.kernels import _lib
 
 
-def substituted(source: Path, subs, name: str) -> str:
-    """``source``'s text with each ``(old, new)`` of ``subs`` applied."""
+def substituted(source: Path, subs, name: str, inline=()) -> str:
+    """``source``'s text with each header of ``inline`` (a file beside it)
+    pasted in place of its ``#include``, so that anchors may lie in the
+    header, and each ``(old, new)`` of ``subs`` applied."""
     text = source.read_text()
+    for header in inline:
+        include = f'#include "{header}"'
+        if text.count(include) != 1:
+            raise ValueError(f"{name}: {include} found {text.count(include)} times")
+        text = text.replace(include, (source.parent / header).read_text().replace(
+            "#pragma once\n", ""))
     for old, new in subs:
         if text.count(old) != 1:
             raise ValueError(f"{name}: anchor found {text.count(old)} times: {old!r}")
         text = text.replace(old, new)
     return text
+
+
+# A sweep variant's substitutions in resample_z.cuh (inlined): pair_sum
+# loading pair t + 1's table entry and its two shared values before it sums
+# pair t (the table's pair 36 is a copy of pair 0).
+PAIR_PREFETCH = [
+    ("#pragma unroll 1\n  for (int t = 0; t < kN * kN; ++t) {\n"
+     "    const int4 q = *reinterpret_cast<const int4*>(&pairs[t]);  // row, fx, fy, pad0\n"
+     "    const unsigned off = (unsigned)q.x * kRowBytes;\n"
+     "    const float g = zmix(zs, ld_shared(a0 + off), ld_shared(a1 + off));\n",
+     "  int4 q = *reinterpret_cast<const int4*>(&pairs[0]);\n"
+     "  float r0 = ld_shared(a0 + (unsigned)q.x * kRowBytes);\n"
+     "  float r1 = ld_shared(a1 + (unsigned)q.x * kRowBytes);\n"
+     "#pragma unroll 1\n  for (int t = 0; t < kN * kN; ++t) {\n"
+     "    const int4 qn = *reinterpret_cast<const int4*>(&pairs[t + 1]);\n"
+     "    const float r0n = ld_shared(a0 + (unsigned)qn.x * kRowBytes);\n"
+     "    const float r1n = ld_shared(a1 + (unsigned)qn.x * kRowBytes);\n"
+     "    const float g = zmix(zs, r0, r1);\n"),
+    ("      acc = __fadd_rn(acc, g);\n    }\n  }\n",
+     "      acc = __fadd_rn(acc, g);\n    }\n    q = qn, r0 = r0n, r1 = r1n;\n  }\n"),
+]
 
 
 def build(text: str, stem: str, build_dir: Path) -> tuple:

@@ -13,10 +13,12 @@ Port of ``experiments/bisect_kernel.py``. Inputs as ``loop_cost``: a stack
   values (``v8``) or the 36 weight products (``v8c``, the fill added after
   the loop) computed once per voxel.
 
-The kernel is ``csrc/stack_bodies.cu`` (through ``loop_cost.launch``); the
-plain versions are ``loop_cost.stack_body_reference`` under the level's
-body. On the stack of a field (``make_stack``), level 4, v8 and v8c are the
-golden ``warp_field`` on the clamped warp.
+The kernel is ``csrc/stack_bodies.cu`` (through ``loop_cost.launch``), its
+one-wave ``table_kernel`` (loop code ``frame``) for every level and both
+bodies of ``run_v8``; the plain versions are
+``loop_cost.stack_body_reference`` under the level's body. On the stack of
+a field (``make_stack``), level 4, v8 and v8c are the golden ``warp_field``
+on the clamped warp.
 
 ``main`` follows the script: by default each level's µs per call on its
 random stack; with ``mode="v8"``, v8 and v8c at yb 64 and 128 on the stack
@@ -82,7 +84,7 @@ def run(stacked, warp, level: int) -> torch.Tensor:
     check_stack_inputs(stacked, warp, YB)
     if stacked.device.type == "cpu":
         return bisect_reference(stacked, warp, level)
-    out = loop_cost.launch(stacked, warp, LEVELS[level], "fori")
+    out = loop_cost.launch(stacked, warp, LEVELS[level], "frame")
     launch_counts["run"] += 1
     return out
 
@@ -95,7 +97,7 @@ def run_v8(stacked, warp, yb: int = 64, which: str = "v8") -> torch.Tensor:
     check_stack_inputs(stacked, warp, yb)
     if stacked.device.type == "cpu":
         return v8_reference(stacked, warp, which)
-    out = loop_cost.launch(stacked, warp, which, "fori")
+    out = loop_cost.launch(stacked, warp, which, "frame")
     launch_counts["run_v8"] += 1
     return out
 

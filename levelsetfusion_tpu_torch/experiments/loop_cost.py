@@ -53,8 +53,10 @@ BODY_KINDS = ("nothing", "slice", "slice0", "gather", "full")
 LOOP_KINDS = ("fori", "static")
 DEFAULT_CASES = ("nothing/fori", "slice/fori", "slice0/fori", "gather/fori", "full/fori",
                  "nothing/static", "full/static")
-# Body codes of csrc/stack_bodies.cu: this module's, then bisect_kernel's.
+# Body and loop codes of csrc/stack_bodies.cu: this module's, then
+# bisect_kernel's (its "frame": the one-wave kernel of its levels, v8, v8c).
 BODIES = BODY_KINDS + ("zsetup", "tents", "acc0", "clampin", "v8", "v8c")
+LOOPS = LOOP_KINDS + ("frame",)
 TILE_Y = 4  # the kernel's y rows per CTA: Y must be a multiple
 
 # Kernel launches since import or the last reset; callers set it to 0 to
@@ -179,7 +181,7 @@ def launch(stacked, warp, body: str, loop: str) -> torch.Tensor:
     with torch.cuda.device(warp.device):
         err = lib.lsf_stack_body(
             stacked.data_ptr(), warp.data_ptr(), out.data_ptr(), N, stacked.shape[1],
-            nx, ny, LANE, BODIES.index(body), LOOP_KINDS.index(loop),
+            nx, ny, LANE, BODIES.index(body), LOOPS.index(loop),
             _lib.stream_handle(warp.device),
         )
     _lib.check(err, lib.lsf_stack_bodies_error_string, f"stack body {body}/{loop} launch")

@@ -19,8 +19,8 @@ tent(t) = max(0, 1 − |t|). For |ux|, |uy| ≤ 2 this is the golden
   bodies ``static00``/``noslice`` (rows fixed at shift (0, 0)),
   ``nogather`` (no z gather), ``passthrough`` (P(x, y, z) + ux) and
   ``onepair`` (the single shift (0, 0) with the centre tents);
-- ``run_vmemfull`` (B4): the rows staged once per chunk of x rows, inner
-  loop ``fori``, ``chunk`` or ``unroll``;
+- ``run_vmemfull`` (B4): each padded row staged once per range of x rows,
+  inner loop ``fori``, ``chunk`` or ``unroll`` (``b4_geometry``);
 - ``run_v7`` (B5): as B4 with the tent values computed once per voxel,
   structure ``chunk`` or ``unroll``.
 
@@ -80,8 +80,15 @@ V7_STRUCTURES = ("chunk", "unroll")
 B3_TILE_ROWS = 8
 B3_CTA_ROWS = 64
 B3_STAGE_ROWS = 64  # at most this many y rows a runtime-geometry B3 CTA stages at a time
-RING_X_ROWS = 8  # x rows a B4/B5 CTA walks
-RING_Y_ROWS = 16  # at most this many y rows per B4/B5 CTA
+RING_X_ROWS = 8  # x rows a runtime-geometry B4/B5 CTA walks
+RING_Y_ROWS = 16  # at most this many y rows per runtime-geometry B4/B5 CTA
+# B4's compile-time ring (csrc/resample_variants.cu kRingTY, kRingCtas): the
+# (y tile, x row) steps of 8-row tiles in equal ranges, one a CTA, one wave
+# of CTAs (its launch bounds' CTAs an SM for each inner loop), each holding
+# a ring of 7 x rows of 13 padded y rows.
+B4_TILE_ROWS = 8
+B4_CTAS_PER_SM = {"fori": 4, "chunk": 2, "unroll": 2}
+H100_SMS = 132
 
 # Kernel launches per entry since import or the last reset; callers set the
 # values to 0 to count the launches of one run.
@@ -166,6 +173,7 @@ VARIANT_ARGTYPES = (
     _P,  # stream
 )
 TILED_ARGTYPES = (_P, _P, _P, _I, _I, _I, _I, _I, _P)  # the same, less tents_once, yb, ty, xc
+RING_ARGTYPES = TILED_ARGTYPES
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -174,6 +182,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.lsf_resample_variant.restype = _I
     lib.lsf_resample_variant_tiled.argtypes = list(TILED_ARGTYPES)
     lib.lsf_resample_variant_tiled.restype = _I
+    lib.lsf_resample_variant_ring.argtypes = list(RING_ARGTYPES)
+    lib.lsf_resample_variant_ring.restype = _I
     lib.lsf_resample_variants_error_string.argtypes = [_I]
     lib.lsf_resample_variants_error_string.restype = ctypes.c_char_p
     return lib
@@ -229,20 +239,39 @@ def b3_geometry(shape, variant="v6") -> dict:
             "smem_bytes": (2 * K + 2) * rows * LANE * 4, "ctas": nx * (ny // yb)}
 
 
-def _launch(entry, field, warp, loop, body, window=None) -> torch.Tensor:
-    """One launch: of B3's tiles, or with ``window`` = (tents_once, yb, ty,
-    xc) of the runtime-geometry kernel."""
+def b4_geometry(shape, yb=64, inner="fori", sms=H100_SMS) -> dict:
+    """The launch ``run_vmemfull`` makes for a field of ``shape`` at y block
+    ``yb`` (a shape and yb ``check_inputs`` accepts): the kernel
+    (``"ring"``, the compile-time geometry, where Y is a multiple of
+    ``B4_TILE_ROWS``; else ``"window"``, the runtime one), the y rows a CTA
+    stages at a time, the padded y rows a staged x row holds, its dynamic
+    shared bytes a CTA, and its CTAs (for the ring: one wave on ``sms`` SMs
+    at ``inner``'s ``B4_CTAS_PER_SM``, at most one a step)."""
+    nx, ny, _ = shape
+    slots = 2 * K + 3
+    if ny % B4_TILE_ROWS == 0:
+        rows = B4_TILE_ROWS + 2 * K + 1
+        return {"kernel": "ring", "tile_rows": B4_TILE_ROWS, "staged_rows": rows,
+                "smem_bytes": slots * rows * LANE * 4,
+                "ctas": min(nx * (ny // B4_TILE_ROWS), sms * B4_CTAS_PER_SM[inner])}
+    ty = math.gcd(yb, RING_Y_ROWS)
+    rows = ty + 2 * K + 1
+    return {"kernel": "window", "tile_rows": ty, "staged_rows": rows,
+            "smem_bytes": slots * rows * LANE * 4, "ctas": -(-nx // RING_X_ROWS) * (ny // ty)}
+
+
+def _launch(entry, kernel, field, warp, loop, body, window=()) -> torch.Tensor:
+    """One launch of ``kernel``: B3's tiles (``"tiled"``), B4's ring
+    (``"ring"``), or the runtime-geometry kernel (``"window"``, with
+    ``window`` = (tents_once, yb, ty, xc))."""
     lib = _library()
+    fn = {"tiled": lib.lsf_resample_variant_tiled, "ring": lib.lsf_resample_variant_ring,
+          "window": lib.lsf_resample_variant}[kernel]
     out = torch.empty_like(field)
-    args = (field.data_ptr(), warp.data_ptr(), out.data_ptr(), *field.shape,
-            LOOPS.index(loop), BODIES.index(body))
     with torch.cuda.device(field.device):
-        stream = _lib.stream_handle(field.device)
-        if window is None:
-            err = lib.lsf_resample_variant_tiled(*args, stream)
-        else:
-            tents_once, yb, ty, xc = window
-            err = lib.lsf_resample_variant(*args, int(tents_once), yb, ty, xc, stream)
+        err = fn(field.data_ptr(), warp.data_ptr(), out.data_ptr(), *field.shape,
+                 LOOPS.index(loop), BODIES.index(body), *(int(a) for a in window),
+                 _lib.stream_handle(field.device))
     _lib.check(err, lib.lsf_resample_variants_error_string, f"{entry} launch")
     launch_counts[entry] += 1
     return out
@@ -260,34 +289,45 @@ def run_variant(field, warp, variant="v6", k=K) -> torch.Tensor:
     if field.device.type == "cpu":
         return shift_sum_reference(field, warp, body, k)
     geometry = b3_geometry(field.shape, variant)
-    window = None if geometry["kernel"] == "tiled" else (False, yb, geometry["tile_rows"], 1)
-    return _launch("run_variant", field, warp, loop, body, window)
+    if geometry["kernel"] == "tiled":
+        return _launch("run_variant", "tiled", field, warp, loop, body)
+    return _launch("run_variant", "window", field, warp, loop, body,
+                   (False, yb, geometry["tile_rows"], 1))
 
 
-def _ring(entry, field, warp, loop, yb, k) -> torch.Tensor:
-    check_inputs(field, warp, yb, k)
-    if field.device.type == "cpu":
-        return shift_sum_reference(field, warp, "full", k)
-    ty = math.gcd(yb, RING_Y_ROWS)
-    return _launch(entry, field, warp, loop, "full", (entry == "run_v7", ty, ty, RING_X_ROWS))
+def _window(entry, field, warp, loop, ty, tents_once) -> torch.Tensor:
+    """The runtime-geometry kernel on CTAs of RING_X_ROWS x rows by ``ty`` y
+    rows."""
+    return _launch(entry, "window", field, warp, loop, "full",
+                   (tents_once, ty, ty, RING_X_ROWS))
 
 
 def run_vmemfull(field, warp, inner="fori", k=K, yb=64) -> torch.Tensor:
-    """B4: the rows staged once per chunk of x rows, ``inner`` in
-    ``VMEMFULL_INNERS``. CUDA tensors run the kernel, CPU tensors the plain
-    version."""
+    """B4: each padded row staged once per range of x rows (``b4_geometry``),
+    ``inner`` in ``VMEMFULL_INNERS``. CUDA tensors run the kernel, CPU
+    tensors the plain version."""
     if inner not in VMEMFULL_INNERS:
         raise ValueError(f"inner must be one of {VMEMFULL_INNERS}, got {inner!r}")
-    return _ring("run_vmemfull", field, warp, inner, yb, k)
+    check_inputs(field, warp, yb, k)
+    if field.device.type == "cpu":
+        return shift_sum_reference(field, warp, "full", k)
+    geometry = b4_geometry(field.shape, yb, inner)
+    if geometry["kernel"] == "ring":
+        return _launch("run_vmemfull", "ring", field, warp, inner, "full")
+    return _window("run_vmemfull", field, warp, inner, geometry["tile_rows"], False)
 
 
 def run_v7(field, warp, structure="chunk", k=K, yb=64) -> torch.Tensor:
-    """B5: as ``run_vmemfull`` with the tent values once per voxel,
-    ``structure`` in ``V7_STRUCTURES``. CUDA tensors run the kernel, CPU
-    tensors the plain version."""
+    """B5: the rows staged once per chunk of RING_X_ROWS x rows over gcd(yb,
+    RING_Y_ROWS) y rows, the tent values once per voxel, ``structure`` in
+    ``V7_STRUCTURES``. CUDA tensors run the kernel, CPU tensors the plain
+    version."""
     if structure not in V7_STRUCTURES:
         raise ValueError(f"structure must be one of {V7_STRUCTURES}, got {structure!r}")
-    return _ring("run_v7", field, warp, structure, yb, k)
+    check_inputs(field, warp, yb, k)
+    if field.device.type == "cpu":
+        return shift_sum_reference(field, warp, "full", k)
+    return _window("run_v7", field, warp, structure, math.gcd(yb, RING_Y_ROWS), True)
 
 
 def variant_call(name):

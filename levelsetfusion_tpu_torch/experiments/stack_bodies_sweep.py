@@ -1,15 +1,22 @@
-"""Where should v8's and v8c's weight table live, and at what tile? Builds
-variants of ``csrc/stack_bodies.cu`` made by text substitutions, holds each
-against the plain version (exactly), and times B7's two bodies at 128³ on
-``bisect_kernel.inputs``' random stack (``torch.profiler``, device µs):
+"""Where should v8's and v8c's weight table live, and at what tile; and
+at what tile should B8's levels run? Builds variants of
+``csrc/stack_bodies.cu`` made by text substitutions, holds each against the
+plain version (exactly), and times B7's two bodies and B8's level 4 at 128³
+on ``bisect_kernel.inputs``' random stack (``torch.profiler``, device µs):
 
 - ``base``: the table in shared memory after the ring, [entry][thread]; v8
   on tiles of TY = 4 y rows (512 threads, two CTAs an SM), v8c on TY = 1
   (128 threads, five CTAs an SM: 20 warps);
 - ``v8c_ty4``, ``v8c_ty2``: v8c on tiles of 4 y rows (one CTA an SM: 16
   warps) or 2 (two CTAs of 256 threads: 16 warps);
-- ``no_prefetch``: the pair loop loading pair t's values in the step that
-  sums it, not one step ahead;
+- ``level_ty1``, ``level_ty2``: the levels on tiles of 1 y row (128
+  threads, ten CTAs an SM: 40 warps) or 2 (256 threads, five CTAs: 40
+  warps), against the base's 4 (512 threads, two CTAs: 32 warps);
+- ``no_prefetch``: v8's and v8c's pair loop loading pair t's values in the
+  step that sums it, not one step ahead;
+- ``level_prefetch``: the levels' pair loop (``resample_z.cuh``'s
+  ``pair_sum``) loading pair t + 1's table entry and values before it sums
+  pair t;
 - ``v8_one_cta``: v8 with its shared memory padded so that one CTA (16
   warps) holds an SM, as v8c's does: what v8c's occupancy costs;
 - ``local_table``: the table as a per-thread array (local memory), one CTA
@@ -53,6 +60,8 @@ VARIANTS = {
     "base": [],
     "v8c_ty4": [("constexpr int kV8cTY = 1;", "constexpr int kV8cTY = 4;")],
     "v8c_ty2": [("constexpr int kV8cTY = 1;", "constexpr int kV8cTY = 2;")],
+    "level_ty1": [("constexpr int kLevelTY = 4;", "constexpr int kLevelTY = 1;")],
+    "level_ty2": [("constexpr int kLevelTY = 4;", "constexpr int kLevelTY = 2;")],
     "no_prefetch": [
         ("    const float wn = weight(t + 1);\n", ""),
         ("    const float r0n = q0[pairs[t + 1].row * kUnit], r1n = q1[pairs[t + 1].row * kUnit];\n"
@@ -60,11 +69,13 @@ VARIANTS = {
          "    acc = add_pair(acc, weight(t), zmix(zs, q0[pairs[t].row * kUnit], "
          "q1[pairs[t].row * kUnit]));\n"),
     ],
+    "level_prefetch": _sweep.PAIR_PREFETCH,
     "v8_one_cta": [(_GEOM_SMEM, "  static constexpr int kSmemB = B == kV8 ? 120 * 1024 : "
                                 "(kRingF + kEntries<B> * kThreadsT) * (int)sizeof(float);")],
     "local_table": [
         ("  float* const tab = smem + G::kRingF + threadIdx.x;",
-         "  float tab[kEntries<B>];  // local memory: indexed by the runtime pair"),
+         "  float tab[kEntries<B> > 0 ? kEntries<B> : 1];  // local memory: indexed by the "
+         "runtime pair"),
         ("  constexpr int kTabStride = TY * kLane;", "  constexpr int kTabStride = 1;"),
         (_GEOM_SMEM, "  static constexpr int kSmemB = kRingF * (int)sizeof(float);"),
         (_GEOM_CTAS, "  static constexpr int kCtasPerSm = 1;"),
@@ -75,9 +86,9 @@ VARIANTS = {
 
 
 def variant_source(name: str) -> str:
-    """``csrc/stack_bodies.cu`` with the variant's substitutions; each
-    anchor must occur exactly once."""
-    return _sweep.substituted(SOURCE, VARIANTS[name], name)
+    """``csrc/stack_bodies.cu``, ``resample_z.cuh`` inlined, with the
+    variant's substitutions; each anchor must occur exactly once."""
+    return _sweep.substituted(SOURCE, VARIANTS[name], name, inline=("resample_z.cuh",))
 
 
 def _is_table_kernel(mangled: str):
@@ -97,7 +108,11 @@ def main(device="cuda", names=None) -> list:
     with ThreadPoolExecutor(len(names)) as pool:
         built = list(pool.map(_build, names))
     stacked, warp, _ = bisect_kernel.inputs(device)
-    wants = {w: bisect_kernel.v8_reference(stacked, warp, w) for w in bisect_kernel.WHICH}
+    calls = {**{w: lambda w=w: bisect_kernel.run_v8(stacked, warp, 64, w)
+                for w in bisect_kernel.WHICH},
+             "level4": lambda: bisect_kernel.run(stacked, warp, 4)}
+    wants = {**{w: bisect_kernel.v8_reference(stacked, warp, w) for w in bisect_kernel.WHICH},
+             "level4": bisect_kernel.bisect_reference(stacked, warp, 4)}
     library = loop_cost._library
     rows = []
     try:
@@ -106,10 +121,8 @@ def main(device="cuda", names=None) -> list:
                 lib = loop_cost.bind(ctypes.CDLL(str(path)))
                 loop_cost._library = lambda lib=lib: lib
                 row = {"variant": name, "repeat": rep, "registers": regs}
-                for which, want in wants.items():
-                    def call(which=which):
-                        return bisect_kernel.run_v8(stacked, warp, 64, which)
-                    err = float(torch.max(torch.abs(call() - want)))
+                for which, call in calls.items():
+                    err = float(torch.max(torch.abs(call() - wants[which])))
                     if err != 0.0:
                         raise AssertionError(f"{name} {which}: max|Δ| {err:.3e} against the "
                                              f"plain version")

@@ -15,6 +15,7 @@ Also: the wrapper's input checks and launch counter, the entry point on the
 CPU, and the script's inputs drawn number for number."""
 
 import functools
+import re
 
 import numpy as np
 import pytest
@@ -22,7 +23,16 @@ import torch
 
 from levelsetfusion_tpu_torch.experiments import _sweep
 from levelsetfusion_tpu_torch.experiments import loop_cost as lc
-from tests.torch_parity import assert_close, c_prototype, ctypes_kind, interpreted, n, t
+from tests.torch_parity import (
+    REPO,
+    assert_close,
+    c_enum,
+    c_prototype,
+    ctypes_kind,
+    interpreted,
+    n,
+    t,
+)
 
 X, Y = 128, 16
 
@@ -178,6 +188,32 @@ def test_stack_body_argtypes_match_c_prototype(name, argtypes):
     """A mismatch would pass arguments in the wrong registers at launch,
     which nothing on the CPU can see."""
     assert [ctypes_kind(a) for a in argtypes] == c_prototype("stack_bodies.cu", name)
+
+
+@pytest.mark.parametrize("enum,codes", [("Loop", lc.LOOPS), ("Body", lc.BODIES)])
+def test_codes_match_the_c_enums(enum, codes):
+    """The wrapper passes each loop and body as its index in these tuples,
+    which must be the kernel's enum values."""
+    assert [e.lower() for e in c_enum("stack_bodies.cu", enum)] == list(codes)
+
+
+def test_loop_kinds_are_the_scripts():
+    """B9 keeps the script's two loops; the frame loop code is
+    bisect_kernel's."""
+    assert lc.LOOP_KINDS == ("fori", "static") and lc.LOOPS == (*lc.LOOP_KINDS, "frame")
+    with pytest.raises(ValueError):
+        lc.run(*(t(a) for a in _stack_inputs(4, 8, 12)), "full", "frame", 8)
+
+
+def test_frame_tiles_divide_the_wrappers_y_rule():
+    """Every tile of table_kernel (the levels', v8's, v8c's) divides the Y
+    rule the wrappers check (a multiple of TILE_Y), so that no shape they
+    accept is refused at launch."""
+    src = (REPO / "levelsetfusion_tpu_torch" / "csrc" / "stack_bodies.cu").read_text()
+    for name in ("kLevelTY", "kV8TY", "kV8cTY"):
+        ty = int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+        assert lc.TILE_Y % ty == 0, name
+    assert f"constexpr int kTY = {lc.TILE_Y};" in src
 
 
 @pytest.mark.parametrize("mangled,name", [

@@ -24,7 +24,7 @@ import pytest
 import torch
 
 from levelsetfusion_tpu_torch.experiments import resample_variants as rv
-from levelsetfusion_tpu_torch.experiments import v10_xslab
+from levelsetfusion_tpu_torch.experiments import resample_variants_sweep, v10_xslab
 from levelsetfusion_tpu_torch.ops.interpolation import warp_field
 from tests.torch_parity import (
     REPO,
@@ -271,6 +271,7 @@ def test_v10_argtypes_match_c_prototype(name, argtypes):
 @pytest.mark.parametrize("name,argtypes", [
     ("lsf_resample_variant", rv.VARIANT_ARGTYPES),
     ("lsf_resample_variant_tiled", rv.TILED_ARGTYPES),
+    ("lsf_resample_variant_ring", rv.RING_ARGTYPES),
 ])
 def test_resample_variant_argtypes_match_c_prototype(name, argtypes):
     """A mismatch would pass arguments in the wrong registers at launch,
@@ -339,3 +340,86 @@ def test_b3_ragged_y_matches_jax(interpret):
     want = jm.run_variant(field, warp, variant="v6")
     got = rv.run_variant(t(field), t(warp), variant="v6")
     assert_close(got, want, rtol=0, atol=1e-6)
+
+
+# ----------------------------------------------------- B4's launch geometry
+
+B4_SHAPES = [SMALL, (2, 64, 128), (20, 64, 128), (128, 128, 128), (3, 12, 128), (5, 6, 128),
+             (2, 8, 128), (2, 200, 128), (3, 4, 128)]
+
+
+def _b4_accepts(shape, yb):
+    try:
+        rv.check_inputs(torch.empty(shape), torch.empty(shape + (3,)), yb, rv.K)
+    except ValueError:
+        return False
+    return True
+
+
+@pytest.mark.parametrize("shape", B4_SHAPES, ids=str)
+def test_b4_geometry_fits_shared_memory(shape):
+    """Every accepted shape and y block (the script's 8, 16, 64, 128, or Y)
+    gets a launch whose staged rows fit a CTA's shared memory, covering Y
+    with its tiles."""
+    ybs = [yb for yb in sorted({8, 16, 64, 128, shape[1]}) if _b4_accepts(shape, yb)]
+    assert ybs
+    for yb in ybs:
+        for inner in rv.VMEMFULL_INNERS:
+            g = rv.b4_geometry(shape, yb, inner)
+            assert 0 < g["smem_bytes"] <= MAX_DYNAMIC_SMEM
+            assert g["smem_bytes"] == 7 * g["staged_rows"] * rv.LANE * 4
+            assert g["staged_rows"] == g["tile_rows"] + 5 and shape[1] % g["tile_rows"] == 0
+            assert g["ctas"] >= 1
+
+
+def test_b4_geometry_picks_the_ring():
+    """The compile-time ring at 128^3 and at chip_smoke's ragged X, one wave
+    of CTAs (at most one a (tile, x row) step); the runtime geometry where Y
+    is not a multiple of the ring's tile."""
+    assert rv.b4_geometry((128, 128, 128)) == {
+        "kernel": "ring", "tile_rows": 8, "staged_rows": 13, "smem_bytes": 46592, "ctas": 528}
+    assert rv.b4_geometry((128, 128, 128), 64, "unroll")["ctas"] == 264
+    assert rv.b4_geometry((20, 64, 128))["kernel"] == "ring"
+    assert rv.b4_geometry((2, 16, 128), 16)["ctas"] == 4
+    assert rv.b4_geometry((5, 6, 128), 6) == {
+        "kernel": "window", "tile_rows": 2, "staged_rows": 7, "smem_bytes": 7 * 7 * 512,
+        "ctas": 3}
+    assert rv.b4_geometry((3, 12, 128), 12)["kernel"] == "window"
+
+
+def test_b4_geometry_matches_the_kernel_source():
+    """The wrapper's ring constants are the kernel's."""
+    src = (REPO / "levelsetfusion_tpu_torch" / "csrc" / "resample_variants.cu").read_text()
+    ctas = rv.B4_CTAS_PER_SM
+    assert set(ctas) == set(rv.VMEMFULL_INNERS) and ctas["chunk"] == ctas["unroll"]
+    assert f"constexpr int kRingTY = {rv.B4_TILE_ROWS};" in src
+    assert f"constexpr int kRingCtas = L == kPairLoop ? {ctas['fori']} : {ctas['chunk']};" in src
+    assert f"{rv.b4_geometry((128, 128, 128))['smem_bytes']:,} B" in src
+
+
+@pytest.mark.parametrize("inner", rv.VMEMFULL_INNERS)
+def test_b4_window_shape_matches_jax(inner, interpret):
+    """A Y that is not a multiple of the ring's tile (yb = Y), the runtime
+    geometry's shape, through the JAX script and the port."""
+    jm = interpret("resample_variants")
+    field, warp = _inputs((3, 6, 128), 13)
+    assert rv.b4_geometry(field.shape, 6, inner)["kernel"] == "window"
+    want = jm.run_vmemfull(field, warp, inner=inner, yb=6)
+    got = rv.run_vmemfull(t(field), t(warp), inner=inner, yb=6)
+    assert_close(got, want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("name", list(resample_variants_sweep.VARIANTS))
+def test_ring_sweep_variant_applies_to_the_kernel_source(name):
+    """Every substitution of the ring sweep finds its anchor exactly once in
+    csrc/resample_variants.cu with resample_z.cuh inlined, so each variant
+    built on the card is the one the sweep names."""
+    text = resample_variants_sweep.variant_source(name)
+    assert "__global__" in text and "pair_sum" in text
+    assert '#include "resample_z.cuh"' not in text and "#pragma once" not in text
+    assert (text != resample_variants_sweep.variant_source("base")) == (name != "base")
+
+
+def test_ring_sweep_needs_the_gpu():
+    with pytest.raises(RuntimeError):
+        resample_variants_sweep.main(device="cpu")

@@ -77,6 +77,17 @@ def c_prototype(source, name):
     return kinds
 
 
+def c_enum(source, name):
+    """The enumerators of ``enum name { kA = 0, kB = 1, ... }`` in
+    ``levelsetfusion_tpu_torch/csrc/<source>``, in value order, without
+    their ``k``."""
+    src = (REPO / "levelsetfusion_tpu_torch" / "csrc" / source).read_text()
+    m = re.search(r"enum " + name + r" \{([^}]*)\}", src)
+    assert m, f"no enum {name} in {source}"
+    found = re.findall(r"\bk(\w+) = (\d+)", m.group(1))
+    return [e for e, _ in sorted(found, key=lambda ev: int(ev[1]))]
+
+
 def ctypes_kind(argtype):
     """The kind (as ``c_prototype`` names it) of a ctypes argument type."""
     if argtype is ctypes.c_void_p or issubclass(argtype, ctypes._Pointer):
