@@ -548,6 +548,11 @@ def phase7_ptxas():
     instantiation (built in phase 1), from each library's ``nvcc -Xptxas
     -v`` log, and the SASS a voxel of the pair-loop kernels."""
     parts = [f"{name}: {', '.join(_ptxas(name))}" for name in LIBRARIES[2:]]
+    log = (_lib.BUILD_DIR / "libconv_yz.log").read_text()
+    for mangled, (_, spill, stack, _) in _sweep.ptxas(log).items():
+        if "banded" in mangled and (spill or stack):
+            raise AssertionError(f"{_sweep.kernel_name(mangled)}: {spill} B spilled, "
+                                 f"{stack} B stack frame")
     print(f"[7] ptxas, registers r / spill bytes B / stack frame bytes B / static shared S "
           f"(window_kernel<loop, body, tents_once>, tile_kernel<loop, body> and "
           f"ring_kernel<loop> as codes of "
@@ -574,6 +579,48 @@ def phase7_ptxas():
           f"{'; '.join(found) or 'cuobjdump not found'}")
 
 
+def _b12_matrices(n, rng):
+    """C matrices (n, n) whose zero blocks are not the 7-tap band's: dense
+    random, scaled by 1/sqrt(n) so that the outputs stay O(1) (every k
+    step), the 15-tap band, and one nonzero far off the diagonal (all but
+    one tile empty)."""
+    off = np.zeros((n, n), np.float32)
+    off[n // 8, n - 3] = 1.5
+    return {"dense": (rng.standard_normal((n, n)) / np.sqrt(n)).astype(np.float32),
+            "band15": mxu_conv.band(n, sobolev_taps(15, 0.1)), "offdiag": off}
+
+
+def _bf16_rule(name, got, want):
+    """The bf16 route against its plain version; returns (max|Δ|, the share
+    of values over 1e-4). The two sum each intermediate in another order, so
+    where it lies within a float32 rounding of a bf16 rounding boundary they
+    round it to neighbouring bf16 values (a step of <= 2^-7 relative). Hence
+    1e-4 on all but 0.1% of the values, and 1e-2 (outputs are O(1)) on
+    every value."""
+    err = torch.abs(got - want)
+    off = float(torch.mean((err > 1e-4).float()))
+    if off > 1e-3 or float(torch.max(err)) > 1e-2:
+        raise AssertionError(f"{name}: max|Δ| {float(torch.max(err)):.3e}, {off:.2e} over 1e-4")
+    return float(torch.max(err)), off
+
+
+def _bf16_step_bound(a, cy, cz):
+    """Per value, what one bf16 step (<= 2^-7 relative) in every
+    intermediate of one pass can move the output: 2^-7 |tmp| |C_z|, the
+    operands rounded as the bf16 route rounds them."""
+    def r(v):
+        return v.bfloat16().float()
+
+    tmp = torch.einsum("yY,xyz->xYz", r(cy), r(a))
+    return 2.0 ** -7 * torch.einsum("xYz,zZ->xYZ", tmp.abs(), r(cz).abs())
+
+
+B12_SHAPES = ((16, 128, 128), (5, 48, 80))
+# A plane whose dense band fragments do not fit the stage in either route,
+# so that both load them from global memory at each step.
+B12_UNSTAGED = (2, 16, 1024)
+
+
 def phase8_mxu_conv():
     mxu_conv.launch_counts.update(dict.fromkeys(mxu_conv.launch_counts, 0))
     runs = [mxu_conv.run(shape=shape, reps=1024, device="cuda")
@@ -583,7 +630,7 @@ def phase8_mxu_conv():
         raise AssertionError(f"mxu_conv.run left a kernel unlaunched: {launches}")
     worst = {"stencil": 0.0, "banded_f32": 0.0, "banded_bf16": 0.0}
     off_bf16 = 0.0
-    for shape in ((16, 128, 128), (5, 48, 80)):
+    for shape in B12_SHAPES:
         a, taps, cy, cz = mxu_conv.inputs(shape, "cuda")
         for reps in (1, 3):
             plain = mxu_conv.conv_yz_stencil_reference(a, taps, reps)
@@ -591,20 +638,59 @@ def phase8_mxu_conv():
                              ("banded_f32", mxu_conv.conv_yz_banded_f32(a, cy, cz, reps))):
                 worst[key] = max(worst[key], _close(
                     f"conv_yz {key} {shape} reps {reps}", got, plain, 0.0, 1e-5))
-            # The kernel and the plain version sum each intermediate in another
-            # order, so where it lies within a float32 rounding of a bf16
-            # rounding boundary the two round it to neighbouring bf16 values
-            # (a step of <= 2^-7 relative). Hence 1e-4 on all but 0.1% of the
-            # values, and 1e-2 (outputs are O(1)) on every value.
-            got = mxu_conv.conv_yz_banded_bf16(a, cy, cz, reps)
-            err = torch.abs(got - mxu_conv.conv_yz_banded_bf16_reference(a, cy, cz, reps))
-            off = float(torch.mean((err > 1e-4).float()))
-            if off > 1e-3 or float(torch.max(err)) > 1e-2:
-                raise AssertionError(f"conv_yz banded_bf16 {shape} reps {reps}: max|Δ| "
-                                     f"{float(torch.max(err)):.3e}, {off:.2e} over 1e-4")
-            worst["banded_bf16"] = max(worst["banded_bf16"], float(torch.max(err)))
+            err, off = _bf16_rule(f"conv_yz banded_bf16 {shape} reps {reps}",
+                                  mxu_conv.conv_yz_banded_bf16(a, cy, cz, reps),
+                                  mxu_conv.conv_yz_banded_bf16_reference(a, cy, cz, reps))
+            worst["banded_bf16"] = max(worst["banded_bf16"], err)
             off_bf16 = max(off_bf16, off)
+    # The steps walked follow the matrices passed in. A call of 3 passes
+    # equals three calls of one, exactly. 3xTF32 keeps float32 accuracy, so
+    # it is held to 1e-5 of the output's scale, max|plain|, where each
+    # output sums at most 128 products (a dense C's sums reach a few units);
+    # the dense C of B12_UNSTAGED sums 1024 (2.0e-5 of the scale at 3
+    # passes), so there the exact repeat is its check. bf16 follows the rule
+    # of _bf16_rule, but an output of a dense C sums 80-1024 intermediates,
+    # any of which may round to the neighbouring bf16 value: one pass is
+    # held per value to _bf16_step_bound, more by the exact repeat.
+    rng = np.random.default_rng(8)
+    rel_f32 = 0.0
+    routes = (("banded_f32", mxu_conv.conv_yz_banded_f32),
+              ("banded_bf16", mxu_conv.conv_yz_banded_bf16))
+    for shape in (*B12_SHAPES, B12_UNSTAGED):
+        a = mxu_conv.inputs(shape, "cuda")[0]
+        mats = [_b12_matrices(size, rng) for size in shape[1:]]
+        for kind in mats[0]:
+            cy, cz = (torch.from_numpy(m[kind]).cuda() for m in mats)
+            name = f"conv_yz {kind} {shape}"
+            for key, call in routes:
+                once = a
+                for _ in range(3):
+                    once = call(once, cy, cz, 1)
+                _close(f"{name} {key} 3 passes", call(a, cy, cz, 3), once, 0.0, 0.0)
+            for reps in (1, 3):
+                if (kind, shape) != ("dense", B12_UNSTAGED):
+                    plain = mxu_conv.conv_yz_banded_reference(a, cy, cz, reps)
+                    scale = float(torch.max(torch.abs(plain)))
+                    err = _close(f"{name} banded_f32 reps {reps}",
+                                 mxu_conv.conv_yz_banded_f32(a, cy, cz, reps), plain, 0.0,
+                                 1e-5 * scale)
+                    rel_f32 = max(rel_f32, err / scale if scale else 0.0)
+                    worst["banded_f32"] = max(worst["banded_f32"], err)
+                got = mxu_conv.conv_yz_banded_bf16(a, cy, cz, reps)
+                want = mxu_conv.conv_yz_banded_bf16_reference(a, cy, cz, reps)
+                if kind != "dense":
+                    err, off = _bf16_rule(f"{name} banded_bf16 reps {reps}", got, want)
+                    off_bf16 = max(off_bf16, off)
+                elif reps == 1:
+                    err = _close(f"{name} banded_bf16 reps 1", got, want, 0.0,
+                                 _bf16_step_bound(a, cy, cz) + 1e-5 * float(want.abs().max()))
+                else:
+                    continue
+                worst["banded_bf16"] = max(worst["banded_bf16"], err)
     a, taps, cy, cz = mxu_conv.inputs(FULL, "cuda")
+    ones = torch.ones_like(cy)
+    mma = {route: (mxu_conv.mma_count(cy, cz, bf16), mxu_conv.mma_count(ones, ones, bf16))
+           for route, bf16 in (("tc_f32", False), ("tc_bf16", True))}
     plain_ms = {
         "stencil": best_ms(lambda: mxu_conv.conv_yz_stencil_reference(a, taps, 1), a.device, 3),
         "banded_f32": best_ms(lambda: mxu_conv.conv_yz_banded_reference(a, cy, cz, 1),
@@ -643,9 +729,13 @@ def phase8_mxu_conv():
     assert len(taps) == 7
     bound = _bound(0, OPS_CONV_YZ * a.numel())
     bounds = dict.fromkeys(worst, bound)
-    print(f"[8] conv_yz vs plain at (16, 128, 128) and (5, 48, 80), reps 1 and 3: "
-          f"max|Δ| {worst} (stencil, tc_f32 1e-5 vs plain stencil; tc_bf16 vs its "
-          f"bf16 plain: 1e-4 on all but {off_bf16:.2e} of values, 1e-2 on all); "
+    print(f"[8] conv_yz vs plain at {B12_SHAPES}, reps 1 and 3, and the banded routes on "
+          f"a dense C, the 15-tap band and one nonzero off the diagonal there and at "
+          f"{B12_UNSTAGED}, 3 passes exactly 3 one-pass calls: max|Δ| {worst} (stencil, "
+          f"tc_f32 1e-5 vs plain stencil; tc_f32 vs its plain 1e-5 of max|plain|, worst "
+          f"{rel_f32:.2e}; tc_bf16 vs its bf16 plain: 1e-4 on all but {off_bf16:.2e} of "
+          f"values, 1e-2 on all; a dense C one bf16 step an intermediate); mma.sync a slice and "
+          f"pass at {FULL} (7-tap extents, dense): {mma}; "
           f"per conv pass at {FULL}, block resident: kernel ms {ms}, plain ms {plain_ms}, "
           f"library ms {library_ms} (max|Δ| vs plain {library_err}), bound ms "
           f"{bounds}; launches {launches}")

@@ -14,6 +14,17 @@ block resident in shared memory (``csrc/conv_yz.cu``):
 - ``conv_yz_banded_bf16`` — bf16 operands, float32 accumulate (the JAX
   ``mxu`` kernel at precision DEFAULT).
 
+The banded kernels multiply only the k steps of ``C_y`` and ``C_z`` that
+hold a nonzero. ``band_extents(c, cols, step)`` finds them on the matrices
+passed in, with no assumption of a band: for each group of ``cols`` columns,
+the first and last k step of ``step`` rows holding a nonzero. The wrappers
+compute it for ``cy`` per 16 columns and for ``cz`` per 8 (the products'
+output tiles), in steps of 8 rows (TF32) or 16 (bf16). With finite inputs
+the skipped products are exact zeros, so the result is the dense product's;
+a NaN or Inf in ``a`` does not reach a skipped block, where the dense
+product would spread it. ``mma_count`` is the ``mma.sync`` count a slice
+and pass that the extents give.
+
 ``run`` prints one JSON line. Its keys and the JAX keys they map:
 ``parity_max_abs_err`` (stencil against banded f32 after one pass, as JAX's
 vpu against mxu), ``bf16_vs_f32_max_abs_err`` (same), and per variant the
@@ -64,6 +75,41 @@ def band(n: int, taps) -> np.ndarray:
     return m
 
 
+def band_extents(c: torch.Tensor, cols: int, step: int) -> torch.Tensor:
+    """For each group of ``cols`` consecutive columns of ``c`` (rows, width),
+    the first and last k step of ``step`` rows that holds a nonzero (a NaN
+    counts), as int32 (width / cols, 2); a group with no nonzero gets the
+    empty range (0, -1). Plain torch on ``c``'s device, no host sync."""
+    if c.ndim != 2 or c.shape[0] % step or c.shape[1] % cols:
+        raise ValueError(
+            f"want a matrix of whole {step}-row steps and {cols}-column groups, "
+            f"got shape {tuple(c.shape)}"
+        )
+    rows, width = c.shape
+    hit = (c != 0).reshape(rows // step, step, width // cols, cols).any(3).any(1)
+    steps = torch.arange(rows // step, device=c.device)[:, None]
+    last = torch.where(hit, steps, -1).amax(0)
+    first = torch.where(hit, steps, rows // step).amin(0)
+    first = torch.where(last < 0, 0, first)
+    return torch.stack([first, last], 1).to(torch.int32)
+
+
+def _extents(cy, cz, bf16: bool):
+    """The extents the banded kernels walk: C_y per 16 columns (the y
+    product's m-tiles), C_z per 8 (the z product's n-tiles)."""
+    step = 16 if bf16 else 8
+    return band_extents(cy, 16, step), band_extents(cz, 8, step)
+
+
+def mma_count(cy, cz, bf16: bool) -> int:
+    """``mma.sync`` instructions a banded kernel issues per slice and pass:
+    each (m-tile, n-tile) pair runs its band extent's steps, three mma a
+    step for 3×TF32 and one for bf16."""
+    ey, ez = (e[:, 1] - e[:, 0] + 1 for e in _extents(cy, cz, bf16))
+    steps = int(ey.sum()) * (cz.shape[1] // 8) + int(ez.sum()) * (cy.shape[1] // 16)
+    return steps * (1 if bf16 else 3)
+
+
 def conv_yz_stencil_reference(a: torch.Tensor, taps, reps: int) -> torch.Tensor:
     """Plain version: the port's zero-padded ``_convolve_axis`` along y then
     z, ``reps`` times. It convolves (tap t multiplies ``kernel[k-1-t]``), so
@@ -93,19 +139,28 @@ def conv_yz_banded_bf16_reference(a, cy, cz, reps: int) -> torch.Tensor:
     return _banded(a, cy, cz, reps, lambda v: v.bfloat16().float())
 
 
-@functools.cache
-def _library() -> ctypes.CDLL:
-    lib = _lib.load("conv_yz")
-    p, i = ctypes.c_void_p, ctypes.c_int
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# in, cy, cz, ext_y, ext_z, out, nx, ny, nz, reps, bf16, stream
+BANDED_ARGTYPES = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the entry points' argument and result types on a loaded
+    ``csrc/conv_yz.cu`` library (or a sweep's variant of it)."""
     lib.lsf_conv_yz_stencil.argtypes = [
-        p, p, i, i, i, ctypes.POINTER(ctypes.c_float), i, i, p,
+        _P, _P, _I, _I, _I, ctypes.POINTER(ctypes.c_float), _I, _I, _P,
     ]
-    lib.lsf_conv_yz_stencil.restype = i
-    lib.lsf_conv_yz_banded.argtypes = [p, p, p, p, i, i, i, i, i, p]
-    lib.lsf_conv_yz_banded.restype = i
-    lib.lsf_conv_yz_error_string.argtypes = [i]
+    lib.lsf_conv_yz_stencil.restype = _I
+    lib.lsf_conv_yz_banded.argtypes = list(BANDED_ARGTYPES)
+    lib.lsf_conv_yz_banded.restype = _I
+    lib.lsf_conv_yz_error_string.argtypes = [_I]
     lib.lsf_conv_yz_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    return bind(_lib.load("conv_yz"))
 
 
 def _check_block(a: torch.Tensor, reps: int) -> None:
@@ -163,11 +218,13 @@ def _banded_call(a, cy, cz, reps, bf16: bool) -> torch.Tensor:
         ref = conv_yz_banded_bf16_reference if bf16 else conv_yz_banded_reference
         return ref(a, cy, cz, reps)
     lib = _library()
+    ext_y, ext_z = _extents(cy, cz, bf16)
     out = torch.empty_like(a)
     with torch.cuda.device(a.device):
         err = lib.lsf_conv_yz_banded(
-            a.data_ptr(), cy.data_ptr(), cz.data_ptr(), out.data_ptr(), *a.shape,
-            reps, int(bf16), _lib.stream_handle(a.device),
+            a.data_ptr(), cy.data_ptr(), cz.data_ptr(), ext_y.data_ptr(),
+            ext_z.data_ptr(), out.data_ptr(), *a.shape, reps, int(bf16),
+            _lib.stream_handle(a.device),
         )
     name = "banded_bf16" if bf16 else "banded_f32"
     _lib.check(err, lib.lsf_conv_yz_error_string, f"conv_yz_{name} launch")
@@ -177,9 +234,10 @@ def _banded_call(a, cy, cz, reps, bf16: bool) -> torch.Tensor:
 
 def conv_yz_banded_f32(a, cy, cz, reps: int) -> torch.Tensor:
     """``reps`` conv passes of ``a`` (X, Y, Z) as ``C_yᵀ · A · C_z`` on the
-    tensor cores at float32 accuracy (3×TF32). Y and Z multiples of 16, Y·Z
-    at most 16384; ``cy`` (Y, Y), ``cz`` (Z, Z); all float32, contiguous,
-    one device. CUDA tensors run the kernel, CPU tensors the plain version."""
+    tensor cores at float32 accuracy (3×TF32), over the k steps that
+    ``band_extents`` finds nonzero. Y and Z multiples of 16, Y·Z at most
+    16384; ``cy`` (Y, Y), ``cz`` (Z, Z); all float32, contiguous, one device.
+    CUDA tensors run the kernel, CPU tensors the plain version."""
     return _banded_call(a, cy, cz, reps, bf16=False)
 
 

@@ -12,8 +12,10 @@ bf16 values are exact in float32, so only the sum order differs); the
 fused I/O probe rtol 1e-6 and atol 1e-7 (XLA contracts
 u + 0.1 d into an FMA; copy exact); the window probe exact.
 
-Also: the wrappers' input checks and launch counters, every entry point end
-to end on the CPU at a tiny size, and the kernel library's rebuild rule."""
+Also: the banded kernels' extents (``band_extents``) against a brute-force
+scan of every block, the skipping product against the dense one, the
+wrappers' input checks and launch counters, every entry point end to end on
+the CPU at a tiny size, and the kernel library's rebuild rule."""
 
 import functools
 import os
@@ -25,6 +27,7 @@ import torch
 from jax.experimental import pallas as pl
 
 from levelsetfusion_tpu_torch.experiments import (
+    conv_yz_sweep,
     dma_probe,
     fused_ablation,
     fused_gradient_bench,
@@ -33,7 +36,7 @@ from levelsetfusion_tpu_torch.experiments import (
 )
 from levelsetfusion_tpu_torch.ops.kernels import _lib
 from levelsetfusion_tpu_torch.ops.kernels.fused_gradient import sobolev_taps
-from tests.torch_parity import assert_close, interpreted, n, t
+from tests.torch_parity import assert_close, c_prototype, ctypes_kind, interpreted, n, t
 from tests.torch_parity import jax_script as _jax_script
 
 
@@ -92,6 +95,115 @@ def test_bf16_reference_matches_numpy(reps):
     # bf16 operands are a real change from float32, not a no-op.
     f32 = mxu_conv.conv_yz_banded_f32(t(a), t(cy), t(cz), reps)
     assert float(torch.max(torch.abs(got - f32))) > 1e-4
+
+
+def _extent_matrices():
+    """Matrices for band_extents: the Sobolev bands at three sizes and tap
+    counts, a dense random one, an all-zero one and one nonzero far off the
+    diagonal."""
+    rng = np.random.default_rng(40)
+    off = np.zeros((128, 128), np.float32)
+    off[5, 120] = -0.5
+    return {
+        **{f"band{k}_{size}": mxu_conv.band(size, sobolev_taps(k, 0.1))
+           for size in (16, 48, 128) for k in (3, 7, 15)},
+        "dense_48": rng.standard_normal((48, 48)).astype(np.float32),
+        "zero_48": np.zeros((48, 48), np.float32),
+        "offdiag_128": off,
+    }
+
+
+def _extents_brute(c, cols, step):
+    """(first, last) k step holding a nonzero of each column group, by a
+    scan of every block; (0, -1) where there is none."""
+    out = []
+    for g in range(c.shape[1] // cols):
+        hit = [s for s in range(c.shape[0] // step)
+               if np.any(c[s * step:(s + 1) * step, g * cols:(g + 1) * cols] != 0)]
+        out.append((hit[0], hit[-1]) if hit else (0, -1))
+    return np.array(out, np.int32)
+
+
+@pytest.mark.parametrize("step", [8, 16])
+@pytest.mark.parametrize("cols", [16, 8])
+@pytest.mark.parametrize("name", sorted(_extent_matrices()))
+def test_band_extents_match_brute_force(name, cols, step):
+    c = _extent_matrices()[name]
+    got = mxu_conv.band_extents(t(c), cols, step)
+    assert got.dtype == torch.int32 and tuple(got.shape) == (c.shape[1] // cols, 2)
+    want = _extents_brute(c, cols, step)
+    np.testing.assert_array_equal(n(got), want)
+    if name.startswith("dense"):
+        assert (want == [0, c.shape[0] // step - 1]).all()
+    if name.startswith("zero"):
+        assert (want == [0, -1]).all()
+
+
+def _skipping_product(a, cy, cz, bf16):
+    """One conv pass as the banded kernels compute it: each 16-row m-tile of
+    the y product and each 8-column n-tile of the z product sums only the
+    k steps of its band extent."""
+    step = 16 if bf16 else 8
+    ey, ez = (n(e) for e in mxu_conv._extents(t(cy), t(cz), bf16))
+    tmp = np.zeros(a.shape, np.float64)
+    for mt, (first, last) in enumerate(ey):
+        k = slice(first * step, (last + 1) * step)
+        cols = slice(16 * mt, 16 * mt + 16)
+        tmp[:, cols] = np.einsum("yY,xyz->xYz", cy[k, cols].astype(np.float64), a[:, k])
+    out = np.zeros(a.shape, np.float64)
+    for nt, (first, last) in enumerate(ez):
+        k = slice(first * step, (last + 1) * step)
+        cols = slice(8 * nt, 8 * nt + 8)
+        out[..., cols] = np.einsum("xYz,zZ->xYZ", tmp[..., k], cz[k, cols].astype(np.float64))
+    return out
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["tf32", "bf16"])
+@pytest.mark.parametrize("kind", ["band7", "band15", "dense", "offdiag", "zero"])
+def test_skipping_the_extents_keeps_the_product(kind, bf16):
+    """The blocks outside the extents are zero, so walking only the extents
+    gives the dense product (float64 sums against the float32 plain
+    version: 1e-5 abs, outputs O(1))."""
+    rng = np.random.default_rng(41)
+    a = rng.standard_normal((2, 48, 80)).astype(np.float32)
+
+    def matrix(size):
+        if kind.startswith("band"):
+            return mxu_conv.band(size, sobolev_taps(int(kind[4:]), 0.1))
+        if kind == "dense":
+            return (rng.standard_normal((size, size)) / np.sqrt(size)).astype(np.float32)
+        c = np.zeros((size, size), np.float32)
+        if kind == "offdiag":
+            c[size // 8, size - 3] = 1.5
+        return c
+
+    cy, cz = matrix(48), matrix(80)
+    want = mxu_conv.conv_yz_banded_reference(t(a), t(cy), t(cz), 1)
+    assert_close(_skipping_product(a, cy, cz, bf16), want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("kind,tf32,bf16", [
+    ("band7", 2544, 592), ("dense", 12288, 2048), ("zero", 0, 0)])
+def test_mma_count_at_128(kind, tf32, bf16):
+    """mma.sync a slice and pass at 128 x 128: the 7-tap band's extents
+    (y: 30 TF32 steps over 8 m-tiles, z: 46 over 16 n-tiles) against the
+    dense 16 steps a tile."""
+    c = {"band7": t(mxu_conv.band(128, sobolev_taps(7, 0.1))),
+         "dense": torch.ones(128, 128), "zero": torch.zeros(128, 128)}[kind]
+    assert (mxu_conv.mma_count(c, c, False), mxu_conv.mma_count(c, c, True)) == (tf32, bf16)
+
+
+@pytest.mark.parametrize("name", sorted(conv_yz_sweep.VARIANTS))
+def test_conv_yz_sweep_variant_applies(name):
+    """Each sweep variant's anchors occur once in csrc/conv_yz.cu."""
+    text = conv_yz_sweep.variant_source(name)
+    for _, new in conv_yz_sweep.VARIANTS[name]:
+        assert new in text
+
+
+def test_banded_argtypes_match_c_prototype():
+    assert [ctypes_kind(a) for a in mxu_conv.BANDED_ARGTYPES] == c_prototype(
+        "conv_yz.cu", "lsf_conv_yz_banded")
 
 
 # ------------------------------------------------------------------ B11
@@ -199,6 +311,9 @@ def _bad_calls():
         "banded band": (ValueError, lambda: mxu_conv.conv_yz_banded_f32(a, cz, cz, 1)),
         "banded strided": (ValueError, lambda: mxu_conv.conv_yz_banded_bf16(
             a, cy.t(), cz, 1)),
+        "extents ndim": (ValueError, lambda: mxu_conv.band_extents(cy[0], 8, 8)),
+        "extents rows": (ValueError, lambda: mxu_conv.band_extents(cy[:12], 8, 8)),
+        "extents cols": (ValueError, lambda: mxu_conv.band_extents(cy, 12, 8)),
         "io dtype": (TypeError, lambda: fused_io_probe.fused_io_probe(
             we.half(), ce, ue, "copy", 4)),
         "io shape": (ValueError, lambda: fused_io_probe.fused_io_probe(
