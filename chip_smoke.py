@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -89,9 +90,10 @@ BENCH_ITERS = 300  # bench.py's N_ITER
 LIBRARIES = ("resample", "fused_gradient", "conv_yz", "fused_io_probe", "dma_probe",
              "resample_variants", "v10_xslab", "stack_bodies")
 RAGGED_X = (20, 64, 128)  # a ragged x for the resample variants (their Z is 128)
-RAGGED_B3 = (5, 6, 128)  # a Y off B3's and B4's 8-row tiles (yb = Y): their runtime geometry
+RAGGED_B3 = (5, 6, 128)  # a Y off the 8-row tiles of B3-B5 (yb = Y): their runtime geometry
 B45_VARIANTS = ("vf_fori", "vf_chunk", "vf_unroll", "v7_chunk", "v7_unroll")
 B4_WINDOW = ("vf_fori_yb6", "vf_chunk_yb6", "vf_unroll_yb6")  # B4 at RAGGED_B3
+B5_WINDOW = ("v7_chunk_yb6", "v7_unroll_yb6")  # B5 at RAGGED_B3
 
 # The card's peaks (NVIDIA's H100 SXM data sheet): HBM bytes/s and f32
 # operations/s outside the tensor cores (every bound below counts f32 work).
@@ -539,8 +541,12 @@ SASS_KERNELS = (
     ("stack_bodies", "table_kernel<10,1>", "B7 v8c", 3),
     ("stack_bodies", "table_kernel<8,4>", "B8 level 4", 2),
     ("resample_variants", "tile_kernel<0,0>", "B3 v6", 2),
-    ("resample_variants", "ring_kernel<0>", "B4 vf_fori", 2),
+    ("resample_variants", "ring_kernel<0,0>", "B4 vf_fori", 2),
+    ("resample_variants", "ring_kernel<2,1>", "B5 v7_chunk", 24),
 )
+# Kernels whose pair loop runs other than once a pair: (trips, voxels at
+# once). B5's chunk sums a thread's two voxels in one loop of 6 cy steps.
+SASS_LOOPS = {"ring_kernel<2,1>": (6, 2)}
 
 
 def phase7_ptxas():
@@ -548,20 +554,25 @@ def phase7_ptxas():
     instantiation (built in phase 1), from each library's ``nvcc -Xptxas
     -v`` log, and the SASS a voxel of the pair-loop kernels."""
     parts = [f"{name}: {', '.join(_ptxas(name))}" for name in LIBRARIES[2:]]
-    log = (_lib.BUILD_DIR / "libconv_yz.log").read_text()
-    for mangled, (_, spill, stack, _) in _sweep.ptxas(log).items():
-        if "banded" in mangled and (spill or stack):
-            raise AssertionError(f"{_sweep.kernel_name(mangled)}: {spill} B spilled, "
-                                 f"{stack} B stack frame")
+    # B12's banded kernels and B5's ring kernels (ring_kernel<loop, 1>) must
+    # not touch local memory.
+    for library, redesigned in (("conv_yz", "banded"),
+                                ("resample_variants", r"^ring_kernel<\d+,1>$")):
+        log = (_lib.BUILD_DIR / f"lib{library}.log").read_text()
+        for mangled, (_, spill, stack, _) in _sweep.ptxas(log).items():
+            name = _sweep.kernel_name(mangled)
+            if re.search(redesigned, name) and (spill or stack):
+                raise AssertionError(f"{name}: {spill} B spilled, {stack} B stack frame")
     print(f"[7] ptxas, registers r / spill bytes B / stack frame bytes B / static shared S "
           f"(window_kernel<loop, body, tents_once>, tile_kernel<loop, body> and "
-          f"ring_kernel<loop> as codes of "
+          f"ring_kernel<loop, tents_once> as codes of "
           f"resample_variants.LOOPS and BODIES, stack_kernel<body, loop> and "
           f"table_kernel<body, TY> of loop_cost.BODIES and LOOPS): {'; '.join(parts)}")
     found = []
     for library in dict.fromkeys(row[0] for row in SASS_KERNELS):
         kernels = {name: (what, lds) for lib, name, what, lds in SASS_KERNELS if lib == library}
-        counts = _sweep.sass_per_voxel(_lib.BUILD_DIR / f"lib{library}.so", kernels)
+        counts = _sweep.sass_per_voxel(_lib.BUILD_DIR / f"lib{library}.so", kernels,
+                                       SASS_LOOPS)
         if not counts:
             break  # no cuobjdump
         for name, (what, lds) in kernels.items():
@@ -570,12 +581,13 @@ def phase7_ptxas():
                 raise AssertionError(f"{name}: {c['error'] if c else 'not in the SASS'}")
             if c["pair_loop_lds"] != lds:
                 raise AssertionError(f"{name} ({what}): pair loop with {c['pair_loop_lds']} "
-                                     f"shared loads, want {lds} (one pair a step)")
+                                     f"shared loads, want {lds} (one step of its loop)")
             loop = (f", pair loop {c['pair_loop']} ({c['pair_loop_lds']} LDS)"
                     if c["pair_loop"] else ", no loop")
-            found.append(f"{name} ({what}): {c['instructions']} instructions{loop}, "
-                         f"LDL {c['ldl']}, STL {c['stl']}")
-    print(f"[7] SASS a voxel (the step's code once, its pair loop {_sweep.PAIRS} times): "
+            found.append(f"{name} ({what}): {c['instructions']:g} instructions{loop}, "
+                         f"LDL {c['ldl']:g}, STL {c['stl']:g}")
+    print(f"[7] SASS a voxel (the step's code once, its pair loop {_sweep.PAIRS} times; "
+          f"{SASS_LOOPS} as (trips, voxels)): "
           f"{'; '.join(found) or 'cuobjdump not found'}")
 
 
@@ -837,12 +849,12 @@ def phase12_resample_variants():
     if min(launches.values()) == 0:
         raise AssertionError(f"resample_variants.main left a kernel unlaunched: {launches}")
     # Every variant equals its plain version (max|Δ| 0) at 128^3 and a ragged
-    # X; B3 and B4 also at a Y that is not a multiple of their tiles' 8 rows,
-    # which takes their runtime geometry (window_kernel) instead of the
+    # X; B3, B4 and B5 also at a Y that is not a multiple of their tiles' 8
+    # rows, which takes their runtime geometry (window_kernel) instead of the
     # compile-time tiles or ring.
-    err = dict.fromkeys((*names, *B4_WINDOW), 0.0)
+    err = dict.fromkeys((*names, *B4_WINDOW, *B5_WINDOW), 0.0)
     for shape, group in ((FULL, names), (RAGGED_X, names),
-                         (RAGGED_B3, (*rv.KERNELS, *B4_WINDOW))):
+                         (RAGGED_B3, (*rv.KERNELS, *B4_WINDOW, *B5_WINDOW))):
         field, warp = rv.inputs(shape, "cuda")
         for name in group:
             got = rv.variant_call(name)(field, warp)
@@ -850,8 +862,11 @@ def phase12_resample_variants():
             err[name] = max(err[name], _close(f"{name} {shape}", got, want, 0.0, 0.0))
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     kernels = {shape: (rv.b3_geometry(shape)["kernel"],
-                       rv.b4_geometry(shape, min(64, shape[1]), sms=sms)["kernel"])
+                       rv.b4_geometry(shape, min(64, shape[1]), sms=sms)["kernel"],
+                       rv.b5_geometry(shape, min(64, shape[1]), sms=sms)["kernel"])
                for shape in (FULL, RAGGED_X, RAGGED_B3)}
+    if kernels[FULL][2] != "ring":
+        raise AssertionError(f"run_v7 at {FULL} takes {kernels[FULL][2]}, not the ring")
     field, warp = rv.inputs(FULL, "cuda")
     warp_cm = rv.clamp_warp(warp).movedim(-1, 0).contiguous()
     b1 = warp_field_cm(field, warp_cm)
@@ -868,9 +883,11 @@ def phase12_resample_variants():
     table = ", ".join(f"{name} {ms[name] * 1e3:.1f} ({plain_ms[name] * 1e3:.0f})"
                       for name in names)
     vox = field.numel()
-    print(f"[12] resample variants vs plain at {FULL} and {RAGGED_X}, B3 and {B4_WINDOW} "
-          f"also at {RAGGED_B3} (B3, B4 kernels {kernels}; B4's ring at {FULL}, CTAs on {sms} "
-          f"SMs: {({i: rv.b4_geometry(FULL, 64, i, sms)['ctas'] for i in rv.VMEMFULL_INNERS})}): "
+    ctas = {**{f"vf_{i}": rv.b4_geometry(FULL, 64, i, sms)["ctas"] for i in rv.VMEMFULL_INNERS},
+            **{f"v7_{s}": rv.b5_geometry(FULL, 64, s, sms)["ctas"] for s in rv.V7_STRUCTURES}}
+    print(f"[12] resample variants vs plain at {FULL} and {RAGGED_X}, B3, {B4_WINDOW} and "
+          f"{B5_WINDOW} also at {RAGGED_B3} (B3, B4, B5 kernels {kernels}; the ring at {FULL}, "
+          f"CTAs on {sms} SMs: {ctas}): "
           f"max|Δ| {max(err.values())} (exact), value-preserving vs B1 {vs_b1:.3e} (tol 1e-5); "
           f"us per call at {FULL}, kernel (plain): {table}; B1 {b1_ms * 1e3:.1f}; "
           f"grid_sample {lib_ms * 1e3:.1f} (max|Δ| {gs_err:.2e} vs B1); "
@@ -885,7 +902,7 @@ def phase12_resample_variants():
 
     return {"run_variant": numbers("run_variant", "v6", rv.KERNELS),
             "run_vmemfull": numbers("run_vmemfull", "vf_fori", (*B45_VARIANTS[:3], *B4_WINDOW)),
-            "run_v7": numbers("run_v7", "v7_chunk", B45_VARIANTS[3:])}
+            "run_v7": numbers("run_v7", "v7_chunk", (*B45_VARIANTS[3:], *B5_WINDOW))}
 
 
 def phase13_v10():

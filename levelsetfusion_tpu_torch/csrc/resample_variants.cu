@@ -60,11 +60,21 @@
 //   before the sum. Tiles of 8 rows time faster than 4 or 16, and fori at
 //   64 warps faster than at 48 or 16 (experiments/resample_variants_sweep.py).
 //   A Y that is not a multiple of 8 goes to window_kernel.
-// - B5 (window_kernel, XC = 8, a ring): a CTA walks a chunk of 8 x rows over
-//   TY = gcd(yb, 16) y rows (128 CTAs at 128^3) and keeps a ring of kN + 1
-//   staged x rows (7 x 21 x 128 floats = 75 KB): each padded row is loaded
-//   once per chunk. B5 keeps its 2n tent values in registers (static
-//   indices only).
+// - B5 (ring_kernel<L, true>): B4's ring, the tents computed once a voxel.
+//   Its chunk loop sums a thread's kVox voxels of a step together (rows r
+//   and r + 4): one runtime cy loop, 6 static cx, each voxel with its own
+//   acc, tents and z setup in its own order; the (cy, cx) row's offset is
+//   computed once for both, and the two accumulator chains (4 LDS a pair
+//   step) are independent. A thread loads the next x row's warps of both
+//   voxels before the sum. Its unroll takes one voxel at a time through
+//   the same loop, cy static. On the H100 at 128^3
+//   (experiments/resample_variants_sweep.py, device us): the chunk one
+//   voxel at a time takes 43.7 against 40.6-42.4 (532 against 422.5 SASS
+//   a voxel); the unroll with two voxels together spills 104 B under the
+//   64 registers of two CTAs an SM (41.8-42.1 against 39.9-40.0).
+//   A Y that is not a multiple of 8 goes to window_kernel (XC = 8 x rows a
+//   CTA over TY = gcd(yb, 16) y rows, a ring of kN + 1 staged x rows); the
+//   2n tent values stay in registers (static indices only).
 //
 // What bounds it on the H100: shared-memory reads. Each voxel makes 36
 // pairs x 2 z reads, 72 x 4 B = 288 B of shared-memory traffic, 604 MB at
@@ -117,10 +127,10 @@ constexpr int kTileSmem = 2 * kTileFloats * (int)sizeof(float);  // 79,872 B: tw
 // Pair t's staged row in a tile: slot cx, row cy (resample_z.cuh).
 __constant__ PairTable<1> kTilePairs = pair_table<1>(kN, kTileStage);
 
-// B4's ring (ring_kernel<L>): tiles of kRingTY y rows, kN + 1 slots of
-// kRingRows padded y rows, kRingCtas<L> CTAs an SM (the launch bounds cap
-// the registers to match: 32 for fori, 64 for the static loops, which run
-// faster with the registers than with the warps).
+// The ring of B4 and B5 (ring_kernel<L, kTentsOnce>): tiles of kRingTY y
+// rows, kN + 1 slots of kRingRows padded y rows, kRingCtas<L> CTAs an SM
+// (the launch bounds cap the registers to match: 32 for fori, 64 for the
+// static loops, which run faster with the registers than with the warps).
 constexpr int kRingTY = 8;
 constexpr int kRingRows = kRingTY + kN - 1;
 constexpr int kRingSlots = kN + 1;
@@ -128,6 +138,10 @@ constexpr int kRingSlotF = kRingRows * kLane;
 constexpr int kRingSmem = kRingSlots * kRingSlotF * (int)sizeof(float);  // 46,592 B
 template <int L>
 constexpr int kRingCtas = L == kPairLoop ? 4 : 2;
+// B5's loops that sum a thread's voxels of a step together (the others take
+// one voxel at a time).
+template <int L>
+constexpr bool kRingPaired = L == kChunk;
 
 // Pair t's staged row from start slot s0: slot (s0 + cx) mod kRingSlots,
 // row cy.
@@ -254,6 +268,69 @@ __device__ __forceinline__ float voxel(const float* smem, int slot0, int slots, 
   return acc;
 }
 
+// B5 on the ring, body full, tents once: the kVox voxels of rows r, r +
+// kRowStep, ... of a step (their raw warps u) summed together, cy outer (a
+// runtime loop for kChunk, static for kUnroll) and cx inner. Voxel k's row
+// lies k kRowStep rows past voxel 0's, so a (cy, cx) row's offset serves
+// all of them; each keeps its own acc, tents and z setup, and sums its
+// pairs in the order of voxel(). The loads take 32-bit shared addresses,
+// one IMAD or LEA each: with C++ indexing of the generic pointer the chunk
+// runs 557.5 SASS a voxel against 422.5, 48.5-48.7 device us against
+// 40.6-42.4 at 128^3 on the H100 (experiments/resample_variants_sweep.py,
+// v7_generic; the unroll, whose offsets then fold into its loads, 39.2-39.4
+// against 39.9-40.0).
+template <int L, int kVox, int kRowStep>
+__device__ __forceinline__ void voxels_together(const float* smem, int slot0, int r, int z,
+                                                const float3 (&u)[kVox], float (&out)[kVox]) {
+  ZSetup zs[kVox];
+  float acc[kVox], uy[kVox], tx[kVox][kN];
+#pragma unroll
+  for (int k = 0; k < kVox; ++k) {
+    zs[k] = z_setup(u[k].z, z);
+    acc[k] = acc0(zs[k]);
+    uy[k] = clamp_k(u[k].y);
+    const float ux = clamp_k(u[k].x);
+#pragma unroll
+    for (int c = 0; c < kN; ++c) tx[k][c] = tent_at(ux, c);
+  }
+  int slot_off[kN];  // floats from slot 0 to x shift cx's slot
+#pragma unroll
+  for (int c = 0; c < kN; ++c) {
+    const int sl = slot0 + c;
+    slot_off[c] = (sl >= kRingSlots ? sl - kRingSlots : sl) * kRingSlotF;
+  }
+  unsigned a0[kVox], a1[kVox];  // voxel k's z0c and z1c in its row of slot 0
+#pragma unroll
+  for (int k = 0; k < kVox; ++k) {
+    const float* row = smem + (r + k * kRowStep) * kLane;
+    a0[k] = (unsigned)__cvta_generic_to_shared(row + zs[k].z0c);
+    a1[k] = (unsigned)__cvta_generic_to_shared(row + zs[k].z1c);
+  }
+  auto sum_cy = [&](int cy) {
+    float wy[kVox];
+#pragma unroll
+    for (int k = 0; k < kVox; ++k) wy[k] = tent_at(uy[k], cy);
+#pragma unroll
+    for (int cx = 0; cx < kN; ++cx) {
+      const unsigned o = (unsigned)(cy * kLane + slot_off[cx]) * (unsigned)sizeof(float);
+#pragma unroll
+      for (int k = 0; k < kVox; ++k) {
+        acc[k] = add_pair(acc[k], __fmul_rn(wy[k], tx[k][cx]),
+                          zmix(zs[k], ld_shared(a0[k] + o), ld_shared(a1[k] + o)));
+      }
+    }
+  };
+  if constexpr (L == kChunk) {
+#pragma unroll 1
+    for (int cy = 0; cy < kN; ++cy) sum_cy(cy);
+  } else {
+#pragma unroll
+    for (int cy = 0; cy < kN; ++cy) sum_cy(cy);
+  }
+#pragma unroll
+  for (int k = 0; k < kVox; ++k) out[k] = acc[k];
+}
+
 template <int L, int B, bool kTentsOnce>
 __global__ void __launch_bounds__(kThreads) window_kernel(Params p) {
   extern __shared__ __align__(16) float smem[];
@@ -334,13 +411,16 @@ __global__ void __launch_bounds__(kThreads, 2) tile_kernel(Params p) {
   }
 }
 
-// B4, body full, loop fori, chunk or unroll. The grid splits the (y tile,
-// x row) steps, x fastest, into equal ranges, one a CTA.
-template <int L>
+// B4 (kTentsOnce false: loop fori, chunk or unroll) and B5 (true: chunk or
+// unroll), body full. The grid splits the (y tile, x row) steps, x fastest,
+// into equal ranges, one a CTA.
+template <int L, bool kTentsOnce>
 __global__ void __launch_bounds__(kThreads, kRingCtas<L>) ring_kernel(Params p) {
   extern __shared__ __align__(16) float smem[];
   constexpr int kRowStep = kThreads / kLane;  // y rows a thread's voxels step by
   constexpr int kVox = kRingTY / kRowStep;    // voxels a thread a step
+  constexpr int kVoxStep = kRowStep * kLane;  // floats from one of them to the next
+  constexpr bool kPaired = kTentsOnce && kRingPaired<L>;
   const int z = threadIdx.x % kLane, r_first = threadIdx.x / kLane;
   // 32-bit step counters (the entry's shape rule): fori fits its 32
   // registers without spilling.
@@ -358,6 +438,12 @@ __global__ void __launch_bounds__(kThreads, kRingCtas<L>) ring_kernel(Params p) 
     // each x row.
     int64_t v = ((int64_t)x0 * p.ny + y0 + r_first) * kLane + z;
     float3 u = warp_at(v);
+    float3 us[kVox];  // kPaired: the warps of the thread's voxels of the step
+    if constexpr (kPaired) {
+      us[0] = u;
+#pragma unroll
+      for (int k = 1; k < kVox; ++k) us[k] = warp_at(v + k * kVoxStep);
+    }
     for (int c = 0; c < kN; ++c) stage_row(p, smem + c * kRingSlotF, x0 + c, y0, kRingRows);
     cp_async_commit();
     for (int xi = 0, slot0 = 0; xi < xn; ++xi, slot0 = slot0 + 1 == kRingSlots ? 0 : slot0 + 1) {
@@ -368,41 +454,64 @@ __global__ void __launch_bounds__(kThreads, kRingCtas<L>) ring_kernel(Params p) 
       cp_async_commit();    // possibly empty: one group per step
       cp_async_wait<1>();  // every group but this step's has landed
       __syncthreads();
-#pragma unroll 1
-      for (int k = 0; k < kVox; ++k) {
-        const int r = r_first + k * kRowStep;
-        const bool last = k + 1 == kVox;
-        const int64_t v_next = last ? v + row_step - (kVox - 1) * kRowStep * kLane
-                                    : v + kRowStep * kLane;
-        const float3 u_next = !last || xi + 1 < xn ? warp_at(v_next) : u;
-        const ZSetup zs = z_setup(u.z, z);
-        const float ux = clamp_k(u.x), uy = clamp_k(u.y);
-        if constexpr (L == kPairLoop) {  // a staged row is kLane floats
-          const float* row0 = smem + r * kLane;
-          p.out[v] = pair_sum<kLane * (int)sizeof(float), true>(
-              acc0(zs), kRingPairs.p[slot0], (unsigned)__cvta_generic_to_shared(row0 + zs.z0c),
-              (unsigned)__cvta_generic_to_shared(row0 + zs.z1c), ux, uy, zs);
-        } else {
-          p.out[v] = voxel<L, kFull, false>(smem, slot0, kRingSlots, kRingRows, r, z, ux, uy, zs);
+      if constexpr (kPaired) {  // the next x row's warps first, then the sums
+        float3 next[kVox];
+        float out[kVox];
+#pragma unroll
+        for (int k = 0; k < kVox; ++k) {
+          next[k] = xi + 1 < xn ? warp_at(v + row_step + k * kVoxStep) : us[k];
         }
-        u = u_next;
-        v = v_next;
+        voxels_together<L, kVox, kRowStep>(smem, slot0, r_first, z, us, out);
+#pragma unroll
+        for (int k = 0; k < kVox; ++k) {
+          p.out[v + k * kVoxStep] = out[k];
+          us[k] = next[k];
+        }
+        v += row_step;
+      } else {
+#pragma unroll 1
+        for (int k = 0; k < kVox; ++k) {
+          const int r = r_first + k * kRowStep;
+          const bool last = k + 1 == kVox;
+          const int64_t v_next = last ? v + row_step - (kVox - 1) * kRowStep * kLane
+                                      : v + kRowStep * kLane;
+          const float3 u_next = !last || xi + 1 < xn ? warp_at(v_next) : u;
+          const ZSetup zs = z_setup(u.z, z);
+          const float ux = clamp_k(u.x), uy = clamp_k(u.y);
+          if constexpr (kTentsOnce) {  // B5, one voxel at a time
+            const float3 uk[1] = {u};
+            float out[1];
+            voxels_together<L, 1, kRowStep>(smem, slot0, r, z, uk, out);
+            p.out[v] = out[0];
+          } else if constexpr (L == kPairLoop) {  // a staged row is kLane floats
+            const float* row0 = smem + r * kLane;
+            p.out[v] = pair_sum<kLane * (int)sizeof(float), true>(
+                acc0(zs), kRingPairs.p[slot0], (unsigned)__cvta_generic_to_shared(row0 + zs.z0c),
+                (unsigned)__cvta_generic_to_shared(row0 + zs.z1c), ux, uy, zs);
+          } else {
+            p.out[v] = voxel<L, kFull, false>(smem, slot0, kRingSlots, kRingRows, r, z, ux, uy, zs);
+          }
+          u = u_next;
+          v = v_next;
+        }
       }
       __syncthreads();  // slot xi is refilled at the next step (or the next range's start)
     }
   }
 }
 
-template <int L>
+template <int L, bool kTentsOnce>
 int launch_ring(const Params& p, cudaStream_t stream) {
   static lsf_occ::WaveCache cache;
-  const int wave = lsf_occ::wave((const void*)ring_kernel<L>, kThreads, kRingSmem, cache);
+  const int wave =
+      lsf_occ::wave((const void*)ring_kernel<L, kTentsOnce>, kThreads, kRingSmem, cache);
   if (wave < 0) {
     const cudaError_t err = cudaGetLastError();
     return (int)(err != cudaSuccess ? err : cudaErrorUnknown);
   }
   const int64_t steps = (int64_t)p.nx * (p.ny / kRingTY);
-  ring_kernel<L><<<(unsigned)std::min<int64_t>(wave, steps), kThreads, kRingSmem, stream>>>(p);
+  ring_kernel<L, kTentsOnce>
+      <<<(unsigned)std::min<int64_t>(wave, steps), kThreads, kRingSmem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -506,23 +615,29 @@ extern "C" int lsf_resample_variant_tiled(const float* field, const float* warp,
   });
 }
 
-// B4 on its compile-time ring (ring_kernel): loop 0 (fori), 2 (chunk) or 3
-// (unroll), body 0 (full). Shape rules (else cudaErrorInvalidValue): nz 128,
-// nx >= 1, ny a positive multiple of kRingTY (8), nx ny / 8 < 2^31, field
-// 16-byte aligned.
+// B4 and B5 on the compile-time ring (ring_kernel): body 0 (full); B4
+// (tents_once 0) loop 0 (fori), 2 (chunk) or 3 (unroll), B5 (tents_once 1)
+// loop 2 or 3. Shape rules (else cudaErrorInvalidValue): nz 128, nx >= 1,
+// ny a positive multiple of kRingTY (8), nx ny / 8 < 2^31, field 16-byte
+// aligned.
 extern "C" int lsf_resample_variant_ring(const float* field, const float* warp, float* out,
                                          int nx, int ny, int nz, int loop, int body,
-                                         void* stream) {
+                                         int tents_once, void* stream) {
   if (nz != kLane || nx < 1 || ny < kRingTY || ny % kRingTY != 0 || body != kFull ||
       (int64_t)nx * (ny / kRingTY) > INT32_MAX || (uintptr_t)field % 16 != 0) {
     return (int)cudaErrorInvalidValue;
   }
   const Params p{field, warp, out, nx, ny, kRingTY, kRingTY, 1, kRingSlots};
   const cudaStream_t s = (cudaStream_t)stream;
+  if (tents_once) {
+    if (loop == kChunk) return launch_ring<kChunk, true>(p, s);
+    if (loop == kUnroll) return launch_ring<kUnroll, true>(p, s);
+    return (int)cudaErrorInvalidValue;
+  }
   switch (loop) {
-    case kPairLoop: return launch_ring<kPairLoop>(p, s);
-    case kChunk: return launch_ring<kChunk>(p, s);
-    case kUnroll: return launch_ring<kUnroll>(p, s);
+    case kPairLoop: return launch_ring<kPairLoop, false>(p, s);
+    case kChunk: return launch_ring<kChunk, false>(p, s);
+    case kUnroll: return launch_ring<kUnroll, false>(p, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -124,15 +124,18 @@ def registers(log: str, key) -> dict:
 PAIRS = 36  # a voxel's pairs: each runtime pair loop runs once per pair
 
 
-def sass_per_voxel(library: Path, names) -> dict:
+def sass_per_voxel(library: Path, names, loops=None) -> dict:
     """For each kernel of ``library`` named in ``names`` (as ``kernel_name``
     gives them), from ``cuobjdump -sass``: the SASS instructions a voxel
     runs and its local-memory loads and stores (LDL, STL), counting the code
     between the step's first and last barrier once and its pair loop (the
     innermost loop with shared loads, if any) ``PAIRS`` times, and the pair
-    loop's size and shared loads. Where a loop holds a block that runs at a
-    new cy only, it is counted every pair. Instructions predicated off
-    (``@!PT``, nvcc's padding) are not counted. ``{}`` without cuobjdump."""
+    loop's size and shared loads. ``loops`` maps a name to (trips, voxels)
+    where its loop runs another number of times for ``voxels`` voxels at
+    once (B5's chunk: 6 cy steps for two voxels); the counts are then per
+    voxel. Where a loop holds a block that runs at a new cy only, it is
+    counted every pair. Instructions predicated off (``@!PT``, nvcc's
+    padding) are not counted. ``{}`` without cuobjdump."""
     tool = shutil.which("cuobjdump") or str(Path(_lib._nvcc()).parent / "cuobjdump")
     if not Path(tool).exists():
         return {}
@@ -153,7 +156,7 @@ def sass_per_voxel(library: Path, names) -> dict:
             found[name] = {"error": "barriers not found"}
             continue
         step = [(a, text) for a, text in code if bars[0] < a < bars[-1]]
-        loops = []  # (instructions, shared loads, first address, last address)
+        found_loops = []  # (instructions, shared loads, first address, last address)
         for addr, text in step:
             target = re.search(r"BRA\s+(?:`\()?(0x[0-9a-f]+)", text)
             if target and int(target.group(1), 16) < addr:
@@ -161,16 +164,17 @@ def sass_per_voxel(library: Path, names) -> dict:
                 body = [t for a, t in step if first <= a <= addr]
                 lds = sum(1 for t in body if re.search(r"\bLDS\b", t))
                 if lds:
-                    loops.append((len(body), lds, first, addr))
-        loop = min(loops) if loops else None  # the pair loop, innermost
+                    found_loops.append((len(body), lds, first, addr))
+        loop = min(found_loops) if found_loops else None  # the pair loop, innermost
+        trips, voxels = (loops or {}).get(name, (PAIRS, 1))
 
         def per_voxel(pattern):
             hits = [a for a, t in step if re.search(pattern, t)]
             inside = sum(1 for a in hits if loop and loop[2] <= a <= loop[3])
-            return len(hits) + inside * (PAIRS - 1)
+            return (len(hits) + inside * (trips - 1)) / voxels
 
         found[name] = {
-            "instructions": len(step) + (loop[0] * (PAIRS - 1) if loop else 0),
+            "instructions": (len(step) + (loop[0] * (trips - 1) if loop else 0)) / voxels,
             "pair_loop": loop[0] if loop else None,
             "pair_loop_lds": loop[1] if loop else None,
             "ldl": per_voxel(r"\bLDL\b"), "stl": per_voxel(r"\bSTL\b"),

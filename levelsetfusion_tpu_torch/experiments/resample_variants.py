@@ -22,7 +22,8 @@ tent(t) = max(0, 1 − |t|). For |ux|, |uy| ≤ 2 this is the golden
 - ``run_vmemfull`` (B4): each padded row staged once per range of x rows,
   inner loop ``fori``, ``chunk`` or ``unroll`` (``b4_geometry``);
 - ``run_v7`` (B5): as B4 with the tent values computed once per voxel,
-  structure ``chunk`` or ``unroll``.
+  structure ``chunk`` (a thread's two voxels of a step summed together) or
+  ``unroll`` (``b5_geometry``).
 
 ``main`` takes the JAX script's variant names, ``vf_<inner>[_yb<N>]`` and
 ``v7_<structure>[_yb<N>]`` included, and prints per variant one JSON line:
@@ -82,10 +83,11 @@ B3_CTA_ROWS = 64
 B3_STAGE_ROWS = 64  # at most this many y rows a runtime-geometry B3 CTA stages at a time
 RING_X_ROWS = 8  # x rows a runtime-geometry B4/B5 CTA walks
 RING_Y_ROWS = 16  # at most this many y rows per runtime-geometry B4/B5 CTA
-# B4's compile-time ring (csrc/resample_variants.cu kRingTY, kRingCtas): the
-# (y tile, x row) steps of 8-row tiles in equal ranges, one a CTA, one wave
-# of CTAs (its launch bounds' CTAs an SM for each inner loop), each holding
-# a ring of 7 x rows of 13 padded y rows.
+# The compile-time ring of B4 and B5 (csrc/resample_variants.cu kRingTY,
+# kRingCtas): the (y tile, x row) steps of 8-row tiles in equal ranges, one a
+# CTA, one wave of CTAs (its launch bounds' CTAs an SM for each inner loop,
+# B5's chunk and unroll as B4's), each holding a ring of 7 x rows of 13
+# padded y rows.
 B4_TILE_ROWS = 8
 B4_CTAS_PER_SM = {"fori": 4, "chunk": 2, "unroll": 2}
 H100_SMS = 132
@@ -173,7 +175,7 @@ VARIANT_ARGTYPES = (
     _P,  # stream
 )
 TILED_ARGTYPES = (_P, _P, _P, _I, _I, _I, _I, _I, _P)  # the same, less tents_once, yb, ty, xc
-RING_ARGTYPES = TILED_ARGTYPES
+RING_ARGTYPES = (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P)  # the same, less yb, ty, xc
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -260,17 +262,27 @@ def b4_geometry(shape, yb=64, inner="fori", sms=H100_SMS) -> dict:
             "smem_bytes": slots * rows * LANE * 4, "ctas": -(-nx // RING_X_ROWS) * (ny // ty)}
 
 
-def _launch(entry, kernel, field, warp, loop, body, window=()) -> torch.Tensor:
-    """One launch of ``kernel``: B3's tiles (``"tiled"``), B4's ring
-    (``"ring"``), or the runtime-geometry kernel (``"window"``, with
-    ``window`` = (tents_once, yb, ty, xc))."""
+def b5_geometry(shape, yb=64, structure="chunk", sms=H100_SMS) -> dict:
+    """The launch ``run_v7`` makes, as ``b4_geometry`` gives it: B5 takes
+    B4's ring where Y is a multiple of ``B4_TILE_ROWS`` (its chunk and
+    unroll at the CTAs an SM of B4's) and the runtime window kernel
+    elsewhere."""
+    if structure not in V7_STRUCTURES:
+        raise ValueError(f"structure must be one of {V7_STRUCTURES}, got {structure!r}")
+    return b4_geometry(shape, yb, structure, sms)
+
+
+def _launch(entry, kernel, field, warp, loop, body, args=()) -> torch.Tensor:
+    """One launch of ``kernel``: B3's tiles (``"tiled"``), the ring of B4
+    and B5 (``"ring"``, ``args`` = (tents_once,)), or the runtime-geometry
+    kernel (``"window"``, ``args`` = (tents_once, yb, ty, xc))."""
     lib = _library()
     fn = {"tiled": lib.lsf_resample_variant_tiled, "ring": lib.lsf_resample_variant_ring,
           "window": lib.lsf_resample_variant}[kernel]
     out = torch.empty_like(field)
     with torch.cuda.device(field.device):
         err = fn(field.data_ptr(), warp.data_ptr(), out.data_ptr(), *field.shape,
-                 LOOPS.index(loop), BODIES.index(body), *(int(a) for a in window),
+                 LOOPS.index(loop), BODIES.index(body), *(int(a) for a in args),
                  _lib.stream_handle(field.device))
     _lib.check(err, lib.lsf_resample_variants_error_string, f"{entry} launch")
     launch_counts[entry] += 1
@@ -313,21 +325,23 @@ def run_vmemfull(field, warp, inner="fori", k=K, yb=64) -> torch.Tensor:
         return shift_sum_reference(field, warp, "full", k)
     geometry = b4_geometry(field.shape, yb, inner)
     if geometry["kernel"] == "ring":
-        return _launch("run_vmemfull", "ring", field, warp, inner, "full")
+        return _launch("run_vmemfull", "ring", field, warp, inner, "full", (False,))
     return _window("run_vmemfull", field, warp, inner, geometry["tile_rows"], False)
 
 
 def run_v7(field, warp, structure="chunk", k=K, yb=64) -> torch.Tensor:
-    """B5: the rows staged once per chunk of RING_X_ROWS x rows over gcd(yb,
-    RING_Y_ROWS) y rows, the tent values once per voxel, ``structure`` in
-    ``V7_STRUCTURES``. CUDA tensors run the kernel, CPU tensors the plain
-    version."""
+    """B5: as ``run_vmemfull`` (``b5_geometry``) with the tent values once
+    per voxel, ``structure`` in ``V7_STRUCTURES``. CUDA tensors run the
+    kernel, CPU tensors the plain version."""
     if structure not in V7_STRUCTURES:
         raise ValueError(f"structure must be one of {V7_STRUCTURES}, got {structure!r}")
     check_inputs(field, warp, yb, k)
     if field.device.type == "cpu":
         return shift_sum_reference(field, warp, "full", k)
-    return _window("run_v7", field, warp, structure, math.gcd(yb, RING_Y_ROWS), True)
+    geometry = b5_geometry(field.shape, yb, structure)
+    if geometry["kernel"] == "ring":
+        return _launch("run_v7", "ring", field, warp, structure, "full", (True,))
+    return _window("run_v7", field, warp, structure, geometry["tile_rows"], True)
 
 
 def variant_call(name):

@@ -16,6 +16,9 @@ CPU, and the script's inputs drawn number for number."""
 
 import functools
 import re
+import sys
+import types
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -220,6 +223,7 @@ def test_frame_tiles_divide_the_wrappers_y_rule():
     ("_ZN12_GLOBAL__N_112stack_kernelILi4ELi0EEEvNS_6ParamsE", "stack_kernel<4,0>"),
     ("_ZN12_GLOBAL__N_112table_kernelILi10ELi1EEEvNS_6ParamsE", "table_kernel<10,1>"),
     ("_ZN12_GLOBAL__N_111tile_kernelILi0ELi0EEEvNS_6ParamsE", "tile_kernel<0,0>"),
+    ("_ZN12_GLOBAL__N_111ring_kernelILi2ELb1EEEvNS_6ParamsE", "ring_kernel<2,1>"),
     ("_ZN12_GLOBAL__N_120warp_field_cm_kernelIjEEvPKfS2_Pfiiiii", "warp_field_cm_kernel<uint32_t>"),
     ("_Z6kernelPf", "_Z6kernelPf"),
 ])
@@ -245,3 +249,35 @@ ptxas info    : Used 8 registers, 1024 bytes smem, 352 bytes cmem[0]
     }
     assert _sweep.registers(log, _sweep.kernel_name) == {
         "table_kernel<10,1>": "40r/12B/144B", "_Z1kv": "8r/0B/0B"}
+
+
+_SASS = """\t\tFunction : _ZN12_GLOBAL__N_111ring_kernelILi2ELb1EEEvNS_6ParamsE
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+        /*0010*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0020*/                   LDG.E R2, desc[UR4][R4.64] ;
+        /*0030*/                   LDS R6, [R2] ;
+        /*0040*/                   LDS R7, [R2+0x800] ;
+        /*0050*/                   FADD R8, R6, R7 ;
+        /*0060*/                   STL [R1], R8 ;
+        /*0070*/               @P0 BRA 0x30 ;
+        /*0080*/                   STG.E desc[UR4][R10.64], R8 ;
+        /*0090*/                  @!PT LDS RZ, [RZ] ;
+        /*00a0*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*00b0*/                   EXIT ;
+"""
+
+
+@pytest.mark.parametrize("loops,want", [
+    (None, {"instructions": 7 + 5 * 35, "stl": 36}),  # a pair loop: 36 trips a voxel
+    ({"ring_kernel<2,1>": (6, 2)}, {"instructions": (7 + 5 * 5) / 2, "stl": 3}),  # B5's chunk
+], ids=["pairs", "cy loop, two voxels"])
+def test_sass_per_voxel_counts_the_step_and_its_loop(monkeypatch, loops, want):
+    """chip_smoke phase 7's SASS counts on a listing: the code between the
+    step's barriers once, its innermost loop with shared loads as many
+    times as it runs, over the voxels it sums at once; padding (@!PT) not
+    counted."""
+    monkeypatch.setattr(_sweep.shutil, "which", lambda _: sys.executable)
+    monkeypatch.setattr(_sweep.subprocess, "run",
+                        lambda *a, **k: types.SimpleNamespace(stdout=_SASS))
+    got = _sweep.sass_per_voxel(Path("lib.so"), {"ring_kernel<2,1>"}, loops)
+    assert got == {"ring_kernel<2,1>": {**want, "pair_loop": 5, "pair_loop_lds": 2, "ldl": 0}}

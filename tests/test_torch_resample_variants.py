@@ -409,6 +409,67 @@ def test_b4_window_shape_matches_jax(inner, interpret):
     assert_close(got, want, rtol=0, atol=1e-6)
 
 
+# ----------------------------------------------------- B5's launch geometry
+
+
+@pytest.mark.parametrize("shape", B4_SHAPES, ids=str)
+def test_b5_geometry_fits_shared_memory(shape):
+    """Every accepted shape and y block gets a B5 launch whose staged rows
+    fit a CTA's shared memory, covering Y with its tiles."""
+    ybs = [yb for yb in sorted({8, 16, 64, 128, shape[1]}) if _b4_accepts(shape, yb)]
+    assert ybs
+    for yb in ybs:
+        for structure in rv.V7_STRUCTURES:
+            g = rv.b5_geometry(shape, yb, structure)
+            assert 0 < g["smem_bytes"] <= MAX_DYNAMIC_SMEM
+            assert g["staged_rows"] == g["tile_rows"] + 5 and shape[1] % g["tile_rows"] == 0
+            assert g["ctas"] >= 1
+
+
+def test_b5_geometry_picks_the_ring():
+    """B5 takes the ring at 128^3 and at chip_smoke's ragged X (two CTAs an
+    SM for chunk and unroll), the runtime window kernel where Y is not a
+    multiple of 8."""
+    for structure in rv.V7_STRUCTURES:
+        assert rv.b5_geometry((128, 128, 128), 64, structure) == {
+            "kernel": "ring", "tile_rows": 8, "staged_rows": 13, "smem_bytes": 46592,
+            "ctas": 264}
+        assert rv.b5_geometry((20, 64, 128), 64, structure)["kernel"] == "ring"
+        assert rv.b5_geometry((5, 6, 128), 6, structure) == {
+            "kernel": "window", "tile_rows": 2, "staged_rows": 7, "smem_bytes": 7 * 7 * 512,
+            "ctas": 3}
+        assert rv.b5_geometry((3, 12, 128), 12, structure) == {
+            "kernel": "window", "tile_rows": 4, "staged_rows": 9, "smem_bytes": 7 * 9 * 512,
+            "ctas": 3}
+    with pytest.raises(ValueError):
+        rv.b5_geometry((128, 128, 128), 64, "fori")
+
+
+def test_b5_geometry_matches_the_kernel_source():
+    """B5's ring is B4's, its chunk loop summing a thread's voxels together
+    and its launch bounds those of B4's chunk and unroll."""
+    src = (REPO / "levelsetfusion_tpu_torch" / "csrc" / "resample_variants.cu").read_text()
+    assert "constexpr bool kRingPaired = L == kChunk;" in src
+    assert "template <int L, bool kTentsOnce>\n__global__ void __launch_bounds__(kThreads, " \
+           "kRingCtas<L>) ring_kernel(Params p)" in src
+    assert "if (loop == kChunk) return launch_ring<kChunk, true>(p, s);" in src
+    assert "if (loop == kUnroll) return launch_ring<kUnroll, true>(p, s);" in src
+    ctas = rv.b5_geometry((128, 128, 128))["ctas"] // rv.H100_SMS
+    assert f"constexpr int kRingCtas = L == kPairLoop ? 4 : {ctas};" in src
+
+
+@pytest.mark.parametrize("structure", rv.V7_STRUCTURES)
+def test_b5_window_shape_matches_jax(structure, interpret):
+    """A Y that is not a multiple of the ring's tile (yb = Y), B5's runtime
+    geometry, through the JAX script and the port."""
+    jm = interpret("resample_variants")
+    field, warp = _inputs((3, 6, 128), 14)
+    assert rv.b5_geometry(field.shape, 6, structure)["kernel"] == "window"
+    want = jm.run_v7(field, warp, structure=structure, yb=6)
+    got = rv.run_v7(t(field), t(warp), structure=structure, yb=6)
+    assert_close(got, want, rtol=0, atol=1e-6)
+
+
 @pytest.mark.parametrize("name", list(resample_variants_sweep.VARIANTS))
 def test_ring_sweep_variant_applies_to_the_kernel_source(name):
     """Every substitution of the ring sweep finds its anchor exactly once in
@@ -418,6 +479,13 @@ def test_ring_sweep_variant_applies_to_the_kernel_source(name):
     assert "__global__" in text and "pair_sum" in text
     assert '#include "resample_z.cuh"' not in text and "#pragma once" not in text
     assert (text != resample_variants_sweep.variant_source("base")) == (name != "base")
+    for _, new in resample_variants_sweep.VARIANTS[name]:
+        assert new in text
+    # B5's variants: its chunk one voxel at a time, its unroll paired too.
+    loops = resample_variants_sweep.sass_loops(name)
+    assert loops["ring_kernel<2,1>"] == (6, 1 if name == "v7_single" else
+                                         {"ty4": 1, "ty16": 4}.get(name, 2))
+    assert loops["ring_kernel<3,1>"][1] == (2 if name == "v7_unroll_paired" else 1)
 
 
 def test_ring_sweep_needs_the_gpu():
