@@ -554,10 +554,11 @@ def phase7_ptxas():
     instantiation (built in phase 1), from each library's ``nvcc -Xptxas
     -v`` log, and the SASS a voxel of the pair-loop kernels."""
     parts = [f"{name}: {', '.join(_ptxas(name))}" for name in LIBRARIES[2:]]
-    # B12's banded kernels and B5's ring kernels (ring_kernel<loop, 1>) must
-    # not touch local memory.
+    # B12's banded kernels, B5's ring kernels (ring_kernel<loop, 1>) and
+    # B10's ring must not touch local memory.
     for library, redesigned in (("conv_yz", "banded"),
-                                ("resample_variants", r"^ring_kernel<\d+,1>$")):
+                                ("resample_variants", r"^ring_kernel<\d+,1>$"),
+                                ("dma_probe", r"^dma_probe_kernel$")):
         log = (_lib.BUILD_DIR / f"lib{library}.log").read_text()
         for mangled, (_, spill, stack, _) in _sweep.ptxas(log).items():
             name = _sweep.kernel_name(mangled)
@@ -792,34 +793,52 @@ def phase9_fused_io():
                            lib_ms if body == "copy" else None) for body in ms}
 
 
+# B10 is held exactly at the probe's shape, 128^3, 256^3 and two ragged
+# shapes: Y at the window's 32 rows and Z under a column; Z not a multiple of
+# the column and a partial last x chunk.
+DMA_EXACT = (dma_probe.SHAPE, FULL, BIG, (24, 32, 8), (40, 48, 72))
+
+
 def phase10_dma():
     dma_probe.launch_count = 0
-    out = dma_probe.main(device="cuda")
+    dma_probe.main(device="cuda")
     launches = dma_probe.launch_count
     if launches == 0:
         raise AssertionError("dma_probe.main launched no kernel")
-    for shape in (dma_probe.SHAPE, FULL):
+    for shape in DMA_EXACT:
         a, u = dma_probe.inputs(shape, "cuda")
         err = float(torch.max(torch.abs(dma_probe.run(a, u) - dma_probe.dma_probe_reference(a, u))))
         if err != 0.0:
             raise AssertionError(f"dma_probe {shape}: max|Δ| {err} != 0")
-    plain_ms = best_ms(lambda: dma_probe.dma_probe_reference(a, u), a.device, 20)
-    # Yardstick: one baddbmm, 2a + [1, -1] @ (u0; u1), on views of the inputs.
-    coef = torch.tensor([1.0, -1.0], device=a.device).view(1, 1, 2)
-
-    def library():
-        return torch.baddbmm(a.view(1, 1, -1), coef, u.view(1, 2, -1), beta=2.0)
-
-    lib_err = _close("baddbmm vs dma_probe", library().view(a.shape),
-                     dma_probe.dma_probe_reference(a, u), 0.0, 1e-5)
-    lib_ms = best_ms(library, a.device, 20)
-    bound = _bound(4 * 4 * a.numel(), 3 * a.numel())
-    print(f"[10] dma_probe exact at {dma_probe.SHAPE} and {FULL}; at {FULL} "
-          f"{out['ms'] * 1e3:.1f} us (plain {plain_ms * 1e3:.1f} us, baddbmm "
-          f"{lib_ms * 1e3:.1f} us with max|Δ| {lib_err:.1e}, bound {bound[0] * 1e3:.1f} us), "
-          f"useful {out['useful_gbs']:.1f} GB/s, moved {out['moved_gbs']:.1f} GB/s; "
-          f"launches {launches}")
-    return _numbers(launches, 0.0, out["ms"], plain_ms, bound, lib_ms)
+    coef = torch.tensor([1.0, -1.0], device="cuda").view(1, 1, 2)
+    rows, parts = {}, []
+    for shape in (FULL, BIG):  # 128^3 sits in the 50 MB L2 across calls; 256^3 does not
+        a, u = dma_probe.inputs(shape, "cuda")
+        calls = {
+            "kernel": lambda: dma_probe.run(a, u),
+            "plain": lambda: dma_probe.dma_probe_reference(a, u),
+            # Yardstick: one baddbmm, 2a + [1, -1] @ (u0; u1), on views of the inputs.
+            "baddbmm": lambda: torch.baddbmm(a.view(1, 1, -1), coef, u.view(1, 2, -1),
+                                             beta=2.0),
+        }
+        lib_err = _close("baddbmm vs dma_probe", calls["baddbmm"]().view(a.shape),
+                         dma_probe.dma_probe_reference(a, u), 0.0, 1e-5)
+        ms = {}
+        for key in ("kernel", "plain", "baddbmm", "baddbmm", "plain", "kernel"):  # in turns
+            ms[key] = min(ms.get(key, float("inf")), best_ms(calls[key], a.device, 20))
+        plan = dma_probe.plan(shape, dma_probe.sms_of(a.device))
+        bound = _bound(4 * 4 * a.numel(), 3 * a.numel())
+        rows[shape] = _numbers(launches, 0.0, ms["kernel"], ms["plain"], bound, ms["baddbmm"])
+        parts.append(
+            f"{shape}: {ms['kernel'] * 1e3:.2f} us (plain {ms['plain'] * 1e3:.2f}, baddbmm "
+            f"{ms['baddbmm'] * 1e3:.2f} with max|Δ| {lib_err:.1e}, bound "
+            f"{bound[0] * 1e3:.2f}; kernel/baddbmm {ms['kernel'] / ms['baddbmm']:.3f}), plan "
+            f"{json.dumps(dma_probe.describe(plan))}, moved "
+            f"{plan.moved_bytes / ms['kernel'] / 1e9:.2f} TB/s, useful "
+            f"{4 * 4 * a.numel() / ms['kernel'] / 1e9:.2f} TB/s")
+    print(f"[10] dma_probe exact (max|Δ| 0) at {', '.join(map(str, DMA_EXACT))}; "
+          f"{'; '.join(parts)}; launches {launches}")
+    return rows[FULL]
 
 
 def phase11_b2_entry_points():

@@ -9,7 +9,9 @@ Ported so far: the design experiments of the fused gradient kernel —
   matrix product on the tensor cores (``csrc/conv_yz.cu``);
 - ``fused_io_probe``: the fused kernel's I/O plan with stand-in bodies
   (``csrc/fused_io_probe.cu``);
-- ``dma_probe``: double-buffered haloed window copies (``csrc/dma_probe.cu``);
+- ``dma_probe``: haloed windows staged as an x-walking ring of TMA copies
+  (``csrc/dma_probe.cu``); ``dma_probe_sweep`` (GPU only) times its
+  variants;
 - ``fused_ablation`` and ``fused_gradient_bench``: the fused gradient kernel
   (``ops/kernels/fused_gradient.py``) timed with energy terms switched off,
   and against the plain torch stencil step;

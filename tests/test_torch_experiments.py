@@ -13,7 +13,9 @@ fused I/O probe rtol 1e-6 and atol 1e-7 (XLA contracts
 u + 0.1 d into an FMA; copy exact); the window probe exact.
 
 Also: the banded kernels' extents (``band_extents``) against a brute-force
-scan of every block, the skipping product against the dense one, the
+scan of every block, the skipping product against the dense one, B10's
+launch plan (``dma_probe.plan``: every voxel once, the JAX probe's window
+origins, the ring schedule, the moved bytes) and its sweep's anchors, the
 wrappers' input checks and launch counters, every entry point end to end on
 the CPU at a tiny size, and the kernel library's rebuild rule."""
 
@@ -29,6 +31,7 @@ from jax.experimental import pallas as pl
 from levelsetfusion_tpu_torch.experiments import (
     conv_yz_sweep,
     dma_probe,
+    dma_probe_sweep,
     fused_ablation,
     fused_gradient_bench,
     fused_io_probe,
@@ -257,6 +260,131 @@ def test_dma_reference_matches_jax_exactly():
         jm.XB, jm.YB, jm.HX, jm.HY)
 
 
+_PLAN_SHAPES = [(24, 32, 8), (32, 64, 128), (40, 48, 72), (128, 128, 128)]
+
+
+@pytest.mark.parametrize("sms", [1, 7, 132])
+@pytest.mark.parametrize("shape", _PLAN_SHAPES)
+def test_dma_plan_covers_every_voxel_once(shape, sms):
+    """The kernel's CTAs, as it reads blockIdx.x, write each output voxel
+    once, each from its column's window."""
+    p = dma_probe.plan(shape, sms)
+    assert p.chunks <= shape[0] and (p.chunks - 1) * p.chunk < shape[0] <= p.chunks * p.chunk
+    assert p.ctas <= max(sms, p.columns)
+    count = np.zeros(shape, np.int32)
+    for b in range(p.ctas):
+        c = p.cta(b)
+        assert 0 <= c["oy"] <= c["y0"] and c["y0"] + dma_probe.YB <= c["oy"] + dma_probe.YW
+        assert c["s0"] == max(c["x0"] - dma_probe.HX, 0)
+        assert c["s1"] == min(c["x1"] + dma_probe.HX, shape[0])
+        count[c["x0"]:c["x1"], c["y0"]:c["y0"] + dma_probe.YB, c["z0"]:c["z1"]] += 1
+    np.testing.assert_array_equal(count, 1)
+
+
+@pytest.mark.parametrize("sms", [1, 7, 132])
+@pytest.mark.parametrize("shape", _PLAN_SHAPES)
+def test_dma_plan_windows_are_the_jax_probes(shape, sms):
+    """Each column's y window starts where the JAX probe's ``offs`` clamps
+    it: clip(j YB - HY, 0, Y - YW), with the script's constants."""
+    jm = _jax_script("dma_probe")
+    p = dma_probe.plan(shape, sms)
+    for b in range(p.ctas):
+        c = p.cta(b)
+        j = c["y0"] // jm.YB
+        assert c["oy"] == np.clip(j * jm.YB - jm.HY, 0, shape[1] - jm.YW)
+    assert (dma_probe.XW, dma_probe.YW) == (jm.XW, jm.YW)
+
+
+def _ring(p, b):
+    """The ring schedule of ``csrc/dma_probe.cu`` for CTA ``b``, a twin of the
+    kernel's ``issued`` and ``landed`` counters: yields ``(x, held, landed,
+    issued)`` when plane x is computed: the plane in each slot (None if never
+    filled), the last plane waited for and the last one issued."""
+    c = p.cta(b)
+    s0, last = c["s0"], c["s1"] - 1
+    held = [None] * p.slots
+    issued = s0
+
+    def issue_to(limit):
+        nonlocal issued
+        while issued <= limit:
+            held[(issued - s0) % p.slots] = issued
+            issued += 1
+
+    issue_to(min(last, s0 + p.slots - 1))  # before the loop
+    landed = s0
+    for x in range(c["x0"], c["x1"]):
+        landed = max(landed, min(x + dma_probe.HX, p.shape[0] - 1) + 1)
+        yield x, tuple(held), landed - 1, issued - 1
+        issue_to(min(last, x - dma_probe.HX + p.slots))  # after the step's barrier
+
+
+@pytest.mark.parametrize("sms", [1, 7, 132])
+@pytest.mark.parametrize("shape", _PLAN_SHAPES)
+def test_dma_ring_holds_the_haloed_window(shape, sms):
+    """The kernel's ring schedule (``_ring``): when plane x is computed,
+    planes x - HX .. x + HX (clamped) have landed and sit in their slots,
+    AHEAD more are in flight where the chunk has them (more at X's low face,
+    where the clamped window leaves slots free), and each staged plane is
+    copied once, in order."""
+    p = dma_probe.plan(shape, sms)
+    hx, nx = dma_probe.HX, shape[0]
+    for b in range(0, p.ctas, p.columns):  # one column's chunks: the rest repeat them
+        c = p.cta(b)
+        issued = None
+        for x, held, landed, issued in _ring(p, b):
+            for plane in range(max(x - hx, 0), min(x + hx, nx - 1) + 1):
+                assert held[(plane - c["s0"]) % p.slots] == plane and plane <= landed
+            assert landed == min(x + hx, nx - 1)
+            assert issued - landed >= min(p.ahead, c["s1"] - 1 - landed)
+            assert issued - max(x - hx, c["s0"]) < p.slots  # no resident plane overwritten
+            assert issued == min(c["s1"] - 1, max(c["s0"] + p.slots - 1, x + hx + p.ahead))
+        assert issued == c["s1"] - 1  # every staged plane, none twice (the counter only rises)
+
+
+def test_dma_plan_moved_bytes_at_128():
+    """The hand count at 128³ on 132 SMs: 32 columns (8 y tiles x 4 z tiles
+    of 32), 4 chunks of 32 planes staging 37 + 42 + 42 + 37 = 158 planes a
+    column; 3 fields x 2 (the y halo) x 158/128 + the output = 8.4
+    volumes (70.5 MB)."""
+    p = dma_probe.plan((128, 128, 128), 132)
+    assert (p.columns, p.chunks, p.chunk, p.slots, p.ahead) == (32, 4, 32, 15, 4)
+    assert p.staged_planes == 158
+    vol = 4 * 128**3
+    assert p.moved_bytes == 3 * 2 * vol * 158 // 128 + vol == 70_516_736
+
+
+def test_dma_constants_match_the_source():
+    src = (_lib.SOURCE_DIR / "dma_probe.cu").read_text()
+    for line in (f"constexpr int kXB = {dma_probe.XB}, kYB = {dma_probe.YB}, "
+                 f"kZB = {dma_probe.ZB};",
+                 f"constexpr int kHX = {dma_probe.HX}, kHY = {dma_probe.HY};",
+                 f"constexpr int kZT = {dma_probe.ZT};",
+                 f"constexpr int kAhead = {dma_probe.AHEAD};",
+                 "constexpr int kSlots = 2 * kHX + 1 + kAhead;"):
+        assert line in src
+
+
+def test_dma_argtypes_match_c_prototype():
+    assert [ctypes_kind(a) for a in dma_probe.ARGTYPES] == c_prototype(
+        "dma_probe.cu", "lsf_dma_probe")
+
+
+@pytest.mark.parametrize("name", sorted(dma_probe_sweep.VARIANTS))
+def test_dma_probe_sweep_variant_applies(name):
+    """Each sweep variant's anchors occur once in csrc/dma_probe.cu."""
+    zt, ahead, _, subs = dma_probe_sweep.VARIANTS[name]
+    text = dma_probe_sweep.variant_source(name)
+    assert f"constexpr int kZT = {zt};" in text and f"constexpr int kAhead = {ahead};" in text
+    for _, new in subs:
+        assert new in text
+
+
+def test_dma_probe_sweep_needs_the_gpu():
+    with pytest.raises(RuntimeError):
+        dma_probe_sweep.main(device="cpu")
+
+
 # ------------------------------------------------- wrappers on CPU tensors
 
 
@@ -361,7 +489,10 @@ def test_fused_io_probe_main_cpu(capsys):
 def test_dma_probe_main_cpu():
     out = dma_probe.main(device="cpu", timed_shape=(24, 32, 8))
     assert out["max_abs_err"] == 0.0 and out["shape"] == [32, 64, 128]
-    assert out["moved_gbs"] / out["useful_gbs"] == pytest.approx((3 * 4.5 + 1) / 4)
+    p = dma_probe.plan((24, 32, 8), dma_probe.H100_SMS)
+    assert out["plan"] == dma_probe.describe(p)
+    assert out["moved_gbs"] / out["useful_gbs"] == pytest.approx(
+        p.moved_bytes / (16 * 24 * 32 * 8))
 
 
 def test_fused_ablation_main_cpu():
