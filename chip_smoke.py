@@ -531,12 +531,16 @@ def _ptxas(library):
             f"{smem}S" for mangled, (regs, spill, stack, smem) in _sweep.ptxas(log).items()]
 
 
+# B9's full body under both loops, at the tile and voxels a thread of the
+# script's shape (loop_cost.b9_geometry).
+B9_FULL = {loop: f"loop_kernel<4,{i},{loop_cost.B9_TILE_ROWS},{loop_cost.B9_VOXELS}>"
+           for i, loop in enumerate(loop_cost.LOOP_KINDS)}
 # Phase 7's SASS counts: (library, kernel, what it runs, shared loads of its
-# pair loop: one pair's, since each runtime loop must run one pair a step;
-# None for the static unroll).
+# pair loop: one pair's for each voxel it sums at once, since each runtime
+# loop must run one pair a step; None for the static unroll).
 SASS_KERNELS = (
-    ("stack_bodies", "stack_kernel<4,0>", "B9 full fori", 2),
-    ("stack_bodies", "stack_kernel<4,1>", "B9 full static", None),
+    ("stack_bodies", B9_FULL["fori"], "B9 full fori", 2 * loop_cost.B9_VOXELS),
+    ("stack_bodies", B9_FULL["static"], "B9 full static", None),
     ("stack_bodies", "table_kernel<9,4>", "B7 v8", 4),
     ("stack_bodies", "table_kernel<10,1>", "B7 v8c", 3),
     ("stack_bodies", "table_kernel<8,4>", "B8 level 4", 2),
@@ -544,9 +548,12 @@ SASS_KERNELS = (
     ("resample_variants", "ring_kernel<0,0>", "B4 vf_fori", 2),
     ("resample_variants", "ring_kernel<2,1>", "B5 v7_chunk", 24),
 )
-# Kernels whose pair loop runs other than once a pair: (trips, voxels at
-# once). B5's chunk sums a thread's two voxels in one loop of 6 cy steps.
-SASS_LOOPS = {"ring_kernel<2,1>": (6, 2)}
+# Kernels whose pair loop runs other than once a pair for one voxel:
+# (trips, voxels at once). B5's chunk sums a thread's two voxels in one loop
+# of 6 cy steps; B9 sums a thread's voxels together, fori in one loop of 36
+# pairs, static in its unrolled step.
+SASS_LOOPS = {"ring_kernel<2,1>": (6, 2),
+              **{name: (loop_cost.NBODY, loop_cost.B9_VOXELS) for name in B9_FULL.values()}}
 
 
 def phase7_ptxas():
@@ -554,11 +561,12 @@ def phase7_ptxas():
     instantiation (built in phase 1), from each library's ``nvcc -Xptxas
     -v`` log, and the SASS a voxel of the pair-loop kernels."""
     parts = [f"{name}: {', '.join(_ptxas(name))}" for name in LIBRARIES[2:]]
-    # B12's banded kernels, B5's ring kernels (ring_kernel<loop, 1>) and
-    # B10's ring must not touch local memory.
+    # B12's banded kernels, B5's ring kernels (ring_kernel<loop, 1>), B10's
+    # ring and B9's loop_kernel must not touch local memory.
     for library, redesigned in (("conv_yz", "banded"),
                                 ("resample_variants", r"^ring_kernel<\d+,1>$"),
-                                ("dma_probe", r"^dma_probe_kernel$")):
+                                ("dma_probe", r"^dma_probe_kernel$"),
+                                ("stack_bodies", r"^loop_kernel<")):
         log = (_lib.BUILD_DIR / f"lib{library}.log").read_text()
         for mangled, (_, spill, stack, _) in _sweep.ptxas(log).items():
             name = _sweep.kernel_name(mangled)
@@ -567,7 +575,7 @@ def phase7_ptxas():
     print(f"[7] ptxas, registers r / spill bytes B / stack frame bytes B / static shared S "
           f"(window_kernel<loop, body, tents_once>, tile_kernel<loop, body> and "
           f"ring_kernel<loop, tents_once> as codes of "
-          f"resample_variants.LOOPS and BODIES, stack_kernel<body, loop> and "
+          f"resample_variants.LOOPS and BODIES, loop_kernel<body, loop, TY, voxels> and "
           f"table_kernel<body, TY> of loop_cost.BODIES and LOOPS): {'; '.join(parts)}")
     found = []
     for library in dict.fromkeys(row[0] for row in SASS_KERNELS):
@@ -1000,9 +1008,10 @@ def phase14_bisect():
     gs_err = _close("grid_sample vs level 4", gs_value(gs_call()),
                     bk.bisect_reference(stacked, warp, 4), 0.0, 1e-3)
     lib_ms = best_ms(gs_call, stacked.device, 20)
-    # Level 0 and B9's full/fori are one function in two designs (table_kernel's
-    # frame and stack_kernel): the difference is what the old loop's
-    # mechanics cost.
+    # Level 0 and B9's full/fori are one function on one frame (equal ranges
+    # of (tile, x row) steps in one wave, a ring of staged x rows): level 0
+    # runs table_kernel's one voxel a thread through pair_sum, B9 loop_kernel's
+    # two voxels a thread sharing each pair's offset.
     b9_full_ms = best_ms(lambda: loop_cost.run(stacked, warp, "full", "fori"), stacked.device)
     plain_ms = {
         "level4": best_ms(lambda: bk.bisect_reference(stacked, warp, 4), stacked.device, 3),
@@ -1027,6 +1036,9 @@ def phase14_bisect():
             for key in ms}
 
 
+B9_SMALL = (3, 12)  # fewer x rows than a ring holds, and a Y off 8-row tiles
+
+
 def phase15_loop_cost():
     t0 = time.perf_counter()
     lc = loop_cost
@@ -1036,13 +1048,16 @@ def phase15_loop_cost():
     launches = lc.launch_count
     if launches == 0:
         raise AssertionError("loop_cost.main launched no kernel")
-    err = 0.0
-    for shape in (FULL[:2], RAGGED_STACK):
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    err, launched = 0.0, []
+    for shape in (FULL[:2], RAGGED_STACK, B9_SMALL):
         stacked, warp = lc.inputs("cuda", shape)
         err = max(err, _exact_all(f"loop_cost {shape}", [
-            (case, lambda b=b, lp=lp: lc.run(stacked, warp, b, lp),
+            (case, lambda b=b, lp=lp: lc.run(stacked, warp, b, lp, shape[1]),
              lambda b=b: lc.loop_cost_reference(stacked, warp, b))
             for case, (b, lp, _) in ((c, lc.parse_case(c)) for c in cases)]))
+        g = lc.b9_geometry(shape, sms)
+        launched.append(f"{shape}: {g['kernel']} x {g['ctas']} CTAs")
     stacked, warp = lc.inputs("cuda", FULL[:2])
     plain_ms = best_ms(lambda: lc.loop_cost_reference(stacked, warp, "full"), stacked.device, 3)
     bound = _bound(_stack_bytes(warp), OPS_B9_FULL * warp[..., 0].numel())
@@ -1050,9 +1065,11 @@ def phase15_loop_cost():
     table = ", ".join(f"{r['case']} {r['us_per_call']:.1f} ({r['us_per_body']:.4f})"
                       for r in rows)
     print(f"[15] loop_cost at {FULL}, us per call (per TPU body): {table}; every "
-          f"instantiation exact vs plain at {FULL} and X, Y = {RAGGED_STACK} on the random "
-          f"stack; full plain {plain_ms * 1e3:.0f} us, bound {bound[0] * 1e3:.1f} us "
-          f"({bound[1]}); launches {launches}; {time.perf_counter() - t0:.1f} s")
+          f"instantiation exact vs plain at (X, Y) = {FULL[:2]}, {RAGGED_STACK} and "
+          f"{B9_SMALL} on the random stack; launched {'; '.join(launched)}; staged "
+          f"{lc.b9_staged_bytes(FULL[:2], sms) / 1e6:.1f} MB at {FULL}; full plain "
+          f"{plain_ms * 1e3:.0f} us, bound {bound[0] * 1e3:.1f} us ({bound[1]}); "
+          f"launches {launches}; {time.perf_counter() - t0:.1f} s")
     return {loop: _numbers(launches, err, ms[f"full/{loop}"], plain_ms, bound, None)
             for loop in lc.LOOP_KINDS}
 

@@ -36,33 +36,56 @@
 // plane cy at row y, never plane 0 at row y + cy.
 //
 // Design: a ring of staged x rows, as csrc/resample_variants.cu's B4, with
-// the stack's rows staged instead of the field's. B9 (stack_kernel, loops
-// fori and static): a CTA computes XC = 8 x rows by TY = 4 y rows by 128 z
-// lanes, 512 threads, one voxel of each x row per thread, so warp reads and
-// output writes coalesce. It keeps a ring of N + 1 slots, each holding the N
-// planes' TY rows of one padded x row, staged with cp.async, the next row in
-// flight while the current row's sums run (one commit group per step). TY
-// and XC are compile-time constants, so the ring's strides fold into the
-// address arithmetic. A slot is 6 x 4 x 512 B and the ring 86 KB, so two
-// CTAs (32 warps) share an SM; 128^3 is 512 CTAs. The TPU's yb only gates
-// the shapes (Y must also be a multiple of TY). The arithmetic is
-// resample_z.cuh's, in the float steps of the JAX bodies, so each body
-// equals its plain torch version bit for bit.
+// the stack's rows staged instead of the field's. Both kernels share one
+// frame: the grid splits the (y tile, x row) steps, x fastest, into equal
+// ranges, one a CTA, one wave of CTAs on the current device (occupancy.cuh).
+// A CTA walks its range's x rows through a ring of N + 1 slots, each holding
+// the N planes' TY rows of one padded x row, staged with cp.async, the next
+// row in flight while the current row's sums run (one commit group per
+// step); it restarts the ring where its range enters a new tile, and a
+// thread loads its next x row's warp before the step's barrier. A range
+// stages each of its rows once, so at 128^3 the staged stack is 68.0 MB
+// against the 52.3 MB the function uses (B9's first frame, 8-x-row CTAs,
+// staged 13 rows for 8 outputs, 81.8 MB, in 1.94 waves).
 //
-// B8's levels and B7 (table_kernel, loop frame) run on another frame: the
-// grid splits the (tile, x row) steps into equal ranges, one wave of CTAs on
-// the current device (occupancy.cuh), a CTA walking its range through the
-// ring and loading its next x row's warp before the step's barrier. The pair
-// loop stays one runtime step a pair in t order: it reads pair t's ring row
-// (and its shifts, or v8's cy, cx) from a table in constant memory
-// (resample_z.cuh's Pair), not t / N and the ring's wrap, so an address is
-// a multiply-add from the voxel's z0c or z1c row, and it issues pair t + 1's
-// loads before pair t's sum (v8, v8c). The levels run resample_z.cuh's pair_sum,
-// levels 2-4 computing each pair's tents in the loop, from the shifts; their
-// tiles are kLevelTY = 4 y rows (512 threads, the 86 KB ring: two CTAs, 32
-// warps an SM), which times faster than 2 or 1 (40 warps), and the loop
-// loads pair t's values in the step that sums it, which times faster than
-// loading them a step ahead (experiments/stack_bodies_sweep.py).
+// B9 (loop_kernel<body, loop, TY, V>, loops fori and static): tiles of
+// kLoopTY = 4 y rows, V = 2 voxels a thread (rows r and r + 2 of the tile:
+// 256 threads), the 86 KB ring: two CTAs (16 warps) an SM, 128 registers a
+// thread. A thread's two voxels lie one plane row apart in every slot, so
+// each pair's row offset serves both, and each voxel keeps its own
+// accumulator chain in t order (the sum stays exact). Each voxel's loads
+// take 32-bit shared addresses, a0 and a1 (z0c's and z1c's, or z's) in slot
+// 0, so that pair t's two loads are ld_shared(a + off):
+// - fori, a runtime loop of 36 trips, one pair a trip for both voxels:
+//   pair t's off is kRingPairs' row for the step's start slot (one LDC a
+//   trip, not t / N and the ring's wrap), 4 LDS a trip;
+// - static, the 36 pairs unrolled: pair (cy, cx)'s loads take the register
+//   a + slot_b[cx] (slot cx's offset for the step, 12 such registers a
+//   voxel) and the immediate cy TY 512 B, so each of the 72 loads a voxel is
+//   a register plus an immediate.
+// slice0 and gather read row (0, 0) every pair, at an address fixed for the
+// step; nothing reads no row, and only gather and full read the warp (uz).
+// kLoopTY divides the entry's Y rule, so every Y it takes has whole tiles.
+// The arithmetic is resample_z.cuh's, in the float steps of the JAX bodies,
+// so each body equals its plain torch version bit for bit. On the H100 at 128^3 (experiments/loop_cost_sweep.py, device us,
+// full fori / static): this design 66.2 / 39.9 (403 / 245.5 SASS a voxel,
+// 56 / 86 registers); one voxel a thread (32 warps an SM) 66.6-66.7 / 43.7;
+// 2-row tiles (five CTAs, 20 warps) 64.8 / 40.5; two rows in flight (an
+// 8-slot ring) 69.2-69.4 / 40.9-41.0. B9's first frame took 91.4-91.7 /
+// 61.3-61.4 us of CUDA-event time against this design's 71.1 / 43.5-44.0.
+//
+// B8's levels and B7 (table_kernel, loop frame) run on the same frame, one
+// voxel a thread. The pair loop stays one runtime step a pair in t order: it
+// reads pair t's ring row (and its shifts, or v8's cy, cx) from a table in
+// constant memory (resample_z.cuh's Pair), not t / N and the ring's wrap, so
+// an address is a multiply-add from the voxel's z0c or z1c row, and it
+// issues pair t + 1's loads before pair t's sum (v8, v8c). The levels run
+// resample_z.cuh's pair_sum, levels 2-4 computing each pair's tents in the
+// loop, from the shifts; their tiles are kLevelTY = 4 y rows (512 threads,
+// the 86 KB ring: two CTAs, 32 warps an SM), which times faster than 2 or 1
+// (40 warps), and the loop loads pair t's values in the step that sums it,
+// which times faster than loading them a step ahead
+// (experiments/stack_bodies_sweep.py).
 //
 // v8 and v8c keep the TPU's VMEM scratch planes as a table in shared memory
 // after the ring, laid out [entry][thread], so that a warp's read of an
@@ -76,15 +99,27 @@
 //
 // What bounds it on the H100: bytes. At 128^3 the function reads the 52 MB
 // of stack rows it uses and the 25 MB warp once and writes 8 MB, 86 MB or
-// ~26 us at 3.35 TB/s; even the arithmetic this design spends (145 to 513
-// float operations per voxel, 5-16 us at 67 TFLOP/s) is below that. The ring reads each staged
-// row from L2 or memory once per chunk of x rows (13 rows for 8 outputs),
-// and the pairs' 72 z reads per voxel come from shared memory.
+// 25.6 us at 3.35 TB/s; even the arithmetic this design spends (145 to 513
+// float operations per voxel, 5-16 us at 67 TFLOP/s) is below that. B9's
+// own floor is the shared-memory pipe: full makes 72 four-byte loads a voxel
+// at scattered z0c and z1c, and on the script's warp (loop_cost.inputs,
+// 1.5 N(0, 1)) a warp's load takes 1.444 wavefronts on average
+// (loop_cost.shared_wavefronts: 55.6% of loads one, 44.4% two), so 65,536
+// warps x 72 x 1.444 = 6.81M wavefronts, 51.6k cycles an SM at one a cycle:
+// 26.1 us at 1.98 GHz (29.4 at 1.755), about the byte bound. The frame alone
+// (body nothing: the ring's 68.0 MB in, 8.4 MB out) takes 23.2-24.9 us;
+// static takes 39.9, 1.5x the shared pipe's floor, adding 16.7 to the frame
+// alone. Fori's trip is 22 SASS for two voxels, the LDC, address IMADs,
+// LDS, FMUL and FADDs in one dependent chain, and fori adds 41.3 us over the
+// frame: at 1.98 GHz about 146 cycles for each 8 voxel-pairs a warp
+// scheduler sums (its 4 warps' trips), and the same with 8 warps of one
+// voxel, so neither ILP nor warps hide the chain.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <algorithm>
+#include <type_traits>
 
 #include "cp_async.cuh"
 #include "occupancy.cuh"
@@ -101,13 +136,9 @@ enum Body {
   kZSetup = 5, kTents = 6, kAcc0 = 7, kClampIn = 8, kV8 = 9, kV8c = 10,
 };
 
-constexpr int kTY = 4;  // y rows per CTA, one per 128 threads
-constexpr int kXC = 8;  // x rows per CTA
-constexpr int kThreads = kTY * kLane;
+constexpr int kYRule = 4;  // the entry's Y must be a multiple (every tile divides it)
 constexpr int kSlots = kN + 1;
 constexpr int kPairs = kN * kN;
-constexpr int kSlotFloats = kN * kTY * kLane;  // one padded x row of every plane
-constexpr int kSmem = kSlots * kSlotFloats * (int)sizeof(float);
 
 struct Params {
   const float* stack;  // (kN, xp, ny, 128)
@@ -117,11 +148,12 @@ struct Params {
 };
 
 // Stage padded x row px, y rows [y0, y0 + TY) of every plane, into `slot`
-// (plane c at rows [c TY, (c + 1) TY)): a cp.async per 16 bytes.
-template <int TY = kTY>
+// (plane c at rows [c TY, (c + 1) TY)): a cp.async per 16 bytes, spread over
+// the CTA's kThreadsS threads.
+template <int TY, int kThreadsS = TY * kLane>
 __device__ __forceinline__ void stage(const Params& p, float* slot, int px, int y0) {
   constexpr int kPerPlane = TY * kLane / 4;
-  for (int q = threadIdx.x; q < kN * kPerPlane; q += TY * kLane) {
+  for (int q = threadIdx.x; q < kN * kPerPlane; q += kThreadsS) {
     const int c = q / kPerPlane, e = q - c * kPerPlane;
     cp_async16(slot + c * TY * kLane + 4 * e,
                p.stack + (((int64_t)c * p.xp + px) * p.ny + y0) * kLane + 4 * e);
@@ -138,61 +170,6 @@ __device__ __forceinline__ ZSetup z_setup_const(float uz, int z) {
   s.w0 = 0.5f;
   s.w1 = 0.25f;
   return s;
-}
-
-// One output voxel of B9's bodies (B <= kFull): slot (slot0 + cx) mod
-// kSlots holds padded x row x + cx, and row r of plane cy in a slot is
-// stacked[cy, x + cx, y0 + r].
-template <int B, int L>
-__device__ __forceinline__ float voxel(const float* smem, int slot0, int r, int z,
-                                       const float* u) {
-  static_assert(B <= kFull, "stack_kernel runs B9's bodies");
-  auto row = [&](int cy, int cx) -> const float* {
-    int sl = slot0 + cx;
-    if (sl >= kSlots) sl -= kSlots;
-    return smem + sl * kSlotFloats + (cy * kTY + r) * kLane;
-  };
-  const ZSetup zs = z_setup_const(__ldg(u + 2), z);
-  auto step = [&](int t, float acc) -> float {
-    const int cy = t / kN, cx = t - cy * kN;
-    if constexpr (B == kNothing) return __fadd_rn(acc, 1.0f);
-    if constexpr (B == kSlice) return __fadd_rn(acc, row(cy, cx)[z]);
-    if constexpr (B == kSlice0) return __fadd_rn(acc, row(0, 0)[z]);
-    if constexpr (B == kGather) return __fadd_rn(acc, row(0, 0)[zs.z0c]);
-    const float* rw = row(cy, cx);
-    return __fadd_rn(acc, zmix(zs, rw[zs.z0c], rw[zs.z1c]));
-  };
-  float acc = 0.0f;
-  if constexpr (L == kFori) {
-#pragma unroll 1
-    for (int t = 0; t < kPairs; ++t) acc = step(t, acc);
-  } else {
-#pragma unroll
-    for (int t = 0; t < kPairs; ++t) acc = step(t, acc);
-  }
-  return acc;
-}
-
-template <int B, int L>
-__global__ void __launch_bounds__(kThreads, 2) stack_kernel(Params p) {
-  extern __shared__ __align__(16) float smem[];
-  const int x0 = blockIdx.x * kXC;
-  const int xn = min(kXC, p.nx - x0);
-  const int y0 = blockIdx.y * kTY;
-  const int z = threadIdx.x % kLane, r = threadIdx.x / kLane;
-  for (int c = 0; c < kN; ++c) stage(p, smem + c * kSlotFloats, x0 + c, y0);
-  cp_async_commit();
-  for (int xi = 0; xi < xn; ++xi) {
-    if (xi + 1 < xn) {  // the ring's next row, into the slot row xi - 1 used
-      stage(p, smem + ((xi + kN) % kSlots) * kSlotFloats, x0 + xi + kN, y0);
-    }
-    cp_async_commit();    // possibly empty: one group per step
-    cp_async_wait<1>();  // every group but this step's has landed
-    __syncthreads();
-    const int64_t v = ((int64_t)(x0 + xi) * p.ny + y0 + r) * kLane + z;
-    p.out[v] = voxel<B, L>(smem, xi % kSlots, r, z, p.warp + 3 * v);
-    __syncthreads();  // slot xi is refilled at the next step
-  }
 }
 
 // table_kernel: the weight table's entries (v8 and v8c only), the tile's y
@@ -274,9 +251,9 @@ __device__ __forceinline__ float table_voxel(const float* rows, float* tab, int 
 
 // The grid splits the (y tile, x row) steps, x fastest, into equal ranges,
 // one a CTA, one wave on the current device. A CTA walks its range's x rows
-// of TY y rows, one voxel of each a thread, through the ring as
-// stack_kernel does, restarting the ring where the range enters a new tile;
-// its table follows the ring in shared memory. A thread loads the next x
+// of TY y rows, one voxel of each a thread, through the ring, restarting the
+// ring where the range enters a new tile; its table follows the ring in
+// shared memory. A thread loads the next x
 // row's warp before it sums the current row, so that no warp waits for
 // memory after the step's barrier.
 template <int B, int TY>
@@ -333,34 +310,206 @@ int launch_table(const Params& p, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// B9's tiles (loop_kernel): kLoopTY y rows, kLoopV voxels a thread (rows r,
+// r + kLoopTY / kLoopV, ...); kLoopAhead x rows are in flight while a step
+// sums, in a ring of kN + kLoopAhead slots.
+constexpr int kLoopTY = 4;
+constexpr int kLoopV = 2;
+constexpr int kLoopAhead = 1;
+constexpr int kLoopSlots = kN + kLoopAhead;
+static_assert(kYRule % kLoopTY == 0 && kLoopTY % kLoopV == 0,
+              "the tile must divide every Y the entry takes, a thread's voxels the tile");
+template <int TY, int V>
+struct LoopGeom {
+  static constexpr int kThreadsL = TY * kLane / V;
+  static constexpr int kSlotF = kN * TY * kLane;
+  static constexpr int kSmemB = kLoopSlots * kSlotF * (int)sizeof(float);
+  // CTAs an SM holds: 228 KB of shared memory, 1 KB reserved a CTA, and
+  // 2048 threads (the launch bounds cap the registers to match).
+  static constexpr int kCtasPerSm = std::min(233472 / (kSmemB + 1024), 2048 / kThreadsL);
+};
+
+// The float at byte a + kOff of this CTA's shared memory window: kOff is an
+// immediate of the load.
+template <unsigned kOff>
+__device__ __forceinline__ float ld_shared_at(unsigned a) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1+%2];" : "=f"(v) : "r"(a), "n"(kOff));
+  return v;
+}
+
+// f(std::integral_constant<int, t>) for t = T, T + 1, ..., kPairs - 1: the
+// static pairs, each with its t a compile-time constant.
+template <int T, class F>
+__device__ __forceinline__ void each_pair(F&& f) {
+  if constexpr (T < kPairs) {
+    f(std::integral_constant<int, T>{});
+    each_pair<T + 1>(f);
+  }
+}
+
+// B9's V voxels of a thread at one x row: voxel k lies k TY / V rows past
+// row0 (the shared address of the thread's row r of plane 0 in slot 0), at
+// z with uz[k]; slot (slot0 + cx) mod kLoopSlots holds padded x row x + cx.
+// Each voxel sums its 36 pairs in t order (cy outer) into its own
+// accumulator; pair t's loads of all V voxels take one offset from their
+// slot-0 addresses.
+template <int B, int L, int TY, int V>
+__device__ __forceinline__ void loop_voxels(unsigned row0, int slot0, int z,
+                                            const float (&uz)[V], float (&out)[V]) {
+  static_assert(B <= kFull, "loop_kernel runs B9's bodies");
+  constexpr unsigned kUnitB = TY * kLane * sizeof(float);  // a plane's TY rows in a slot
+  constexpr unsigned kSlotB = kN * kUnitB;
+  constexpr unsigned kVoxB = TY / V * kLane * sizeof(float);
+  constexpr bool kPairRows = B == kSlice || B == kFull;  // pair t's row, else row (0, 0)'s
+  ZSetup zs[V];
+  unsigned a0[V], a1[V];
+  float acc[V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    const unsigned row = row0 + k * kVoxB + (kPairRows ? 0u : (unsigned)slot0 * kSlotB);
+    if constexpr (B >= kGather) {
+      zs[k] = z_setup_const(uz[k], z);
+      a0[k] = row + zs[k].z0c * (unsigned)sizeof(float);
+      a1[k] = row + zs[k].z1c * (unsigned)sizeof(float);
+    } else {
+      a0[k] = a1[k] = row + z * (unsigned)sizeof(float);
+    }
+    acc[k] = 0.0f;
+  }
+  // Pair t's value for voxel k: `load(a)` reads the float at a plus the
+  // pair's offset.
+  auto add = [&](int k, auto load) {
+    if constexpr (B == kNothing) {
+      acc[k] = __fadd_rn(acc[k], 1.0f);
+    } else if constexpr (B == kFull) {
+      acc[k] = __fadd_rn(acc[k], zmix(zs[k], load(a0[k]), load(a1[k])));
+    } else {
+      acc[k] = __fadd_rn(acc[k], load(a0[k]));
+    }
+  };
+  if constexpr (L == kFori) {
+    static_assert(kLoopSlots == kSlots, "B9's ring reads table_kernel's kRingPairs");
+    const Pair* pairs = kRingPairs.p[slot0];
+#pragma unroll 1
+    for (int t = 0; t < kPairs; ++t) {
+      const unsigned off = kPairRows ? (unsigned)pairs[t].row * kUnitB : 0u;
+#pragma unroll
+      for (int k = 0; k < V; ++k) add(k, [&](unsigned a) { return ld_shared(a + off); });
+    }
+  } else {
+    unsigned slot_b[kN];  // bytes from slot 0 to x shift cx's slot
+#pragma unroll
+    for (int c = 0; c < kN; ++c) {
+      const int sl = slot0 + c;
+      slot_b[c] = (unsigned)(sl >= kLoopSlots ? sl - kLoopSlots : sl) * kSlotB;
+    }
+    // Pair (cy, cx) loads from register a + slot_b[cx] at the immediate cy
+    // kUnitB (slice0, gather: from a itself).
+    each_pair<0>([&](auto t) {
+      constexpr int cy = decltype(t)::value / kN, cx = decltype(t)::value % kN;
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        add(k, [&](unsigned a) {
+          return kPairRows ? ld_shared_at<cy * kUnitB>(a + slot_b[cx]) : ld_shared_at<0>(a);
+        });
+      }
+    });
+  }
+#pragma unroll
+  for (int k = 0; k < V; ++k) out[k] = acc[k];
+}
+
+// B9 on the frame of table_kernel: equal ranges of (y tile, x row) steps,
+// one wave; a thread sums V voxels of each x row and loads their next x
+// row's uz before the sums (gather and full; the other bodies read no warp).
+template <int B, int L, int TY, int V>
+__global__ void __launch_bounds__(LoopGeom<TY, V>::kThreadsL, LoopGeom<TY, V>::kCtasPerSm)
+    loop_kernel(Params p) {
+  using G = LoopGeom<TY, V>;
+  constexpr int kVoxStep = TY / V * kLane;  // voxels from one of a thread's voxels to the next
+  extern __shared__ __align__(16) float smem[];
+  const int z = threadIdx.x % kLane, r = threadIdx.x / kLane;
+  const unsigned row0 = (unsigned)__cvta_generic_to_shared(smem + r * kLane);
+  const int64_t steps = (int64_t)p.nx * (p.ny / TY);
+  const int64_t end = (blockIdx.x + 1) * steps / gridDim.x;
+  const int64_t row_step = (int64_t)p.ny * kLane;  // voxels from one x row to the next
+  auto uz_at = [&](int64_t w) { return B >= kGather ? __ldg(p.warp + 3 * w + 2) : 0.0f; };
+  for (int64_t f = blockIdx.x * steps / gridDim.x; f < end;) {
+    const int y0 = (int)(f / p.nx) * TY, x0 = (int)(f % p.nx);
+    const int xn = (int)min((int64_t)(p.nx - x0), end - f);
+    f += xn;
+    int64_t v = ((int64_t)x0 * p.ny + y0 + r) * kLane + z;
+    float uz[V];
+#pragma unroll
+    for (int k = 0; k < V; ++k) uz[k] = uz_at(v + k * kVoxStep);
+    // Rows x0 .. x0 + xn + kN - 2: the first kN in one group, the next
+    // kLoopAhead - 1 a group each, then one a step (possibly empty groups).
+    for (int c = 0; c < kN; ++c) stage<TY, G::kThreadsL>(p, smem + c * G::kSlotF, x0 + c, y0);
+    cp_async_commit();
+    for (int d = 1; d < kLoopAhead; ++d) {
+      if (d < xn) stage<TY, G::kThreadsL>(p, smem + (kN - 1 + d) * G::kSlotF, x0 + kN - 1 + d, y0);
+      cp_async_commit();
+    }
+    for (int xi = 0, slot0 = 0; xi < xn; ++xi, slot0 = slot0 + 1 == kLoopSlots ? 0 : slot0 + 1) {
+      if (xi + kLoopAhead < xn) {  // row x0 + xi + kLoopSlots - 1, into the slot row xi - 1 used
+        const int next = slot0 == 0 ? kLoopSlots - 1 : slot0 - 1;
+        stage<TY, G::kThreadsL>(p, smem + next * G::kSlotF, x0 + xi + kLoopSlots - 1, y0);
+      }
+      cp_async_commit();
+      cp_async_wait<kLoopAhead>();  // every group but the kLoopAhead newest has landed
+      __syncthreads();
+      float uz_next[V], out[V];
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        uz_next[k] = xi + 1 < xn ? uz_at(v + row_step + k * kVoxStep) : uz[k];
+      }
+      loop_voxels<B, L, TY, V>(row0, slot0, z, uz, out);
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        p.out[v + k * kVoxStep] = out[k];
+        uz[k] = uz_next[k];
+      }
+      v += row_step;
+      __syncthreads();  // slot xi is refilled at the next step (or the next range's start)
+    }
+  }
+}
+
 template <int B, int L>
-int launch(const Params& p, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute((const void*)stack_kernel<B, L>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((p.nx + kXC - 1) / kXC, p.ny / kTY);
-  stack_kernel<B, L><<<grid, kThreads, kSmem, stream>>>(p);
+int launch_loop_kernel(const Params& p, cudaStream_t stream) {
+  using G = LoopGeom<kLoopTY, kLoopV>;
+  static lsf_occ::WaveCache waves;
+  const int wave = lsf_occ::wave((const void*)loop_kernel<B, L, kLoopTY, kLoopV>, G::kThreadsL,
+                                 G::kSmemB, waves);
+  if (wave < 0) {
+    const cudaError_t err = cudaGetLastError();
+    return (int)(err != cudaSuccess ? err : cudaErrorUnknown);
+  }
+  const int64_t steps = (int64_t)p.nx * (p.ny / kLoopTY);
+  loop_kernel<B, L, kLoopTY, kLoopV><<<(unsigned)std::min<int64_t>(wave, steps), G::kThreadsL,
+                                       G::kSmemB, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
 template <int B>
 int launch_loop(const Params& p, int loop, cudaStream_t stream) {
-  if (loop == kFori) return launch<B, kFori>(p, stream);
-  if (loop == kStatic) return launch<B, kStatic>(p, stream);
+  if (loop == kFori) return launch_loop_kernel<B, kFori>(p, stream);
+  if (loop == kStatic) return launch_loop_kernel<B, kStatic>(p, stream);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // body: 0 nothing, 1 slice, 2 slice0, 3 gather, 4 full, 5 zsetup, 6 tents,
-// 7 acc0, 8 clampin, 9 v8, 10 v8c; loop: 0 fori and 1 static (stack_kernel,
+// 7 acc0, 8 clampin, 9 v8, 10 v8c; loop: 0 fori and 1 static (loop_kernel,
 // bodies 0-4: B9), 2 frame (table_kernel, bodies 4-10: B8's levels 0-4, B7).
 // Shape rules (else cudaErrorInvalidValue): n = 6 planes, nz 128, nx >= 1,
-// xp >= nx + 5, ny a multiple of 4 (TY), stack 16-byte aligned.
+// xp >= nx + 5, ny a multiple of 4 (kYRule), stack 16-byte aligned.
 extern "C" int lsf_stack_body(const float* stack, const float* warp, float* out, int n,
                               int xp, int nx, int ny, int nz, int body, int loop,
                               void* stream) {
-  if (n != kN || nz != kLane || nx < 1 || xp < nx + kN - 1 || ny < kTY || ny % kTY != 0 ||
+  if (n != kN || nz != kLane || nx < 1 || xp < nx + kN - 1 || ny < kYRule || ny % kYRule != 0 ||
       (uintptr_t)stack % 16 != 0) {
     return (int)cudaErrorInvalidValue;
   }

@@ -1,9 +1,9 @@
 """Variants of a kernel source made by text substitution, as the sweeps
-(``fused_gradient_sweep``, ``resample_sweep``, ``stack_bodies_sweep``)
-build them: each anchor must occur exactly once in the source, so a variant
-built on the card is the one its name says; and what the compiler made of a
-kernel (``ptxas``, ``sass_per_voxel``), which ``chip_smoke.py`` prints too.
-GPU only at build time (nvcc)."""
+(``fused_gradient_sweep``, ``resample_sweep``, ``stack_bodies_sweep``,
+``loop_cost_sweep``) build them: each anchor must occur exactly once in the
+source, so a variant built on the card is the one its name says; and what
+the compiler made of a kernel (``ptxas``, ``sass_per_voxel``), which
+``chip_smoke.py`` prints too. GPU only at build time (nvcc)."""
 
 from __future__ import annotations
 

@@ -15,8 +15,10 @@ clipped z0 and z0 + 1:
 - ``full``: acc + (0.5 R[z0c] + 0.25 R[z1c]).
 
 ``run`` takes a body and a loop: ``fori`` (a runtime pair loop) or
-``static`` (the 36 pairs unrolled). The kernel is ``csrc/stack_bodies.cu``,
-which also carries the bodies of ``bisect_kernel``; the plain version of
+``static`` (the 36 pairs unrolled). The kernel is ``csrc/stack_bodies.cu``'s
+``loop_kernel``, which walks equal ranges of (y tile, x row) steps through a
+ring of staged x rows in one wave of CTAs (``b9_geometry``, ``b9_ranges``);
+the file also carries the bodies of ``bisect_kernel``. The plain version of
 every body is ``stack_body_reference``.
 
 ``main`` takes the script's cases, ``body/loop[/yb]`` (yb 64 by default), on
@@ -57,7 +59,17 @@ DEFAULT_CASES = ("nothing/fori", "slice/fori", "slice0/fori", "gather/fori", "fu
 # bisect_kernel's (its "frame": the one-wave kernel of its levels, v8, v8c).
 BODIES = BODY_KINDS + ("zsetup", "tents", "acc0", "clampin", "v8", "v8c")
 LOOPS = LOOP_KINDS + ("frame",)
-TILE_Y = 4  # the kernel's y rows per CTA: Y must be a multiple
+TILE_Y = 4  # the wrappers' Y rule: Y must be a multiple (csrc/stack_bodies.cu kYRule)
+# B9's launch (csrc/stack_bodies.cu kLoopTY, kLoopV, kLoopAhead): tiles of
+# B9_TILE_ROWS y rows (a divisor of TILE_Y), B9_VOXELS voxels a thread (rows
+# B9_TILE_ROWS / B9_VOXELS apart), a ring of N + B9_AHEAD staged x rows,
+# B9_AHEAD of them in flight while a step sums.
+B9_TILE_ROWS = 4
+B9_VOXELS = 2
+B9_AHEAD = 1
+H100_SMS = 132
+SM_SHARED_BYTES = 233472  # an SM's shared memory for CTAs (228 KB)
+MAX_DYNAMIC_SMEM = 232448  # a CTA's (227 KB)
 
 # Kernel launches since import or the last reset; callers set it to 0 to
 # count the launches of one run.
@@ -170,6 +182,76 @@ def check_stack_inputs(stacked, warp, yb) -> None:
     _lib.require_f32_contiguous("warp", warp, stacked.device)
     if stacked.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no stack body kernel for device {stacked.device}")
+
+
+def b9_geometry(shape, sms=H100_SMS) -> dict:
+    """The launch ``run`` makes for (X, Y) = ``shape`` (Y a multiple of
+    ``TILE_Y``): the kernel instantiation (``loop_kernel<body, loop, tile,
+    voxels>``, body and loop as ``*``), its tile's y rows, voxels a thread,
+    threads and dynamic shared bytes a CTA (the ring of N + B9_AHEAD slots
+    of N planes' tile rows), the CTAs an SM holds, and the CTAs of its one
+    wave on ``sms`` SMs (at most one a (tile, x row) step)."""
+    nx, ny = shape
+    threads = B9_TILE_ROWS * LANE // B9_VOXELS
+    smem = (N + B9_AHEAD) * N * B9_TILE_ROWS * LANE * 4
+    per_sm = min(SM_SHARED_BYTES // (smem + 1024), 2048 // threads)
+    return {"kernel": f"loop_kernel<*,*,{B9_TILE_ROWS},{B9_VOXELS}>",
+            "tile_rows": B9_TILE_ROWS, "voxels": B9_VOXELS, "threads": threads,
+            "smem_bytes": smem, "ctas_per_sm": per_sm,
+            "ctas": min(nx * (ny // B9_TILE_ROWS), sms * per_sm)}
+
+
+def b9_ranges(shape, ctas, tile) -> list:
+    """The (y0, x0, xn) runs of each CTA, as ``loop_kernel`` walks them: the
+    (tile, x row) steps, x fastest, cut into ``ctas`` equal ranges; a run is
+    a range's part in one tile, where the CTA stages x rows x0 .. x0 + xn + 4
+    into a fresh ring."""
+    nx, ny = shape
+    steps = nx * (ny // tile)
+    ranges = []
+    for b in range(ctas):
+        f, end, runs = b * steps // ctas, (b + 1) * steps // ctas, []
+        while f < end:
+            y0, x0 = f // nx * tile, f % nx
+            xn = min(nx - x0, end - f)
+            runs.append((y0, x0, xn))
+            f += xn
+        ranges.append(runs)
+    return ranges
+
+
+def b9_staged_bytes(shape, sms=H100_SMS) -> int:
+    """The stack bytes ``loop_kernel`` stages at ``shape``: each run of
+    ``b9_ranges`` stages xn + N - 1 x rows of N planes' tile rows."""
+    g = b9_geometry(shape, sms)
+    rows = sum(xn + N - 1 for runs in b9_ranges(shape, g["ctas"], g["tile_rows"])
+               for _, _, xn in runs)
+    return rows * N * g["tile_rows"] * LANE * 4
+
+
+def shared_wavefronts(warp) -> np.ndarray:
+    """Shared-memory wavefronts of each warp load of the ``full`` body
+    (z0c's, then z1c's, of every 32-lane warp): a row starts on bank 0, so
+    lane z reads bank z0c mod 32, and a load takes as many wavefronts as
+    the most distinct words any bank holds (a repeated word is broadcast)."""
+    uz = np.asarray(warp)[..., 2]
+    z0 = np.arange(LANE) + np.floor(uz).astype(np.int64)
+    loads = np.concatenate([np.clip(z0, 0, LANE - 1).reshape(-1, 32),
+                            np.clip(z0 + 1, 0, LANE - 1).reshape(-1, 32)])
+    words = np.sort(loads, axis=1)  # a word's repeats side by side
+    first = np.ones(words.shape, bool)
+    first[:, 1:] = words[:, 1:] != words[:, :-1]
+    distinct = np.zeros((loads.shape[0], 32), np.int64)
+    np.add.at(distinct, (np.nonzero(first)[0], words[first] % 32), 1)
+    return distinct.max(axis=1)
+
+
+def shared_floor_us(warp, clock_hz, sms=H100_SMS) -> float:
+    """The ``full`` body's shared-memory floor: 2 loads a pair, 36 pairs, at
+    ``shared_wavefronts`` each, one wavefront a cycle an SM."""
+    warps = np.asarray(warp)[..., 0].size // 32
+    wavefronts = float(shared_wavefronts(warp).mean()) * 2 * NBODY * warps
+    return wavefronts / sms / clock_hz * 1e6
 
 
 def launch(stacked, warp, body: str, loop: str) -> torch.Tensor:
