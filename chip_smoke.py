@@ -3,18 +3,30 @@
     python3 chip_smoke.py            (from the root of the repository)
 
 Builds every CUDA kernel of the port from ``levelsetfusion_tpu_torch/csrc``
-(one nvcc per source, all at once), holds each against its plain torch
-version on the card, checks a small kernel solve against the plain solve on
-the CPU, runs the config3 preset (128³, full energy) through
-``cli.run_experiment`` on the card with the kernels' launch counters reset
-just before, and times the solve and each kernel against its plain version
-(the fused gradient at 256³ too, and a ``torch.profiler`` breakdown of a
-short solve: device time per kernel, device-busy time and the host gap).
-Then it drives the port's experiment entry points (``levelsetfusion_tpu_torch.
-experiments``: mxu_conv, fused_io_probe, dma_probe, fused_ablation,
-fused_gradient_bench, resample_variants, v10_xslab, bisect_kernel,
-loop_cost), each with its kernels' launch counters reset just before and
-read just after, and holds their kernels against their plain versions.
+(one nvcc per source, all at once; phase 1), holds B1 and B2 against their
+plain torch versions on the card (2, 3), checks a small kernel solve against
+the plain solve on the CPU (4), holds the solve's graph loop (16 iterations
+a CUDA graph replay, the done flag on the device) to the eager loop that
+reads the flag every iteration at 128³, exactly, and prints the graph's
+memory (4b), runs the config3 preset (128³, full energy) through
+``cli.run_experiment`` with the kernels' launch counters reset just before
+(5: the serial loop's iteration count; each replay adds to the counters
+the calls its capture recorded, which must be 16 of each kernel), and times the
+rate cell through both loops in turns, a frozen iteration, and each kernel
+against its plain version (6: the fused gradient at 256³ too, and a
+``torch.profiler`` breakdown of each loop: device time per kernel,
+device-busy time and the host gap). Then it drives the port's experiment
+entry points (``levelsetfusion_tpu_torch.experiments``: mxu_conv,
+fused_io_probe, dma_probe, fused_ablation, fused_gradient_bench,
+resample_variants, v10_xslab, bisect_kernel, loop_cost; phases 7-15), each
+with its kernels' launch counters reset just before and read just after,
+and holds their kernels against their plain versions. Last, config4: the
+fusion at (32, 32, 24) x 4 frames on the card against the plain fusion on
+the CPU, and its pipelined loop against its serial loop (16); and config4
+at 128³ x 8 frames through ``cli.run_experiment``, this slice's main path,
+with the launch counters reset just before, its checks, frames/s and a
+stop after frame 4's checkpoint resumed to the uninterrupted run's state,
+and the host seconds of its checkpoint saves beside its wall time (17).
 Beside each kernel it times, where one exists, one PyTorch call that
 computes the same function (the kernel's yardstick; the port never calls
 it), and it computes each kernel's bound from the run's tensors. Every
@@ -28,6 +40,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import re
 import subprocess
 import sys
@@ -39,7 +52,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from levelsetfusion_tpu_torch import cli
 from levelsetfusion_tpu_torch.cli import _grid, _pair_3d, run_experiment
+from levelsetfusion_tpu_torch.core.grid import GridSpec
 from levelsetfusion_tpu_torch.experiments import (
     _sweep,
     bisect_kernel,
@@ -53,7 +68,14 @@ from levelsetfusion_tpu_torch.experiments import (
     v10_xslab,
 )
 from levelsetfusion_tpu_torch.experiments._timing import SPIN_CYCLES, best_ms
-from levelsetfusion_tpu_torch.models.single_level import solve_single_level
+from levelsetfusion_tpu_torch.io import synthetic
+from levelsetfusion_tpu_torch.models import fusion
+from levelsetfusion_tpu_torch.models.params import SmoothingMode, SolverParams
+from levelsetfusion_tpu_torch.models.single_level import (
+    CHECK_EVERY,
+    SolveLoop,
+    solve_single_level,
+)
 from levelsetfusion_tpu_torch.ops.interpolation import warp_field
 from levelsetfusion_tpu_torch.ops.kernels import _lib, fused_gradient, resample
 from levelsetfusion_tpu_torch.ops.kernels.fused_gradient import (
@@ -65,6 +87,8 @@ from levelsetfusion_tpu_torch.ops.kernels.resample import (
     warp_field_cm,
     warp_field_cm_reference,
 )
+from levelsetfusion_tpu_torch.ops.tsdf import generate_tsdf_3d
+from levelsetfusion_tpu_torch.utils import checkpoint
 from levelsetfusion_tpu_torch.utils.config import PRESETS
 
 PRESET = "config3_3d_full_energy"
@@ -77,7 +101,25 @@ STREAM_ROUNDS = 20
 # and config5's per-shard shape, z 16 tiles wide.
 B2_SHAPES = (FULL, RAGGED, (9, 33, 300), (1, 6, 130), (64, 512, 512))
 BIG = (256, 256, 256)  # g (201 MB) no longer fits the 50 MB L2
-PROFILE_ITERS = 20
+PROFILE_ITERS = 2 * CHECK_EVERY  # two replays of the graph loop, no frozen iteration
+# Phase 4b's cases on config3's inputs: the preset (converges mid-chunk), a
+# cap that is not a multiple of CHECK_EVERY, and a rate that halves.
+LOOP_CASES = (("config3", {}),
+              ("cap37", dict(max_iterations=37, convergence_threshold=0.0)),
+              ("halving", dict(max_iterations=40, convergence_threshold=0.0,
+                               learning_rate=5.0)))
+SERIAL = dict(check_every=1, graph=False)  # the eager loop reading the flag every iteration
+C4 = "config4_3d_fusion"
+# tests/test_fusion.py::_small_sequence_config: its sequence, grid and solver.
+C4_SMALL_SEQ = dict(num_frames=4, width=48, height=48, blob_radius_px=10.0, blob_height=0.05,
+                    drift_px_per_frame=(1.5, 0.0), pulse_amplitude=0.1)
+C4_SMALL = fusion.FusionPipelineConfig(
+    grid=GridSpec(shape=(32, 32, 24), voxel_size=0.008, offset=(-16, -16, 42)),
+    hierarchical=False,
+    solver=SolverParams(max_iterations=60, learning_rate=0.5, smoothing_term_weight=0.1,
+                        convergence_threshold=2e-3, smoothing_mode=SmoothingMode.KILLING,
+                        adaptive_learning_rate=True))
+C4_STOP = 4  # the resume check stops the run after this frame's checkpoint
 # tests/test_fused_gradient.py CASES: (w_smooth, w_ls, killing, sobolev, band_union)
 CASES = [
     (0.2, 0.0, False, False, True),
@@ -353,7 +395,84 @@ def phase4_solve_parity():
           f"(rtol 3e-4 atol 3e-6; telemetry rtol 2e-4)")
 
 
-def phase5_main_path():
+def _max_diff(a, b):
+    return float(torch.max(torch.abs(a - b))) if a.numel() else 0.0
+
+
+def _check_capture(loop, k):
+    """The calls of each kernel that ``loop``'s capture recorded (what a
+    replay adds to its launch counter) must be the chunk's ``k``."""
+    recorded = {m.__name__.rsplit(".", 1)[-1]: c for m, c in loop.graph_launches.items()}
+    if recorded != {"resample": k, "fused_gradient": k}:
+        raise AssertionError(f"the capture of a {k}-iteration chunk recorded {recorded}")
+
+
+def phase4b_device_loop():
+    """The graph loop (CHECK_EVERY iterations a replay) against the eager
+    loop that reads the flag every iteration, on config3's inputs at 128³,
+    in one process: the same kernels on the same inputs, so they must agree
+    exactly. Then the graph's memory at two chunk lengths. Returns the
+    serial loop's config3 iteration count."""
+    cfg = PRESETS[PRESET]
+    canonical, live = _pair_3d(cfg, _grid(cfg), torch.device("cuda"))
+    lines, serial_it = [], None
+    for name, kw in LOOP_CASES:
+        params = cfg.solver.replace(**kw)
+        serial, graph = SolveLoop(FULL, params, "cuda", **SERIAL), SolveLoop(FULL, params, "cuda")
+        want, got = serial.solve(canonical, live), graph.solve(canonical, live)
+        torch.cuda.synchronize()
+        if (got.iterations, got.converged) != (want.iterations, want.converged):
+            raise AssertionError(f"{name}: graph loop {got.iterations}, {got.converged} != "
+                                 f"serial {want.iterations}, {want.converged}")
+        diffs = {"warp": _max_diff(got.warp, want.warp),
+                 "telemetry": max(_max_diff(a, b) for a, b in zip(got.telemetry, want.telemetry)),
+                 "max|u|": _max_diff(got.max_abs_displacement, want.max_abs_displacement),
+                 "rate": abs(float(graph.rate) - float(serial.rate))}
+        if any(diffs.values()):
+            raise AssertionError(f"{name}: graph loop differs from the serial loop: {diffs}")
+        if name == "halving" and not float(serial.rate) < params.learning_rate:
+            raise AssertionError(f"halving: the rate stayed {float(serial.rate)}")
+        if name == "config3":
+            serial_it = want.iterations
+        _check_capture(graph, CHECK_EVERY)
+        lines.append(f"{name} {got.iterations} iterations ({graph.replays} replays, "
+                     f"{-got.iterations % CHECK_EVERY} frozen), converged {got.converged}, "
+                     f"rate {float(graph.rate):g}")
+    # The graph's pool holds one iteration's scratch whatever the chunk:
+    # reserved memory grown by a loop's first solve, at 2 and CHECK_EVERY.
+    growth = {}
+    for k in (2, CHECK_EVERY):
+        loop = SolveLoop(FULL, cfg.solver.replace(max_iterations=k, convergence_threshold=0.0),
+                         "cuda", check_every=k)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_reserved()
+        loop.solve(canonical, live)
+        torch.cuda.synchronize()
+        growth[k] = (torch.cuda.memory_reserved() - before) / 2**20
+        _check_capture(loop, k)
+        del loop
+    if growth[CHECK_EVERY] > growth[2] + 4.0:
+        raise AssertionError(f"the graph's memory grows with the chunk: {growth} MiB")
+    scratch = 4 * 4 * canonical.numel() / 2**20  # the warped field and g
+    print(f"[4b] graph loop (check every {CHECK_EVERY}) vs the serial loop (flag read every "
+          f"iteration) at {FULL}: {'; '.join(lines)}; iterations, converged, warp, telemetry, "
+          f"max|u| and rate all exact (max|Δ| 0); reserved memory grown by the first solve "
+          f"(capture included) at k = 2 and {CHECK_EVERY}: {growth[2]:.1f} and "
+          f"{growth[CHECK_EVERY]:.1f} MiB (one iteration's warped field and g: {scratch:.1f} MiB)")
+    return serial_it
+
+
+def _chunk_launches(iterations):
+    """Each kernel's launches of the solves that ran ``iterations`` active
+    iterations on one SolveLoop: one frozen warm-up before the capture, then
+    CHECK_EVERY a replay, a replay for every started chunk. The counters get
+    a replay's launches from the calls the wrappers counted while capturing,
+    so a chunk that recorded another number fails the check."""
+    return 1 + CHECK_EVERY * sum(-(-it // CHECK_EVERY) for it in iterations)
+
+
+def phase5_main_path(serial_it):
     with tempfile.TemporaryDirectory() as out:
         resample.launch_count = 0
         fused_gradient.launch_count = 0
@@ -365,7 +484,9 @@ def phase5_main_path():
         launches = {"resample": resample.launch_count,
                     "fused_gradient": fused_gradient.launch_count}
     it = summary["iterations"]
-    print(f"[5] {PRESET} at {FULL} on cuda: iterations {it}, converged "
+    want = {"resample": _chunk_launches([it]) + 1, "fused_gradient": _chunk_launches([it])}
+    print(f"[5] {PRESET} at {FULL} on cuda: iterations {it} (serial loop {serial_it}; "
+          f"{-(-it // CHECK_EVERY)} replays of {CHECK_EVERY}), converged "
           f"{summary['converged']}, residual {summary['residual_before']:.6f} -> "
           f"{summary['residual_after']:.6f} (reduction "
           f"{summary['residual_reduction']:.4f}), max|u| "
@@ -376,10 +497,15 @@ def phase5_main_path():
         raise AssertionError(f"non-finite results: {numbers}")
     if not summary["converged"]:
         raise AssertionError("config3 did not converge")
+    if it != serial_it:
+        raise AssertionError(f"config3 took {it} iterations, the serial loop {serial_it}")
     if not summary["residual_reduction"] >= 2.0:
         raise AssertionError("config3 residual reduction < 2")
-    if launches["fused_gradient"] != it or launches["resample"] != it + 1:
-        raise AssertionError(f"launch counts {launches} for {it} iterations")
+    # A replay launches the calls its capture recorded, CHECK_EVERY of each
+    # kernel, frozen ones too; a warm-up before the capture, and the final
+    # resample, add one each.
+    if launches != want:
+        raise AssertionError(f"launch counts {launches} for {it} iterations, want {want}")
     return launches
 
 
@@ -392,15 +518,18 @@ def phase6_timing():
     params = PRESETS[PRESET].solver.replace(
         max_iterations=BENCH_ITERS, convergence_threshold=0.0
     )
-    solve_single_level(canonical, live, params.replace(max_iterations=5))
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    solve_single_level(canonical, live, params)
-    end.record()
-    torch.cuda.synchronize()
-    solve_ms = start.elapsed_time(end)
+    # The rate cell through the graph loop and the serial loop, in turns;
+    # each loop's first solve (the build, the capture) is not timed.
+    loops = {"serial": SolveLoop(FULL, params, "cuda", **SERIAL),
+             "graph": SolveLoop(FULL, params, "cuda")}
+    for loop in loops.values():
+        loop.solve(canonical, live)
+    runs = {"serial": [], "graph": []}
+    for mode in ("serial", "graph", "graph", "serial"):
+        runs[mode].append(_solve_ms(loops[mode], canonical, live))
+    solve_ms, serial_ms = min(runs["graph"]), min(runs["serial"])
     rate = float(np.prod(FULL)) * BENCH_ITERS / (solve_ms / 1e3)
+    frozen = _frozen_us(canonical, live, params)
 
     warp = torch.from_numpy(
         rng.uniform(-2.0, 2.0, (3,) + FULL).astype(np.float32)
@@ -442,13 +571,19 @@ def phase6_timing():
     }
     big_ms = _fused_ms_at(BIG, kw)
     per_iter = solve_ms / BENCH_ITERS
-    profile = _profile_solve(canonical, live, params.replace(max_iterations=PROFILE_ITERS),
-                             per_iter * 1e3)
+    short = params.replace(max_iterations=PROFILE_ITERS)
+    profiles = [_profile_solve(SolveLoop(FULL, short, "cuda", **kw), canonical, live,
+                               ms / BENCH_ITERS * 1e3, label)
+                for label, kw, ms in (("graph", {}, solve_ms),
+                                      ("serial", SERIAL, serial_ms))]
     vox = live.numel()
     bounds = {"resample": _bound(4 * 5 * vox, OPS_RESAMPLE * vox),
               "fused_gradient": _bound(4 * 8 * vox, OPS_FUSED * vox)}
-    print(f"[6] solve at {FULL}, {BENCH_ITERS} iterations, threshold 0: "
-          f"{solve_ms:.1f} ms, {per_iter * 1e3:.1f} us/iter, {rate:.4e} voxel*iter/s; "
+    print(f"[6] solve at {FULL}, {BENCH_ITERS} iterations, threshold 0, graph loop: "
+          f"{solve_ms:.1f} ms, {per_iter * 1e3:.1f} us/iter, {rate:.4e} voxel*iter/s; serial "
+          f"loop {serial_ms:.1f} ms, {serial_ms / BENCH_ITERS * 1e3:.1f} us/iter (runs serial, "
+          f"graph, graph, serial: {[round(v, 2) for v in (runs['serial'][0], *runs['graph'], runs['serial'][1])]} ms); "
+          f"{frozen}; "
           f"resample {times['resample'][0] * 1e3:.1f} us (plain "
           f"{times['resample'][1] * 1e3:.1f} us, grid_sample {min(r_lib) * 1e3:.1f} us, "
           f"max|Δ| {gs_err:.2e} vs B1, bound {bounds['resample'][0] * 1e3:.1f} us, "
@@ -463,7 +598,8 @@ def phase6_timing():
     print(f"[6] fused gradient at {BIG}: {big_ms * 1e3:.1f} us per call (best of two "
           f"runs of 20; bound {_bound(4 * 8 * np.prod(BIG), OPS_FUSED * np.prod(BIG))[0] * 1e3:.1f}"
           f" us)")
-    print(f"[6] {profile}")
+    for profile in profiles:
+        print(f"[6] {profile}")
     return {name: (*times[name], bounds[name]) for name in times}, min(r_lib)
 
 
@@ -483,21 +619,52 @@ def _short_kernel(name):
     return name if len(name) < 40 else name.split("<")[0]
 
 
-def _profile_solve(canonical, live, params, wall_us):
-    """``torch.profiler`` over one solve of ``params.max_iterations``
-    iterations: device µs per iteration by kernel name and device-busy µs
-    per iteration (the union of the device events), against ``wall_us``,
-    the µs per iteration of the same solve timed without the profiler
-    (which slows the host); their difference is the host gap."""
+def _solve_ms(loop, canonical, live):
+    """One solve of ``loop`` by CUDA events (the solve ends on a host read
+    of the done flag, so the end event follows its last chunk)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    loop.solve(canonical, live)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def _frozen_us(canonical, live, params):
+    """What a frozen iteration of the graph loop costs: graph solves of
+    n = k, k + 1 and 2k iterations (k = CHECK_EVERY; one replay, two with
+    k - 1 frozen, two with none), best of 5 each. An active iteration costs
+    A = (t_2k - t_k) / k, a frozen one A - (t_2k - t_k+1) / (k - 1)."""
+    k = CHECK_EVERY
+    best = {}
+    for n in (k, k + 1, 2 * k):
+        loop = SolveLoop(FULL, params.replace(max_iterations=n), "cuda")
+        loop.solve(canonical, live)
+        best[n] = min(_solve_ms(loop, canonical, live) for _ in range(5)) * 1e3
+    active = (best[2 * k] - best[k]) / k
+    frozen = active - (best[2 * k] - best[k + 1]) / (k - 1)
+    return (f"graph solves of {k}, {k + 1}, {2 * k} iterations {best[k]:.1f}, "
+            f"{best[k + 1]:.1f}, {best[2 * k]:.1f} us: an active iteration {active:.1f} us, "
+            f"a frozen one {frozen:.1f} us")
+
+
+def _profile_solve(loop, canonical, live, wall_us, label):
+    """``torch.profiler`` over one solve of ``loop`` (after an unprofiled
+    one): device µs per iteration by kernel name and device-busy µs per
+    iteration (the union of the device events), against ``wall_us``, the
+    µs per iteration of the rate cell's solve on the same kind of loop
+    timed without the profiler (which slows the host); their difference is
+    the host gap."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    iters = params.max_iterations
-    solve_single_level(canonical, live, params)
+    iters = loop.params.max_iterations
+    loop.solve(canonical, live)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        solve_single_level(canonical, live, params)
+        loop.solve(canonical, live)
         torch.cuda.synchronize()
         profiled_us = (time.perf_counter() - t0) * 1e6
     per_name, spans = {}, []
@@ -508,14 +675,14 @@ def _profile_solve(canonical, live, params, wall_us):
         per_name[key] = per_name.get(key, 0.0) + e.time_range.elapsed_us()
         spans.append((e.time_range.start, e.time_range.end))
     if not spans:
-        return f"profiler over a {iters}-iteration solve: no device events (not measured)"
+        return f"profiler over a {iters}-iteration {label} solve: no device events (not measured)"
     busy, reach = 0.0, float("-inf")
     for start, end in sorted(spans):
         busy += max(0.0, end - max(start, reach))
         reach = max(reach, end)
     table = ", ".join(f"{k} {v / iters:.1f}" for k, v in
                       sorted(per_name.items(), key=lambda kv: -kv[1])[:10])
-    return (f"profiler over a {iters}-iteration config3 solve at {FULL}: device busy "
+    return (f"profiler over a {iters}-iteration config3 {label} solve at {FULL}: device busy "
             f"{busy / iters:.1f} us/iter against {wall_us:.1f} us/iter of wall without the "
             f"profiler: host gap {wall_us - busy / iters:.1f} us/iter, idle share "
             f"{1 - busy / iters / wall_us:.1%} (wall with the profiler "
@@ -1074,6 +1241,210 @@ def phase15_loop_cost():
             for loop in lc.LOOP_KINDS}
 
 
+def _frame_warps(store):
+    """A frame callback that keeps each frame's warp on the host."""
+    def cb(t, state, warp, report=None, solver=None):
+        store[t] = warp.cpu()
+    return cb
+
+
+def phase16_config4_parity():
+    """The fusion at tests/test_fusion.py's small size on the card against
+    the plain fusion on the CPU: per-frame iterations equal; the final warp,
+    and the canonical and weights away from voxels whose weight may fall
+    either way, within the solve's tolerances (rtol 3e-4, atol 3e-6). A
+    weight counts |Φ_w| < 1 - 1e-5: a voxel whose warped value lies closer
+    to that bound than the two runs' warped values differ (in some frame)
+    may count on one side only; those are counted, at most 1% of the
+    volume. Then the pipelined loop against the serial loop on the card:
+    reports, states and warps equal."""
+    seq = synthetic.snoopy_style_sequence_3d(**C4_SMALL_SEQ)
+    warps = {"cpu": {}, "cuda": {}, "serial": {}}
+    runs = {name: fusion.fuse_sequence(seq.frames, seq.camera, C4_SMALL, device=device,
+                                       frame_callback=_frame_warps(warps[name]),
+                                       pipelined=name != "serial")
+            for name, device in (("cpu", "cpu"), ("cuda", "cuda"), ("serial", "cuda"))}
+    torch.cuda.synchronize()
+    ref, got, serial = runs["cpu"], runs["cuda"], runs["serial"]
+    its = [r.solver_iterations for r in got.reports]
+    if its != [r.solver_iterations for r in ref.reports]:
+        raise AssertionError(f"iterations {its} != cpu {[r.solver_iterations for r in ref.reports]}")
+    bound = np.float32(1.0 - fusion.TRUNCATION_EPS)
+    near = torch.zeros(C4_SMALL.grid.shape, dtype=torch.bool)
+    for t, warp in warps["cpu"].items():
+        live = fusion._tsdf(seq.frames[t], seq.camera, C4_SMALL, torch.device("cpu"))
+        want, have = warp_field(live, warp), warp_field(live, warps["cuda"][t])
+        near |= torch.abs(torch.abs(want) - float(bound)) <= float(torch.max(torch.abs(have - want)))
+    far = ~near
+    share = float(near.float().mean())
+    if share > 0.01:
+        raise AssertionError(f"{share:.2%} of the voxels lie near the band's bound")
+    errs = {"warp": _close("config4 final warp", got.final_warp.cpu(), ref.final_warp, 3e-4, 3e-6),
+            "canonical": _close("config4 canonical", got.state.canonical.cpu()[far],
+                                ref.state.canonical[far], 3e-4, 3e-6),
+            "weights": _close("config4 weights", got.state.weights.cpu()[far],
+                              ref.state.weights[far], 0.0, 0.0)}
+    if got.reports != serial.reports:
+        raise AssertionError(f"pipelined reports {got.reports} != serial {serial.reports}")
+    for a, b in zip((*got.state, got.final_warp, *warps["cuda"].values()),
+                    (*serial.state, serial.final_warp, *warps["serial"].values())):
+        if not torch.equal(a, b):
+            raise AssertionError("the pipelined loop's state or warps differ from the serial loop's")
+    print(f"[16] config4 fusion at {C4_SMALL.grid.shape}, {len(seq.frames)} frames, cuda vs cpu: "
+          f"iterations {its} equal; max|Δ| {errs} (rtol 3e-4 atol 3e-6) away from "
+          f"{int(near.sum())} voxels near the band's bound ({share:.3%}); pipelined == serial "
+          f"on cuda (reports, state, every frame's warp)")
+
+
+class _Stop(Exception):
+    """Stops a config4 run after a checkpoint, as an interruption would."""
+
+
+def _stop_after(frame):
+    """``checkpoint.save`` that raises _Stop once it has saved ``frame``."""
+    save = checkpoint.save
+
+    def save_then_stop(root, t, *args, **kw):
+        path = save(root, t, *args, **kw)
+        if t == frame:
+            raise _Stop
+        return path
+
+    return save, save_then_stop
+
+
+def _timed_saves(seconds):
+    """``checkpoint.save`` that appends each call's host seconds (its
+    device-to-host copies, compression and writes) to ``seconds``."""
+    save = checkpoint.save
+
+    def timed_save(*args, **kw):
+        t0 = time.perf_counter()
+        path = save(*args, **kw)
+        seconds.append(time.perf_counter() - t0)
+        return path
+
+    return save, timed_save
+
+
+class _TimedLoop(SolveLoop):
+    """A SolveLoop that appends each solve's seconds (host clock; a solve
+    ends on a host read of the done flag) to ``seconds``."""
+
+    seconds: list = []
+
+    def solve(self, *args, **kw):
+        t0 = time.perf_counter()
+        res = super().solve(*args, **kw)
+        _TimedLoop.seconds.append(time.perf_counter() - t0)
+        return res
+
+
+def _fusion_split(ds, pipeline_cfg):
+    """fuse_sequence alone (no checkpoints) on the config's sequence: the
+    frames/s of the pipelined loop from the second fused frame on, and, in
+    a serial run, the seconds of fused frames 2 onwards and of their solves
+    (the rest is TSDF generation, resample, blend and the stats read)."""
+    times = []
+    fusion.fuse_sequence(ds.frames, ds.camera, pipeline_cfg, device="cuda",
+                         frame_callback=lambda t, s, w: times.append(time.perf_counter()))
+    fps = (len(times) - 1) / (times[-1] - times[0])
+    loop_class, fusion.SolveLoop = fusion.SolveLoop, _TimedLoop
+    try:
+        _TimedLoop.seconds = []
+        stamps = []
+        fusion.fuse_sequence(ds.frames, ds.camera, pipeline_cfg, device="cuda", pipelined=False,
+                             frame_callback=lambda t, s, w: stamps.append(time.perf_counter()))
+    finally:
+        fusion.SolveLoop = loop_class
+    # Frame t's solve runs between the callbacks of frames t - 1 and t.
+    return fps, stamps[-1] - stamps[0], sum(_TimedLoop.seconds[1:])
+
+
+def phase17_config4():
+    """config4 at full size through the CLI (this slice's main path), the
+    kernels' launch counters reset just before; then a run stopped after
+    frame C4_STOP's checkpoint and resumed with ``resume=True``, whose final
+    state must equal the uninterrupted run's."""
+    cfg = PRESETS[C4]
+    with tempfile.TemporaryDirectory() as root:
+        out, stopped = os.path.join(root, "c4"), os.path.join(root, "stopped")
+        save_s = []
+        save, timed_save = _timed_saves(save_s)
+        checkpoint.save = timed_save
+        try:
+            resample.launch_count = 0
+            fused_gradient.launch_count = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            summary = run_experiment(cfg, out, device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {"resample": resample.launch_count,
+                        "fused_gradient": fused_gradient.launch_count}
+        finally:
+            checkpoint.save = save
+        final = cfg.num_frames - 1
+        state, warp, _ = checkpoint.load(os.path.join(out, "checkpoints"), final, "cuda")
+        save, save_then_stop = _stop_after(C4_STOP)
+        checkpoint.save = save_then_stop
+        try:
+            run_experiment(cfg, stopped, device="cuda")
+            raise AssertionError("the stopped run did not stop")
+        except _Stop:
+            pass
+        finally:
+            checkpoint.save = save
+        resumed = run_experiment(cfg, stopped, device="cuda", resume=True)
+        got_state, got_warp, _ = checkpoint.load(os.path.join(stopped, "checkpoints"), final,
+                                                 "cuda")
+    ds = cli._sequence_dataset(cfg)
+    band0 = int(torch.count_nonzero(torch.abs(generate_tsdf_3d(
+        torch.from_numpy(ds.frames[0]).cuda(), ds.camera, _grid(cfg),
+        narrow_band_width_voxels=cfg.narrow_band_width_voxels)) < 1))
+    reports = summary["reports"]
+    its = [r["solver_iterations"] for r in reports]
+    bands = [r["band_voxels"] for r in reports]
+    want = {"resample": _chunk_launches(its) + len(reports),
+            "fused_gradient": _chunk_launches(its)}
+    pipeline_cfg = fusion.FusionPipelineConfig(
+        grid=_grid(cfg), narrow_band_width_voxels=cfg.narrow_band_width_voxels,
+        hierarchical=False, solver=cfg.solver)
+    fps, frames_s, solve_s = _fusion_split(ds, pipeline_cfg)
+    print(f"[17] {C4} at {cfg.grid_shape} x {cfg.num_frames} frames on cuda through "
+          f"cli.run_experiment: frames_per_s {summary['frames_per_s']}, incl. compile "
+          f"{summary['frames_per_s_incl_compile']} (checkpoints every {cfg.checkpoint_every} "
+          f"frames inside); iterations {its} ({sum(its)} active, "
+          f"{sum(-(-i // CHECK_EVERY) for i in its)} replays of {CHECK_EVERY}); band voxels "
+          f"{bands} (frame 0's TSDF: {band0}); max|u| {summary['max_abs_displacement']}; wall "
+          f"{wall:.2f} s, of which {len(save_s)} checkpoint saves {sum(save_s):.2f} s "
+          f"({', '.join(f'{x:.3f}' for x in save_s)}); launches {launches}; fuse_sequence "
+          f"alone: {fps:.2f} frames/s "
+          f"pipelined; serial, fused frames 2-{final}: {frames_s * 1e3:.1f} ms, their solves "
+          f"{solve_s * 1e3:.1f} ms, outside the solve {1 - solve_s / frames_s:.1%}; resumed "
+          f"after frame {C4_STOP}: frames {[r['frame_index'] for r in resumed['reports']]}, "
+          f"final state equal")
+    numbers = [summary["frames_per_s"], summary["frames_per_s_incl_compile"],
+               *summary["max_abs_displacement"], *(r["final_data_energy"] for r in reports)]
+    if not all(np.isfinite(numbers)):
+        raise AssertionError(f"non-finite results: {numbers}")
+    for name, t in (("canonical", state.canonical), ("weights", state.weights), ("warp", warp)):
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"config4 {name} is not finite")
+    if float(state.canonical.min()) < -1.0 or float(state.canonical.max()) > 1.0:
+        raise AssertionError("config4 canonical leaves [-1, 1]")
+    if min(bands) < 0.5 * band0:
+        raise AssertionError(f"band voxels {bands} < half of frame 0's {band0}")
+    if launches != want:
+        raise AssertionError(f"launch counts {launches} for iterations {its}, want {want}")
+    if [r["frame_index"] for r in resumed["reports"]] != list(range(C4_STOP + 1, final + 1)):
+        raise AssertionError(f"resumed reports {resumed['reports']}")
+    for a, b in zip((*got_state, got_warp), (*state, warp)):
+        if not torch.equal(a, b):
+            raise AssertionError("the resumed run's final state differs from the uninterrupted run's")
+    return launches
+
+
 def _row(name, source, replaces, numbers, per_iter=0):
     """A row of the ``kernels`` line; ``per_iter`` is the kernel's launches
     per config3 solve iteration."""
@@ -1088,7 +1459,8 @@ def main():
     err_resample = phase2_resample()
     err_fused = phase3_fused()
     phase4_solve_parity()
-    launches = phase5_main_path()
+    serial_it = phase4b_device_loop()
+    phase5_main_path(serial_it)
     times, grid_sample_ms = phase6_timing()
     phase7_ptxas()
     conv = phase8_mxu_conv()
@@ -1099,6 +1471,8 @@ def main():
     v10 = phase13_v10()
     bisect = phase14_bisect()
     loops = phase15_loop_cost()
+    phase16_config4_parity()
+    launches = phase17_config4()
     ms, plain_ms, bound = times["resample"]
     resample_row = _numbers(launches["resample"], err_resample, ms, plain_ms, bound,
                             grid_sample_ms)

@@ -3,13 +3,18 @@
 Usage:
     python -m levelsetfusion_tpu_torch.cli --list
     python -m levelsetfusion_tpu_torch.cli --preset config3_3d_full_energy --out runs/c3
+    python -m levelsetfusion_tpu_torch.cli --preset config4_3d_fusion --out runs/c4 [--resume]
     python -m levelsetfusion_tpu_torch.cli --config my_config.json --out runs/x --device cuda
 
 A run writes config.json, telemetry.csv, events.jsonl and summary.json, with
-the JAX run's keys, less its TPU fast-path entries and plus the CUDA kernels'
-launch counts. This slice runs the ``single_pair_3d`` mode; the other modes
-raise ``NotImplementedError`` naming their ROADMAP item. Plots wait for the
-port of ``utils/visualization.py``.
+the JAX run's keys, less its TPU fast-path and clamp-contract entries and
+plus the device and the CUDA kernels' launch counts. Two modes run:
+``single_pair_3d`` (config3) and ``multi_frame_3d`` (config4: the flat
+fusion of a depth sequence, with checkpoints every ``checkpoint_every``
+frames under ``<out>/checkpoints`` and ``--resume`` from the latest); the
+other modes raise ``NotImplementedError`` naming their ROADMAP item. Plots
+and the fusion video wait for the port of ``utils/visualization.py``
+(ROADMAP A10b).
 """
 
 from __future__ import annotations
@@ -17,17 +22,26 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+import time
 
 import numpy as np
 import torch
 
 from levelsetfusion_tpu_torch.core.grid import GridSpec
-from levelsetfusion_tpu_torch.io import synthetic
-from levelsetfusion_tpu_torch.models.single_level import solve_single_level
+from levelsetfusion_tpu_torch.io import datasets, synthetic
+from levelsetfusion_tpu_torch.models.fusion import (
+    FusionPipelineConfig,
+    FusionResult,
+    _call_frame_callback,
+    fuse_frame,
+    fuse_sequence,
+)
+from levelsetfusion_tpu_torch.models.single_level import SolveLoop, solve_single_level
 from levelsetfusion_tpu_torch.ops.kernels import fused_gradient, resample
 from levelsetfusion_tpu_torch.ops.kernels.fused_gradient import to_component_major
 from levelsetfusion_tpu_torch.ops.kernels.resample import warp_field_cm
 from levelsetfusion_tpu_torch.ops.tsdf import generate_tsdf_3d
+from levelsetfusion_tpu_torch.utils import checkpoint
 from levelsetfusion_tpu_torch.utils.config import PRESETS, ExperimentConfig
 from levelsetfusion_tpu_torch.utils.telemetry import RunLogger, telemetry_to_rows
 
@@ -37,7 +51,6 @@ _NOT_PORTED = {
     "hierarchical_2d": "A8",
     "rigid_2d": "A8",
     "rigid_3d": "A8",
-    "multi_frame_3d": "A7",
     "sharded_3d": "A11/A12",
     "multi_frame_sharded_3d": "A11",
     "hierarchical_sharded_3d": "A12",
@@ -98,9 +111,116 @@ def _pair_3d(cfg: ExperimentConfig, grid: GridSpec, device: torch.device):
     return gen(canonical_depth), gen(live_depth)
 
 
-def run_experiment(cfg: ExperimentConfig, out_dir: str, device="cuda") -> dict:
-    """Run one experiment into ``out_dir``; returns the summary."""
-    if cfg.mode != "single_pair_3d":
+def _sequence_dataset(cfg: ExperimentConfig) -> datasets.SequenceDataset:
+    """Resolve cfg.dataset through the registry. "synthetic" keeps JAX's
+    inline generator with its CLI defaults; any other name comes from
+    ``io/datasets.py``."""
+    if cfg.dataset in ("synthetic", "synthetic_snoopy"):
+        seq_kwargs = dict(width=48, height=48, blob_radius_px=10.0,
+                          blob_height=0.05, drift_px_per_frame=(1.5, 0.0),
+                          pulse_amplitude=0.1)
+        seq_kwargs.update(cfg.dataset_kwargs)
+        seq = synthetic.snoopy_style_sequence_3d(cfg.num_frames, **seq_kwargs)
+        return datasets.SequenceDataset("synthetic_snoopy", seq.camera, list(seq.frames))
+    return datasets.get(cfg.dataset, **cfg.dataset_kwargs)
+
+
+def _launches(before: dict) -> dict:
+    """The kernels' launches since ``before`` (a ``_launches({})``)."""
+    now = {"resample": resample.launch_count, "fused_gradient": fused_gradient.launch_count}
+    return {k: v - before.get(k, 0) for k, v in now.items()}
+
+
+def _resume_fusion(state, warp, frames, camera, pipeline_cfg, on_frame, frame_offset):
+    """Continue a fusion run from checkpointed state over the remaining
+    frames. ``frames`` starts AT the checkpointed frame (whose TSDF is
+    already blended into ``state``), so its first frame is skipped."""
+    frame_iter = iter(frames)
+    next(frame_iter, None)  # the checkpointed frame itself
+    loop = SolveLoop(pipeline_cfg.grid.shape, pipeline_cfg.solver, state.canonical.device)
+    reports = []
+    solver = pipeline_cfg.solver
+    for j, frame in enumerate(frame_iter, start=1):
+        t = frame_offset + j
+        state, warp, report, solver = fuse_frame(
+            state, None, warp, solver, pipeline_cfg, t, depth=frame, camera=camera, loop=loop
+        )
+        reports.append(report)
+        _call_frame_callback(on_frame, t, state, warp, report, solver)
+    return FusionResult(state=state, reports=reports, final_warp=warp)
+
+
+def _multi_frame_3d(cfg, out_dir, logger, device, resume) -> dict:
+    """config4: fuse a depth sequence, checkpointing every
+    ``cfg.checkpoint_every`` frames; ``resume`` continues from the latest
+    checkpoint under ``<out_dir>/checkpoints``."""
+    before = _launches({})
+    ds = _sequence_dataset(cfg)
+    n_frames = len(ds)
+    pipeline_cfg = FusionPipelineConfig(
+        grid=_grid(cfg),
+        narrow_band_width_voxels=cfg.narrow_band_width_voxels,
+        generation_method=cfg.generation_method,
+        hierarchical=False,
+        solver=cfg.solver,
+    )
+    ckpt_root = os.path.join(out_dir, "checkpoints")
+    start_frame = 0
+    if resume:
+        latest = checkpoint.latest_frame(ckpt_root)
+        if latest is not None:
+            if latest >= n_frames - 1:
+                logger.event("resume_noop", frame=latest)
+                return logger.finish(frames=0, resumed_from=latest,
+                                     note="checkpoint already covers the full sequence")
+            start_frame = latest
+            logger.event("resumed", frame=latest)
+
+    frame_times = []
+
+    def on_frame(t, state, warp, report, solver):
+        frame_times.append(time.perf_counter())
+        logger.event("frame_fused", frame=t, band_voxels=report.band_voxels)
+        if cfg.checkpoint_every and t % cfg.checkpoint_every == 0:
+            checkpoint.save(ckpt_root, t, state, warp, {"config": cfg.name})
+
+    if start_frame > 0:
+        state, warp, _ = checkpoint.load(ckpt_root, start_frame, device)
+        result = _resume_fusion(state, warp, ds.frame_source(start_frame), ds.camera,
+                                pipeline_cfg, on_frame, start_frame)
+    else:
+        result = fuse_sequence(ds.frame_source(), ds.camera, pipeline_cfg, device=device,
+                               frame_callback=on_frame)
+    if cfg.checkpoint_every:
+        checkpoint.save(ckpt_root, n_frames - 1, result.state, result.final_warp,
+                        {"config": cfg.name, "final": True})
+    # frames/s counts only the frames this run processed, and measures from
+    # the second fused frame on: the first carries the kernels' build and the
+    # graph's capture.
+    processed = n_frames - start_frame
+    if len(frame_times) >= 2:
+        fps = (len(frame_times) - 1) / max(frame_times[-1] - frame_times[0], 1e-9)
+    else:
+        fps = processed / max(logger.elapsed(), 1e-9)
+    mds = [r.max_abs_displacement for r in result.reports]
+    return logger.finish(
+        frames=n_frames,
+        dataset=ds.name,
+        frames_processed=processed,
+        frames_per_s=round(fps, 3),
+        frames_per_s_incl_compile=round(processed / max(logger.elapsed(), 1e-9), 3),
+        reports=[r._asdict() for r in result.reports],
+        max_abs_displacement=[float(v) for v in np.max(mds, axis=0)] if mds else None,
+        device=str(device),
+        kernel_launches=_launches(before),
+    )
+
+
+def run_experiment(cfg: ExperimentConfig, out_dir: str, device="cuda",
+                   resume: bool = False) -> dict:
+    """Run one experiment into ``out_dir``; returns the summary. ``resume``
+    (multi_frame_3d) continues from the latest checkpoint there."""
+    if cfg.mode not in ("single_pair_3d", "multi_frame_3d"):
         item = _NOT_PORTED.get(cfg.mode)
         raise NotImplementedError(
             f"mode {cfg.mode!r} is not ported yet"
@@ -111,8 +231,9 @@ def run_experiment(cfg: ExperimentConfig, out_dir: str, device="cuda") -> dict:
     with open(os.path.join(out_dir, "config.json"), "w") as f:
         f.write(cfg.to_json())
     logger = RunLogger(out_dir)
-    resample_before = resample.launch_count
-    fused_before = fused_gradient.launch_count
+    if cfg.mode == "multi_frame_3d":
+        return _multi_frame_3d(cfg, out_dir, logger, device, resume)
+    before = _launches({})
 
     canonical, live = _pair_3d(cfg, _grid(cfg), device)
     res = solve_single_level(canonical, live, cfg.solver)
@@ -126,10 +247,7 @@ def run_experiment(cfg: ExperimentConfig, out_dir: str, device="cuda") -> dict:
         **_residual_metrics(canonical, live, warped),
         max_abs_displacement=[float(v) for v in res.max_abs_displacement.cpu()],
         device=str(device),
-        kernel_launches={
-            "resample": resample.launch_count - resample_before,
-            "fused_gradient": fused_gradient.launch_count - fused_before,
-        },
+        kernel_launches=_launches(before),
     )
 
 
@@ -138,6 +256,8 @@ def main(argv=None):
     ap.add_argument("--preset", choices=sorted(PRESETS), help="named config")
     ap.add_argument("--config", help="path to an ExperimentConfig JSON file")
     ap.add_argument("--out", default=None, help="output run directory")
+    ap.add_argument("--resume", action="store_true",
+                    help="multi_frame_3d: continue from the latest checkpoint in --out")
     ap.add_argument("--list", action="store_true", help="list presets and exit")
     ap.add_argument(
         "--device", default="cuda",
@@ -158,7 +278,7 @@ def main(argv=None):
     else:
         ap.error("need --preset or --config")
     out = args.out or os.path.join("runs", cfg.name)
-    summary = run_experiment(cfg, out, device=args.device)
+    summary = run_experiment(cfg, out, device=args.device, resume=args.resume)
     print(f"run complete -> {out}")
     for k, v in summary.items():
         print(f"  {k}: {v}")

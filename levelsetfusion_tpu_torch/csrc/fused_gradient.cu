@@ -241,7 +241,9 @@ __device__ void block_reduce(double (&vals)[K]) {
 __global__ void __launch_bounds__(kThreads, 3)
     terms_kernel(const float* __restrict__ w, const float* __restrict__ cn,
                  const float* __restrict__ u, float* __restrict__ g,
-                 double* __restrict__ partial, Dims d, TermParams p, Plan pl) {
+                 double* __restrict__ partial, Dims d, TermParams p, Plan pl,
+                 const unsigned char* __restrict__ active) {
+  if (active != nullptr && *active == 0) return;  // a frozen iteration of the solve
   extern __shared__ float smem[];
   float* const in = smem;                           // [slot][Phi_w, u0, u1, u2][kIPlane]
   float* const dv = smem + kInSlots * 4 * kIPlane;  // [slot][gw0, gw1, gw2, div][kDPlane]
@@ -506,7 +508,9 @@ __global__ void __launch_bounds__(kThreads)
                           double* __restrict__ partial, int term_rows,
                           unsigned* __restrict__ ticket, float* __restrict__ stats,
                           Dims d, Plan pl, Taps taps, float w_data, float w_smooth,
-                          float w_ls) {
+                          float w_ls, const unsigned char* __restrict__ active) {
+  // Every CTA of both kernels returns, so the ticket stays 0.
+  if (active != nullptr && *active == 0) return;
   constexpr int K = 2 * R + 1, H = halo4<R>();
   constexpr int IY = kSY + 2 * R, IZ = kSZ + 2 * H, IPlane = IY * IZ;
   constexpr int InPerThread = (IPlane + kThreads - 1) / kThreads;  // 4-byte copies
@@ -741,10 +745,11 @@ template <int R>
 cudaError_t launch_update(const float* g, const float* u, const float* rate, float* new_u,
                           double* partial, int term_rows, unsigned* ticket, float* stats,
                           const Dims& d, const Plan& pl, const Taps& taps, float w_data,
-                          float w_smooth, float w_ls, cudaStream_t s) {
+                          float w_smooth, float w_ls, const unsigned char* active,
+                          cudaStream_t s) {
   sobolev_update_kernel<R><<<pl.blocks, kThreads, update_smem_bytes<R>(), s>>>(
       g, u, rate, new_u, partial, term_rows, ticket, stats, d, pl, taps, w_data, w_smooth,
-      w_ls);
+      w_ls, active);
   return cudaGetLastError();
 }
 
@@ -770,13 +775,16 @@ extern "C" int64_t lsf_fused_partials_len(int nx, int ny, int nz, int ntaps) {
 // All pointers are device pointers except `taps` (host, ntaps floats).
 // Scratch: g 3n floats, partial lsf_fused_partials_len doubles, ticket one
 // unsigned that is 0 before the call and is 0 again after it (the kernels
-// reset it), not shared with a call that may run at the same time. Returns
-// a cudaError_t.
+// reset it), not shared with a call that may run at the same time. active:
+// null, or a device byte that, when 0, makes both kernels return at once
+// (new_warp and stats unwritten). The launch is capture-safe once this
+// shape's occupancy is cached (a call before the capture): the taps go by
+// value in a struct, nothing is allocated. Returns a cudaError_t.
 extern "C" int lsf_fused_gradient_update(
     const float* warped, const float* canonical, const float* warp_cm,
     const float* rate, float* new_warp, float* stats, float* g, double* partial,
-    unsigned* ticket, int nx, int ny, int nz, float w_data, float w_smooth,
-    float w_ls, int killing, float gamma, int band_union, const float* taps,
+    unsigned* ticket, const unsigned char* active, int nx, int ny, int nz, float w_data,
+    float w_smooth, float w_ls, int killing, float gamma, int band_union, const float* taps,
     int ntaps, void* stream_ptr) {
   if (!args_ok(nx, ny, nz, ntaps) || !warped || !canonical || !warp_cm || !rate ||
       !new_warp || !stats || !g || !partial || !ticket || (ntaps && !taps))
@@ -791,7 +799,7 @@ extern "C" int lsf_fused_gradient_update(
   const TermParams p{w_data, w_smooth, w_ls, gamma, killing, band_union};
   const Plan tp = plan(d, kTY, kTZ, tw), up = plan(d, kSY, kSZ, uw);
   terms_kernel<<<tp.blocks, kThreads, kTermsSmem, s>>>(warped, canonical, warp_cm, g, partial,
-                                                      d, p, tp);
+                                                      d, p, tp, active);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
@@ -799,7 +807,7 @@ extern "C" int lsf_fused_gradient_update(
   for (int i = 0; i < ntaps; ++i) t.w[i] = taps[ntaps - 1 - i];
   const auto args = [&](auto launch) {
     return launch(g, warp_cm, rate, new_warp, partial, tp.blocks, ticket, stats, d, up, t,
-                  w_data, w_smooth, w_ls, s);
+                  w_data, w_smooth, w_ls, active, s);
   };
   switch (ntaps / 2) {
     case 0: err = args(launch_update<0>); break;

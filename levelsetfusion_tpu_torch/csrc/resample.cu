@@ -134,7 +134,10 @@ __global__ void __launch_bounds__(kThreads)
     warp_field_cm_kernel(const float* __restrict__ live, const float* __restrict__ ux,
                          const float* __restrict__ uy, const float* __restrict__ uz,
                          float* __restrict__ out, int nx, int ny, int nz, int tiles_y,
-                         int chunk) {
+                         int chunk, const unsigned char* __restrict__ active) {
+  // A solve whose done flag is set (active reads 0) skips the call: the
+  // frozen iterations of a captured chunk cost one launch and one load.
+  if (active != nullptr && *active == 0) return;
   const int z = blockIdx.x * kLanes + threadIdx.x;
   if (z >= nz) return;
   const int x_begin = blockIdx.z * chunk, x_end = min(x_begin + chunk, nx);
@@ -157,7 +160,7 @@ int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
 
 template <typename Off>
 int launch(const float* live, const float* warp_cm, float* out, int nx, int ny, int nz,
-           cudaStream_t stream) {
+           const unsigned char* active, cudaStream_t stream) {
   static lsf_occ::WaveCache cache;
   const auto kernel = warp_field_cm_kernel<Off>;
   const int wave = lsf_occ::wave((const void*)kernel, kThreads, 0, cache);
@@ -173,21 +176,23 @@ int launch(const float* live, const float* warp_cm, float* out, int nx, int ny, 
   const dim3 grid((unsigned)tiles_z, (unsigned)std::min(tiles_y, kMaxGridYZ),
                   (unsigned)ceil_div(nx, chunk));
   kernel<<<grid, dim3(kLanes, kRows), 0, stream>>>(live, warp_cm, warp_cm + n, warp_cm + 2 * n,
-                                                    out, nx, ny, nz, (int)tiles_y, (int)chunk);
+                                                    out, nx, ny, nz, (int)tiles_y, (int)chunk,
+                                                    active);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // live (nx, ny, nz), warp_cm (3, nx, ny, nz), out (nx, ny, nz): float32
-// device pointers. Returns a cudaError_t.
+// device pointers. active: null, or a device byte that, when 0, makes the
+// call leave out unwritten. Returns a cudaError_t.
 extern "C" int lsf_warp_field_cm(const float* live, const float* warp_cm, float* out, int nx,
-                                 int ny, int nz, void* stream) {
+                                 int ny, int nz, const unsigned char* active, void* stream) {
   if (nx < 1 || ny < 1 || nz < 1 || !live || !warp_cm || !out) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   return (int64_t)nx * ny * nz < ((int64_t)1 << 31)
-             ? launch<uint32_t>(live, warp_cm, out, nx, ny, nz, s)
-             : launch<uint64_t>(live, warp_cm, out, nx, ny, nz, s);
+             ? launch<uint32_t>(live, warp_cm, out, nx, ny, nz, active, s)
+             : launch<uint64_t>(live, warp_cm, out, nx, ny, nz, active, s);
 }
 
 extern "C" const char* lsf_resample_error_string(int err) {

@@ -1,3 +1,3 @@
-from levelsetfusion_tpu_torch.io import synthetic
+from levelsetfusion_tpu_torch.io import datasets, synthetic
 
-__all__ = ["synthetic"]
+__all__ = ["datasets", "synthetic"]

@@ -1,17 +1,23 @@
 """Synthetic depth data. Twin of ``levelsetfusion_tpu/io/synthetic.py``.
 
-Deterministic numpy generators; cameras come from the port's ``core``. This
-slice carries the 3D blob-on-a-wall depth image that the single-pair
-experiment uses; the 2D and sequence generators come with their slices.
+Deterministic numpy generators; cameras come from the port's ``core``. It
+carries the 3D blob-on-a-wall depth image and pair of the single-pair
+experiment and the snoopy-style sequence of the fusion experiment (config4);
+the 2D generators come with their slice (ROADMAP A8).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, NamedTuple, Tuple
 
 import numpy as np
 
 from levelsetfusion_tpu_torch.core.camera import PinholeCamera
+
+
+class DepthSequence3d(NamedTuple):
+    frames: List[np.ndarray]  # each (H, W) meters
+    camera: PinholeCamera
 
 
 def default_camera_3d(width: int = 128, height: int = 128) -> PinholeCamera:
@@ -38,3 +44,55 @@ def blob_wall_depth_3d(
     r = np.sqrt((u - cu) ** 2 + (v - cv) ** 2) / blob_radius_px
     bump = np.where(r < 1.0, blob_height * np.cos(0.5 * np.pi * r) ** 2, 0.0)
     return (wall_depth - bump).astype(np.float32)
+
+
+def blob_pair_3d(
+    width: int = 64,
+    height: int = 64,
+    live_shift_px: Tuple[float, float] = (5.0, 0.0),
+    live_height_scale: float = 1.0,
+    **kw,
+):
+    cam = default_camera_3d(width, height)
+    canonical = blob_wall_depth_3d(cam, **kw)
+    cu, cv = width / 2.0 + live_shift_px[0], height / 2.0 + live_shift_px[1]
+    live = blob_wall_depth_3d(
+        cam,
+        blob_center_px=(cu, cv),
+        blob_height=kw.get("blob_height", 0.08) * live_height_scale,
+        **{k: v for k, v in kw.items() if k != "blob_height"},
+    )
+    return canonical, live, cam
+
+
+def snoopy_style_sequence_3d(
+    num_frames: int = 8,
+    width: int = 64,
+    height: int = 64,
+    wall_depth: float = 0.4,
+    blob_radius_px: float = 18.0,
+    blob_height: float = 0.07,
+    drift_px_per_frame: Tuple[float, float] = (2.0, 1.0),
+    pulse_amplitude: float = 0.15,
+) -> DepthSequence3d:
+    """A deforming blob drifting across the image over ``num_frames`` frames.
+
+    Mimics the shape of the KillingFusion Snoopy workload: per-frame depth
+    images of a non-rigidly deforming object observed by a fixed camera.
+    """
+    cam = default_camera_3d(width, height)
+    frames = []
+    for t in range(num_frames):
+        cu = width / 2.0 + drift_px_per_frame[0] * t
+        cv = height / 2.0 + drift_px_per_frame[1] * t
+        scale = 1.0 + pulse_amplitude * np.sin(2 * np.pi * t / max(num_frames - 1, 1))
+        frames.append(
+            blob_wall_depth_3d(
+                cam,
+                wall_depth=wall_depth,
+                blob_center_px=(cu, cv),
+                blob_radius_px=blob_radius_px * scale,
+                blob_height=blob_height,
+            )
+        )
+    return DepthSequence3d(frames=frames, camera=cam)

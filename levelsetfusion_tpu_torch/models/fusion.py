@@ -1,0 +1,250 @@
+"""Frame-to-canonical fusion. Twin of ``levelsetfusion_tpu/models/fusion.py``,
+its flat path.
+
+After the non-rigid solve aligns live frame t to the canonical frame, the
+warped live TSDF is blended into the canonical field with
+truncation-aware running weighted averaging:
+
+    w_t(v)   = 1  where |Φ_w(v)| < 1 (inside the observed narrow band)
+    Φ_c(v)  ←  (W(v) Φ_c(v) + w_t(v) Φ_w(v)) / (W(v) + w_t(v))
+    W(v)    ←  W(v) + w_t(v)
+
+A frame is one device program, as in JAX: TSDF generation, the solve
+(``models/single_level.py``, its loop on the device), the resample of the
+live field by the solved warp (B1), the blend, and the frame's statistics
+packed into one small device tensor that the host reads once. The warp is
+warm-started from the previous frame (JAX's default; the hierarchical
+path's ``levels`` and the ``warm_start`` switch come with A8). ``fuse_sequence`` pipelines frames:
+frame t + 1 is dispatched from frame t's device outputs before frame t's
+statistics are read.
+
+Left out against JAX: its TPU resample clamps ±K, so JAX measures each
+frame's max |u| against K and redoes a frame with K raised; the port's
+resample is exact for any displacement, so there is no clamp, no redo and
+no contract check. ``FrameReport`` keeps those fields with JAX's values for
+the exact gather (``pallas_max_displacement=0``, ``contract_violations=()``).
+The hierarchical path is not ported yet (ROADMAP A8).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import inspect
+from typing import Callable, List, NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from levelsetfusion_tpu_torch.core.camera import PinholeCamera
+from levelsetfusion_tpu_torch.core.grid import GridSpec
+from levelsetfusion_tpu_torch.models.params import SolverParams
+from levelsetfusion_tpu_torch.models.single_level import SolveLoop, SolveResult
+from levelsetfusion_tpu_torch.ops.kernels.fused_gradient import to_component_major
+from levelsetfusion_tpu_torch.ops.kernels.resample import warp_field_cm
+from levelsetfusion_tpu_torch.ops.tsdf import GenerationMethod, generate_tsdf_3d
+
+TRUNCATION_EPS = 1e-5
+_HIERARCHICAL = "the hierarchical fusion path is not ported yet (ROADMAP A8)"
+
+
+class FusionState(NamedTuple):
+    canonical: torch.Tensor  # (*spatial,) running fused TSDF
+    weights: torch.Tensor  # (*spatial,) accumulated observation weights
+
+
+class FrameReport(NamedTuple):
+    frame_index: int
+    solver_iterations: int
+    final_data_energy: float
+    band_voxels: int  # |Φ_c| < 1 count after fusion
+    # Measured per-axis max |u| over every warp the frame's solve resampled
+    # with (voxel units).
+    max_abs_displacement: Tuple[float, ...] = ()
+    # JAX's clamp fields, at their values for the exact gather.
+    pallas_max_displacement: int | tuple = 0
+    contract_violations: Tuple[str, ...] = ()
+
+
+class FusionResult(NamedTuple):
+    state: FusionState
+    reports: List[FrameReport]
+    final_warp: torch.Tensor
+
+
+def blend(state: FusionState, warped_live: torch.Tensor) -> FusionState:
+    """One truncation-aware weighted-average fusion update."""
+    w_live = (torch.abs(warped_live) < 1.0 - TRUNCATION_EPS).to(warped_live.dtype)
+    w_total = state.weights + w_live
+    fused = torch.where(
+        w_total > 0.0,
+        (state.weights * state.canonical + w_live * warped_live)
+        / torch.clamp(w_total, min=1e-12),
+        state.canonical,
+    )
+    return FusionState(canonical=fused, weights=w_total)
+
+
+def init_state(first_field: torch.Tensor) -> FusionState:
+    w = (torch.abs(first_field) < 1.0 - TRUNCATION_EPS).to(first_field.dtype)
+    return FusionState(canonical=first_field, weights=w)
+
+
+@dataclasses.dataclass(frozen=True)
+class FusionPipelineConfig:
+    """Config for the multi-frame frame-to-canonical fusion."""
+
+    grid: GridSpec
+    narrow_band_width_voxels: int = 20
+    generation_method: GenerationMethod = GenerationMethod.BASIC
+    hierarchical: bool = True
+    solver: SolverParams = SolverParams(learning_rate=1.0, convergence_threshold=1e-3)
+
+
+def _call_frame_callback(cb, t, state, warp, report, solver) -> None:
+    """Invoke a frame callback, passing ``report``/``solver`` keywords when
+    the callback accepts them; plain ``(t, state, warp)`` callbacks keep
+    working."""
+    try:
+        sig = inspect.signature(cb)
+        params = sig.parameters.values()
+        extended = any(
+            p.kind is inspect.Parameter.VAR_KEYWORD for p in params
+        ) or {"report", "solver"} <= set(sig.parameters)
+    except (TypeError, ValueError):
+        extended = False
+    if extended:
+        cb(t, state, warp, report=report, solver=solver)
+    else:
+        cb(t, state, warp)
+
+
+class _Frame(NamedTuple):
+    """A dispatched frame: its device outputs, its iteration count (the
+    solve's last flag read gave it) and its packed statistics, not yet read."""
+
+    index: int
+    state: FusionState
+    warp: torch.Tensor
+    iterations: int
+    packed: torch.Tensor
+
+
+def _pack_stats(res: SolveResult, state: FusionState) -> torch.Tensor:
+    """The frame's statistics as one float64 device tensor, for its one host
+    read: the band voxel count (int64 on the device, exact in float64 below
+    2^53; f32 would round it past 2^24, 512³'s band), the last iteration's
+    data energy and the per-axis max |u| (float32 values, exact)."""
+    band = torch.count_nonzero(torch.abs(state.canonical) < 1.0 - TRUNCATION_EPS)
+    energy = res.telemetry.data_energy[max(res.iterations - 1, 0)]
+    return torch.cat([band.view(1).double(), energy.view(1).double(),
+                      res.max_abs_displacement.double()])
+
+
+def _tsdf(depth, camera: PinholeCamera, config: FusionPipelineConfig,
+          device: torch.device) -> torch.Tensor:
+    """A depth image (numpy, meters) as a TSDF on ``device``."""
+    return generate_tsdf_3d(
+        torch.as_tensor(np.asarray(depth, dtype=np.float32)).to(device), camera, config.grid,
+        narrow_band_width_voxels=config.narrow_band_width_voxels,
+        method=config.generation_method,
+    )
+
+
+def _dispatch(t, live, prev_state, init_warp, loop) -> _Frame:
+    """Frame t's program after TSDF generation: solve, resample, blend and
+    the stats pack. Only the solve's flag reads wait for the device."""
+    res = loop.solve(prev_state.canonical, live, init_warp)
+    state = blend(prev_state, warp_field_cm(live, to_component_major(res.warp)))
+    return _Frame(t, state, res.warp, res.iterations, _pack_stats(res, state))
+
+
+def _report(frame: _Frame) -> FrameReport:
+    """Read the frame's packed statistics (its one host read)."""
+    band, energy, *md = frame.packed.tolist()
+    return FrameReport(
+        frame_index=frame.index,
+        solver_iterations=frame.iterations,
+        final_data_energy=energy,
+        band_voxels=int(band),
+        max_abs_displacement=tuple(md),
+    )
+
+
+def fuse_frame(
+    state: FusionState,
+    live: torch.Tensor | None,
+    init_warp: torch.Tensor,
+    solver: SolverParams,
+    config: FusionPipelineConfig,
+    frame_index: int,
+    depth=None,
+    camera: PinholeCamera | None = None,
+    loop: SolveLoop | None = None,
+):
+    """One flat-path fusion frame: solve, resample, blend, then the stats
+    read; with ``depth`` and ``camera`` the frame's TSDF is generated first
+    (``live`` may be None then). Returns ``(state, warp, report, solver)``,
+    as JAX's does. ``loop`` (for ``config.grid.shape`` and ``solver`` on
+    the state's device) carries one CUDA graph across frames; without it the
+    frame makes its own."""
+    if config.hierarchical:
+        raise NotImplementedError(_HIERARCHICAL)
+    device = state.canonical.device
+    if depth is not None:
+        live = _tsdf(depth, camera, config, device)
+    if loop is None:
+        loop = SolveLoop(config.grid.shape, solver, device)
+    frame = _dispatch(frame_index, live, state, init_warp, loop)
+    return frame.state, frame.warp, _report(frame), solver
+
+
+def fuse_sequence(
+    frames,
+    camera: PinholeCamera,
+    config: FusionPipelineConfig,
+    device="cuda",
+    frame_callback: Callable[[int, FusionState, torch.Tensor], None] | None = None,
+    pipelined: bool = True,
+) -> FusionResult:
+    """Fuse a depth sequence into a canonical TSDF on ``device``.
+
+    ``frames`` is any iterable of depth images (numpy, meters), consumed in
+    order, once. ``frame_callback(t, state, warp)`` runs after each frame's
+    stats are read; callbacks that accept ``report``/``solver`` keywords
+    also receive the frame's FrameReport and the solver.
+
+    Pipelined (the default, JAX's flat loop): frame t + 1 is dispatched from
+    frame t's device outputs before frame t's packed stats are read, so the
+    read waits for nothing. ``pipelined=False`` reads each frame's stats
+    before the next is dispatched: the serial loop the tests hold the
+    pipelined one to. Both give the same reports and state.
+    """
+    if config.hierarchical:
+        raise NotImplementedError(_HIERARCHICAL)
+    device = torch.device(device)
+    grid = config.grid
+    frame_iter = iter(frames)
+    state = init_state(_tsdf(next(frame_iter), camera, config, device))
+    warp = torch.zeros((*grid.shape, grid.dim), dtype=torch.float32, device=device)
+    loop = SolveLoop(grid.shape, config.solver, device)
+    reports: List[FrameReport] = []
+
+    def emit(frame: _Frame) -> None:
+        reports.append(_report(frame))
+        if frame_callback is not None:
+            _call_frame_callback(frame_callback, frame.index, frame.state, frame.warp,
+                                 reports[-1], config.solver)
+
+    pending = None
+    for t, depth in enumerate(frame_iter, start=1):
+        cur = _dispatch(t, _tsdf(depth, camera, config, device), state, warp, loop)
+        state, warp = cur.state, cur.warp
+        if pending is not None:
+            emit(pending)
+        pending = cur
+        if not pipelined:
+            emit(pending)
+            pending = None
+    if pending is not None:
+        emit(pending)
+    return FusionResult(state=state, reports=reports, final_warp=warp)

@@ -20,8 +20,22 @@ Semantics kept from the JAX twin:
 - ``max_abs_displacement`` is the per-axis max |u| over the warm start,
   every updated warp and the final warp.
 
-The rate, the previous energy and the telemetry stay on the device; the host
-reads one scalar (``max_update``) per iteration for the loop condition.
+The loop lives on the device, as JAX's ``lax.while_loop`` does. The done
+test is a device flag, ``active = (iteration < n) & (max_update >=
+threshold)``, that every iteration recomputes; once it is false the state
+stays frozen: both kernels read the flag and return at once, and the scalar
+state and the telemetry column take their new values only where it is true
+(``torch.where`` on 0-d tensors; a frozen iteration writes the spare
+telemetry column ``n``). The host reads the flag once every ``check_every``
+iterations (a chunk), so a solve runs as many iterations as the serial loop
+and gives its results exactly, whatever ``check_every``. The warp lives in
+two buffers that the iterations ping-pong; after ``iterations`` active
+iterations it lies in buffer ``iterations % 2``.
+
+On CUDA the chunk is captured once as a CUDA graph and replayed (the
+Python work of ~20 ops an iteration, more than the kernels take at 128³,
+leaves the loop). On the CPU, or with ``SolveLoop(..., graph=False)``, the
+same chunk runs eagerly. A capture or replay that fails raises.
 """
 
 from __future__ import annotations
@@ -32,6 +46,7 @@ import numpy as np
 import torch
 
 from levelsetfusion_tpu_torch.models.params import SmoothingMode, SolverParams
+from levelsetfusion_tpu_torch.ops.kernels import fused_gradient, resample
 from levelsetfusion_tpu_torch.ops.kernels.fused_gradient import (
     from_component_major,
     fused_gradient_update,
@@ -39,6 +54,10 @@ from levelsetfusion_tpu_torch.ops.kernels.fused_gradient import (
     to_component_major,
 )
 from levelsetfusion_tpu_torch.ops.kernels.resample import warp_field_cm
+
+# Iterations between two host reads of the done flag (one chunk, one graph
+# replay). Even, so that every replay starts from the same warp buffer.
+CHECK_EVERY = 16
 
 
 class SolveTelemetry(NamedTuple):
@@ -62,6 +81,188 @@ class SolveResult(NamedTuple):
     max_abs_displacement: torch.Tensor
 
 
+class SolveLoop:
+    """The device-side solve loop for one volume shape, device and
+    ``SolverParams``: the state buffers and, on CUDA, the captured chunk.
+    ``solve`` copies its inputs into the buffers, so one loop serves a
+    sequence of solves (the fusion frames) with one capture.
+
+    Capture hazards, each handled here:
+    - B2's completion ticket is this loop's own (``self.ticket``): the
+      graph replays on whatever stream is current, so a ticket kept per
+      stream handle could be shared with another loop's graph or a direct
+      call on that stream.
+    - The kernels' shared memory opt-in and occupancy are cached per device
+      (``csrc/occupancy.cuh``): one frozen iteration on the capture stream
+      before the capture creates both outside it, and loads every kernel
+      the chunk launches.
+    - The kernels' scratch (the warped field, g, the partial rows, the stats)
+      is allocated per call; inside the capture it comes from the graph's
+      pool, where each iteration reuses the last one's, so the graph holds
+      one iteration's scratch whatever ``check_every``; the two warps are
+      this object's.
+    - The wrappers launch on ``torch.cuda.current_stream``, which is the
+      capture stream inside ``torch.cuda.graph``.
+    - B2's taps go by value in a struct; nothing in the chunk reads a value
+      back to the host.
+    - A wrapper called while capturing adds to its ``captured_count``, not
+      its ``launch_count``; ``_capture`` keeps what each kernel's count rose
+      by (``graph_launches``), and ``_replay`` adds that to its
+      ``launch_count`` each replay.
+    """
+
+    def __init__(self, shape, params: SolverParams, device, *,
+                 check_every: int = CHECK_EVERY, graph: bool = True):
+        if len(shape) != 3:
+            raise NotImplementedError(
+                "the 2D single-level solve is not ported yet (ROADMAP A8)"
+            )
+        if check_every < 1:
+            raise ValueError(f"check_every must be >= 1, got {check_every}")
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.graphed = graph and self.device.type == "cuda"
+        if self.graphed and check_every % 2:
+            raise ValueError(
+                f"a captured chunk needs an even check_every, got {check_every}: "
+                "each replay must start from the same warp buffer"
+            )
+        self.shape = tuple(shape)
+        self.params = params
+        self.check_every = check_every
+        self.n = params.max_iterations
+        # The JAX twin compares its f32 max_update against the threshold
+        # rounded to f32; compare the same way.
+        self.threshold = float(np.float32(params.convergence_threshold))
+        self.replays = 0
+        self._graph = None
+        self.graph_launches = None  # {kernel module: calls its capture recorded}
+        f32 = dict(dtype=torch.float32, device=self.device)
+        self.canonical = torch.zeros(self.shape, **f32)
+        self.live = torch.zeros(self.shape, **f32)
+        self.warps = (torch.zeros((3, *self.shape), **f32),
+                      torch.zeros((3, *self.shape), **f32))
+        self.telemetry = torch.zeros((5, self.n + 1), **f32)
+        self.rate = torch.zeros((), **f32)
+        self.prev_energy = torch.zeros((), **f32)
+        self.max_update = torch.zeros((), **f32)
+        self.max_disp = torch.zeros(3, **f32)
+        self.iteration = torch.zeros((), dtype=torch.int64, device=self.device)
+        self.active = torch.zeros((), dtype=torch.bool, device=self.device)
+        self.ticket = torch.zeros(1, dtype=torch.int32, device=self.device)
+        # Telemetry rows from the stats: data, smoothing, level set, max and
+        # sum of the update (the sum divided by the voxel count).
+        self._rows = torch.tensor([0, 1, 2, 4, 3], device=self.device)
+        self._divisor = torch.tensor([1.0, 1.0, 1.0, 1.0, float(np.prod(self.shape))], **f32)
+        self._kw = dict(
+            w_data=params.data_term_weight,
+            w_smooth=params.smoothing_term_weight,
+            w_ls=params.level_set_term_weight,
+            killing=params.smoothing_mode is SmoothingMode.KILLING,
+            gamma=params.rigidity_enforcement_factor,
+            band_union=params.band_union_only,
+            ticket=self.ticket,
+            taps=(sobolev_taps(params.sobolev_kernel_size, params.sobolev_strength)
+                  if params.sobolev_smoothing else ()),
+        )
+
+    def _update_flag(self) -> None:
+        torch.logical_and(self.iteration < self.n, self.max_update >= self.threshold,
+                          out=self.active)
+
+    def _iteration(self, parity: int, flag: torch.Tensor) -> None:
+        """One iteration from warp buffer ``parity`` into the other, gated
+        by ``flag``; then the flag of the next iteration."""
+        src, dst = self.warps[parity], self.warps[1 - parity]
+        warped = warp_field_cm(self.live, src, active=flag)
+        _, stats = fused_gradient_update(warped, self.canonical, src, self.rate,
+                                         out=dst, active=flag, **self._kw)
+        energy = stats[0] + stats[1] + stats[2]
+        if self.params.adaptive_learning_rate:
+            torch.where(flag & (energy > self.prev_energy), self.rate * 0.5, self.rate,
+                        out=self.rate)
+        torch.where(flag, energy, self.prev_energy, out=self.prev_energy)
+        column = torch.where(flag, self.iteration, self.n)
+        self.telemetry.index_copy_(
+            1, column.view(1), (stats.index_select(0, self._rows) / self._divisor).view(5, 1)
+        )
+        torch.where(flag, torch.maximum(self.max_disp, stats[5:8]), self.max_disp,
+                    out=self.max_disp)
+        torch.where(flag, stats[4], self.max_update, out=self.max_update)
+        self.iteration += flag
+        self._update_flag()
+
+    def _chunk(self, first: int) -> None:
+        for j in range(first, first + self.check_every):
+            self._iteration(j % 2, self.active)
+
+    def _capture(self) -> None:
+        stream = torch.cuda.Stream(self.device)
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(stream):
+            # The frozen warm-up iteration: it changes no state.
+            self._iteration(0, torch.zeros((), dtype=torch.bool, device=self.device))
+        torch.cuda.current_stream(self.device).wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        kernels = (resample, fused_gradient)
+        before = [m.captured_count for m in kernels]
+        with torch.cuda.graph(graph, stream=stream):
+            self._chunk(0)
+        self.graph_launches = {m: m.captured_count - b for m, b in zip(kernels, before)}
+        self._graph = graph
+
+    def _replay(self) -> None:
+        self._graph.replay()
+        for module, calls in self.graph_launches.items():
+            module.launch_count += calls
+        self.replays += 1
+
+    def solve(self, canonical: torch.Tensor, live: torch.Tensor,
+              initial_warp: torch.Tensor | None = None) -> SolveResult:
+        """Optimize the warp aligning ``live`` to ``canonical`` (both
+        ``self.shape``, float32, on ``self.device``) from ``initial_warp``
+        (``(X, Y, Z, 3)``, else zeros)."""
+        for name, t in (("canonical", canonical), ("live", live)):
+            if tuple(t.shape) != self.shape or t.device != self.device:
+                raise ValueError(f"{name} {tuple(t.shape)} on {t.device}: this loop takes "
+                                 f"{self.shape} on {self.device}")
+        self.canonical.copy_(canonical)
+        self.live.copy_(live)
+        if initial_warp is None:
+            self.warps[0].zero_()
+        else:
+            self.warps[0].copy_(to_component_major(initial_warp))
+        self.telemetry.zero_()
+        self.rate.fill_(self.params.learning_rate)
+        self.prev_energy.fill_(float("inf"))
+        self.max_update.fill_(float("inf"))
+        self.iteration.zero_()
+        torch.amax(torch.abs(self.warps[0]), dim=(1, 2, 3), out=self.max_disp)
+        self._update_flag()
+        chunks = 0
+        while bool(self.active):  # the host's one read a chunk
+            if not self.graphed:
+                self._chunk(chunks * self.check_every)
+            else:
+                if self._graph is None:
+                    self._capture()
+                self._replay()
+            chunks += 1
+        iterations, converged = torch.stack(
+            [self.iteration, (self.max_update < self.threshold).long()]).tolist()
+        final = self.warps[iterations % 2]
+        return SolveResult(
+            warp=from_component_major(final.clone()),
+            iterations=iterations,
+            converged=bool(converged),
+            telemetry=SolveTelemetry(*self.telemetry[:, :self.n].clone()),
+            max_abs_displacement=torch.maximum(
+                self.max_disp, torch.amax(torch.abs(final), dim=(1, 2, 3))
+            ),
+        )
+
+
 def solve_single_level(
     canonical: torch.Tensor,
     live: torch.Tensor,
@@ -75,62 +276,8 @@ def solve_single_level(
       live: scalar TSDF field, same shape and device.
       params: solver parameters.
       initial_warp: optional warm start ``(X, Y, Z, 3)``, else zeros.
+
+    Runs on ``canonical``'s device: on CUDA through the captured graph.
     """
-    if canonical.ndim != 3:
-        raise NotImplementedError(
-            "the 2D single-level solve is not ported yet (ROADMAP A8)"
-        )
-    device = canonical.device
-    if initial_warp is None:
-        warp_cm = torch.zeros((3, *canonical.shape), dtype=torch.float32, device=device)
-    else:
-        warp_cm = to_component_major(initial_warp)
-    taps = (
-        sobolev_taps(params.sobolev_kernel_size, params.sobolev_strength)
-        if params.sobolev_smoothing
-        else ()
-    )
-    n = params.max_iterations
-    num_voxels = float(canonical.numel())
-    # The JAX twin compares its f32 max_update against the threshold rounded
-    # to f32; compare the same way.
-    threshold = float(np.float32(params.convergence_threshold))
-
-    telemetry = torch.zeros((5, n), dtype=torch.float32, device=device)
-    rate = torch.tensor(params.learning_rate, dtype=torch.float32, device=device)
-    prev_energy = torch.tensor(float("inf"), dtype=torch.float32, device=device)
-    max_disp = torch.amax(torch.abs(warp_cm), dim=(1, 2, 3))
-    max_update = float("inf")
-    iteration = 0
-    while iteration < n and max_update >= threshold:
-        warped = warp_field_cm(live, warp_cm)
-        warp_cm, stats = fused_gradient_update(
-            warped, canonical, warp_cm, rate,
-            w_data=params.data_term_weight,
-            w_smooth=params.smoothing_term_weight,
-            w_ls=params.level_set_term_weight,
-            killing=params.smoothing_mode is SmoothingMode.KILLING,
-            gamma=params.rigidity_enforcement_factor,
-            band_union=params.band_union_only,
-            taps=taps,
-        )
-        energy = stats[0] + stats[1] + stats[2]
-        if params.adaptive_learning_rate:
-            rate = torch.where(energy > prev_energy, rate * 0.5, rate)
-        prev_energy = energy
-        telemetry[:, iteration] = torch.stack(
-            [stats[0], stats[1], stats[2], stats[4], stats[3] / num_voxels]
-        )
-        max_disp = torch.maximum(max_disp, stats[5:8])
-        max_update = float(stats[4])
-        iteration += 1
-
-    return SolveResult(
-        warp=from_component_major(warp_cm),
-        iterations=iteration,
-        converged=max_update < threshold,
-        telemetry=SolveTelemetry(*telemetry),
-        max_abs_displacement=torch.maximum(
-            max_disp, torch.amax(torch.abs(warp_cm), dim=(1, 2, 3))
-        ),
-    )
+    return SolveLoop(canonical.shape, params, canonical.device).solve(
+        canonical, live, initial_warp)

@@ -89,6 +89,29 @@ def stream_handle(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def capturing() -> bool:
+    """Whether the current CUDA stream is being captured into a CUDA graph:
+    a kernel enqueued now is recorded, not launched."""
+    return torch.cuda.is_current_stream_capturing()
+
+
+def require_flag(active, device: torch.device) -> None:
+    """The contract of the solve loop's ``active`` flag: None, or a 0-d
+    bool tensor on ``device`` (the kernels read it as one byte)."""
+    if active is None:
+        return
+    if active.dtype != torch.bool or active.ndim != 0:
+        raise TypeError(f"active must be a 0-d bool tensor, got {active.dtype} "
+                        f"{tuple(active.shape)}")
+    if active.device != device:
+        raise ValueError(f"active is on {active.device}, expected {device}")
+
+
+def flag_ptr(active) -> int | None:
+    """The device pointer the kernels read the flag from (None: always on)."""
+    return None if active is None else active.data_ptr()
+
+
 def require_f32_contiguous(name: str, t: torch.Tensor, device: torch.device) -> None:
     """The wrappers' input contract: float32, contiguous, on one device."""
     if t.dtype != torch.float32:

@@ -1,3 +1,3 @@
-from levelsetfusion_tpu_torch.utils import config, telemetry
+from levelsetfusion_tpu_torch.utils import checkpoint, config, telemetry
 
-__all__ = ["config", "telemetry"]
+__all__ = ["checkpoint", "config", "telemetry"]

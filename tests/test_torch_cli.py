@@ -1,6 +1,8 @@
 """The port's experiment runner against the JAX package's: config3 shrunk
 to (24, 24, 16) with 20 iterations through both ``run_experiment``s —
-summary numbers and telemetry.csv rows — plus the config plumbing between
+summary numbers and telemetry.csv rows — config4 (``multi_frame_3d``)
+shrunk to JAX's own test size ((32, 32, 24), 4 frames, 25 iterations, a
+checkpoint every frame) with its resume, plus the config plumbing between
 the two packages and the CLI's refusals.
 
 Tolerances: iteration count and ``converged`` exactly; telemetry rows and
@@ -19,6 +21,7 @@ import torch
 from levelsetfusion_tpu.cli import run_experiment as jrun
 from levelsetfusion_tpu.utils.config import PRESETS as JPRESETS
 from levelsetfusion_tpu_torch import cli as tcli
+from levelsetfusion_tpu_torch.utils import checkpoint
 from levelsetfusion_tpu_torch.utils.config import PRESETS, ExperimentConfig
 
 SHRINK = dict(grid_shape=(24, 24, 16), grid_offset=(-12, -12, 80))
@@ -100,8 +103,13 @@ def test_presets_mirror_jax():
 
 @pytest.mark.parametrize("name", sorted(set(PRESETS) - {"config3_3d_full_energy"}))
 def test_other_modes_raise(name, tmp_path):
+    """Each mode that is not ported raises naming its ROADMAP item; config4's
+    mode runs, but not from depth PNGs (A9)."""
+    cfg = PRESETS[name]
+    if cfg.mode == "multi_frame_3d":
+        cfg = dataclasses.replace(cfg, dataset="depth_directory", dataset_kwargs={})
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        tcli.run_experiment(PRESETS[name], str(tmp_path), device="cpu")
+        tcli.run_experiment(cfg, str(tmp_path), device="cpu")
 
 
 def test_main_list_and_cpu_config_run(tmp_path, capsys):
@@ -122,3 +130,92 @@ def test_cuda_device_requires_cuda(tmp_path):
         pytest.skip("CUDA is present: the refusal applies only without it")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tcli.main(["--preset", "config3_3d_full_energy", "--out", str(tmp_path)])
+
+
+C4_SHRINK = dict(grid_shape=(32, 32, 24), voxel_size=0.008, grid_offset=(-16, -16, 42),
+                 num_frames=4, checkpoint_every=1)
+
+
+def _small_c4(presets, **kw):
+    """tests/test_cli.py's small config4."""
+    cfg = presets["config4_3d_fusion"]
+    return dataclasses.replace(cfg, solver=cfg.solver.replace(max_iterations=25),
+                               **{**C4_SHRINK, **kw})
+
+
+@pytest.fixture(scope="module")
+def c4_runs(tmp_path_factory):
+    jout = str(tmp_path_factory.mktemp("jax_c4"))
+    tout = str(tmp_path_factory.mktemp("torch_c4"))
+    jsum = jrun(_small_c4(JPRESETS), jout)
+    tsum = tcli.run_experiment(_small_c4(PRESETS), tout, device="cpu")
+    return jout, jsum, tout, tsum
+
+
+def test_multi_frame_summary_matches_jax(c4_runs):
+    """JAX's summary keys, less the TPU fast paths and the clamp contract,
+    plus the device and the launches; the same frames and per-frame
+    iteration counts; band voxels, energies and max |u| within tolerance."""
+    jout, jsum, tout, tsum = c4_runs
+    with open(os.path.join(tout, "summary.json")) as f:
+        assert json.load(f) == json.loads(json.dumps(tsum))  # tuples as lists
+    left_out = {"fast_paths", "contract_violations", "final_pallas_max_displacement"}
+    assert set(tsum) == (set(jsum) - left_out) | {"device", "kernel_launches"}
+    for key in ("frames", "dataset", "frames_processed"):
+        assert tsum[key] == jsum[key], key
+    assert tsum["frames_per_s"] > 0 and tsum["frames_per_s_incl_compile"] > 0
+    assert tsum["kernel_launches"] == {"resample": 0, "fused_gradient": 0}  # CPU run
+    assert tsum["device"] == "cpu"
+    np.testing.assert_allclose(tsum["max_abs_displacement"], jsum["max_abs_displacement"],
+                               rtol=3e-4, atol=3e-6)
+    assert [r["frame_index"] for r in tsum["reports"]] == [1, 2, 3]
+    for a, b in zip(tsum["reports"], jsum["reports"]):
+        assert set(a) == set(b)
+        assert a["solver_iterations"] == b["solver_iterations"]
+        np.testing.assert_allclose(a["band_voxels"], b["band_voxels"], rtol=1e-3)
+        np.testing.assert_allclose(a["final_data_energy"], b["final_data_energy"], rtol=2e-4)
+    with open(os.path.join(tout, "events.jsonl")) as f:
+        tev = [json.loads(line) for line in f]
+    with open(os.path.join(jout, "events.jsonl")) as f:
+        jev = [json.loads(line) for line in f]
+    assert [(e["event"], e["frame"]) for e in tev] == [(e["event"], e["frame"]) for e in jev]
+    assert sorted(os.listdir(os.path.join(tout, "checkpoints"))) == sorted(
+        os.listdir(os.path.join(jout, "checkpoints")))
+
+
+class _Stop(Exception):
+    pass
+
+
+def test_multi_frame_resume_equals_uninterrupted(c4_runs, tmp_path, monkeypatch):
+    """A run stopped after frame 2's checkpoint and resumed with --resume
+    ends with the uninterrupted run's state and warp, exactly, and reports
+    the frames it fused; a second resume has nothing left to do."""
+    _, _, tout, tsum = c4_runs
+    out = str(tmp_path / "stopped")
+    save = checkpoint.save
+
+    def save_then_stop(root, frame, *args, **kw):
+        path = save(root, frame, *args, **kw)
+        if frame == 2:
+            raise _Stop
+        return path
+
+    monkeypatch.setattr(checkpoint, "save", save_then_stop)
+    with pytest.raises(_Stop):
+        tcli.run_experiment(_small_c4(PRESETS), out, device="cpu")
+    monkeypatch.setattr(checkpoint, "save", save)
+    assert checkpoint.latest_frame(os.path.join(out, "checkpoints")) == 2
+    config = os.path.join(out, "config.json")
+    assert tcli.main(["--config", config, "--out", out, "--device", "cpu", "--resume"]) == 0
+    with open(os.path.join(out, "summary.json")) as f:
+        resumed = json.load(f)
+    assert resumed["frames_processed"] == 2
+    assert resumed["reports"] == json.loads(json.dumps(tsum["reports"][2:]))
+    want_state, want_warp, _ = checkpoint.load(os.path.join(tout, "checkpoints"), 3)
+    got_state, got_warp, meta = checkpoint.load(os.path.join(out, "checkpoints"), 3)
+    assert meta["final"]
+    for a, b in zip((*got_state, got_warp), (*want_state, want_warp)):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    noop = tcli.run_experiment(_small_c4(PRESETS), out, device="cpu", resume=True)
+    assert noop["frames"] == 0 and noop["resumed_from"] == 3

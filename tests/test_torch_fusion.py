@@ -1,0 +1,194 @@
+"""Parity of the port's flat fusion path (``models/fusion.py``) with the JAX
+package's: ``blend`` and ``init_state`` on seeded fields, and
+``fuse_sequence`` on ``tests/test_fusion.py``'s small sequence ((32, 32, 24),
+4 frames, its Killing solver), JAX on its golden path (the exact gather).
+
+Tolerances: ``blend`` and ``init_state`` 1e-7 (one division a voxel);
+per-frame iteration counts exactly; the canonical and the final warp within
+the solve's rtol 3e-4 atol 3e-6 (tests/test_fused_gradient.py's solver
+tolerances). A weight counts whether a warped value lies inside
+|Φ| < 1 − 1e-5, so a value closer to that bound than the two packages'
+warped values differ (in that frame) may fall on either side in the two:
+the weights exactly, the canonical within tolerance and ``band_voxels``
+are compared away from such voxels, which are counted and bounded."""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from levelsetfusion_tpu.core.grid import GridSpec as JGrid
+from levelsetfusion_tpu.io import synthetic as jsynthetic
+from levelsetfusion_tpu.models import fusion as jfusion
+from levelsetfusion_tpu.models.params import SmoothingMode as JMode
+from levelsetfusion_tpu.models.params import SolverParams as JSolver
+from levelsetfusion_tpu.ops.interpolation import warp_field as jwarp_field
+from levelsetfusion_tpu.ops.tsdf import generate_tsdf_3d as jtsdf
+from levelsetfusion_tpu_torch.core.grid import GridSpec
+from levelsetfusion_tpu_torch.io import synthetic
+from levelsetfusion_tpu_torch.models import fusion
+from levelsetfusion_tpu_torch.models.params import SmoothingMode, SolverParams
+from levelsetfusion_tpu_torch.ops.interpolation import warp_field
+from tests.torch_parity import assert_close, n, t
+
+SHAPE, VOXEL, OFFSET = (32, 32, 24), 0.008, (-16, -16, 42)
+SOLVER = dict(max_iterations=60, learning_rate=0.5, smoothing_term_weight=0.1,
+              convergence_threshold=2e-3, adaptive_learning_rate=True)
+SEQ = dict(num_frames=4, width=48, height=48, blob_radius_px=10.0, blob_height=0.05,
+           drift_px_per_frame=(1.5, 0.0), pulse_amplitude=0.1)
+BOUND = np.float32(1.0 - 1e-5)
+MAX_NEAR = 0.01  # share of voxels near the bound in some frame (41 of 24576 here)
+
+
+def _configs(**solver):
+    kw = {**SOLVER, **solver}
+    jcfg = jfusion.FusionPipelineConfig(
+        grid=JGrid(shape=SHAPE, voxel_size=VOXEL, offset=OFFSET), hierarchical=False,
+        solver=JSolver(smoothing_mode=JMode.KILLING, **kw))
+    tcfg = fusion.FusionPipelineConfig(
+        grid=GridSpec(shape=SHAPE, voxel_size=VOXEL, offset=OFFSET), hierarchical=False,
+        solver=SolverParams(smoothing_mode=SmoothingMode.KILLING, **kw))
+    return jcfg, tcfg
+
+
+def _fields(seed, shape=(9, 7, 5)):
+    """TSDF-like fields with exact ±1 runs (truncated voxels) and values at
+    the band's bound."""
+    rng = np.random.default_rng(seed)
+    a, b = (np.clip(rng.standard_normal(shape) * 0.8, -1, 1).astype(np.float32)
+            for _ in range(2))
+    a.flat[::11] = np.float32(BOUND)
+    b.flat[::13] = -1.0
+    return a, b
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_blend_and_init_state_match_jax(seed):
+    first, live = _fields(seed)
+    jstate, tstate = jfusion.init_state(jnp.asarray(first)), fusion.init_state(t(first))
+    for got, want in zip(tstate, jstate):
+        assert_close(got, want, 0.0, 1e-7)
+    for step in range(3):  # weights accumulate past 1
+        jstate = jfusion.blend(jstate, jnp.asarray(live) * (0.5 + 0.2 * step))
+        tstate = fusion.blend(tstate, t(live) * (0.5 + 0.2 * step))
+        for got, want in zip(tstate, jstate):
+            assert_close(got, want, 0.0, 1e-7)
+
+
+def test_blend_weighted_average():
+    """tests/test_fusion.py's hand-computed case."""
+    state = fusion.init_state(torch.tensor([[0.5, 1.0], [-0.5, 0.2]]))
+    np.testing.assert_array_equal(n(state.weights), [[1, 0], [1, 1]])
+    new = fusion.blend(state, torch.tensor([[0.0, 0.4], [-0.5, 1.0]]))
+    np.testing.assert_allclose(n(new.canonical), [[0.25, 0.4], [-0.5, 0.2]], atol=1e-6)
+    np.testing.assert_array_equal(n(new.weights), [[2, 1], [2, 1]])
+
+
+def _collect(frames):
+    """A frame callback that keeps each frame's warp."""
+    def cb(t_, state, warp, report=None, solver=None):
+        frames[t_] = np.array(n(warp))
+    return cb
+
+
+@pytest.fixture(scope="module")
+def runs():
+    """JAX's and the port's fusion of the small sequence (pipelined, and the
+    port's serial loop), with every frame's warp."""
+    seq = jsynthetic.snoopy_style_sequence_3d(**SEQ)
+    tseq = synthetic.snoopy_style_sequence_3d(**SEQ)
+    jcfg, tcfg = _configs()
+    jwarps, twarps, swarps = {}, {}, {}
+    want = jfusion.fuse_sequence(seq.frames, seq.camera, jcfg, frame_callback=_collect(jwarps))
+    got = fusion.fuse_sequence(tseq.frames, tseq.camera, tcfg, device="cpu",
+                               frame_callback=_collect(twarps))
+    serial = fusion.fuse_sequence(tseq.frames, tseq.camera, tcfg, device="cpu",
+                                  frame_callback=_collect(swarps), pipelined=False)
+    return seq, jcfg, (want, jwarps), (got, twarps), (serial, swarps)
+
+
+def _near_bound(seq, jcfg, jwarps, twarps):
+    """Voxels whose warped live value lies, in some fused frame, closer to
+    the band's bound than JAX's and the port's warped values differ in that
+    frame: the voxels whose weight may fall either way."""
+    near = np.zeros(SHAPE, bool)
+    for t_ in jwarps:
+        live = jtsdf(jnp.asarray(seq.frames[t_]), seq.camera, jcfg.grid)
+        want = np.asarray(jwarp_field(live, jnp.asarray(jwarps[t_])))
+        got = n(warp_field(t(live), t(twarps[t_])))
+        window = np.max(np.abs(got - want))
+        near |= np.abs(np.abs(want) - BOUND) <= window
+    return near
+
+
+def test_fuse_sequence_matches_jax(runs):
+    seq, jcfg, (want, jwarps), (got, twarps), _ = runs
+    assert len(got.reports) == len(want.reports) == 3
+    near = _near_bound(seq, jcfg, jwarps, twarps)
+    assert near.mean() <= MAX_NEAR, near.mean()
+    far = ~near
+    for g, w in zip(got.reports, want.reports):
+        assert g.frame_index == w.frame_index
+        assert g.solver_iterations == int(w.solver_iterations) > 0
+        assert abs(g.band_voxels - w.band_voxels) <= near.sum()
+        np.testing.assert_allclose(g.final_data_energy, w.final_data_energy, rtol=2e-4)
+        np.testing.assert_allclose(g.max_abs_displacement, w.max_abs_displacement,
+                                   rtol=3e-4, atol=3e-6)
+        assert (g.pallas_max_displacement, g.contract_violations) == (0, ())
+        assert w.pallas_max_displacement == 0 and not w.contract_violations
+    np.testing.assert_array_equal(n(got.state.weights)[far], np.asarray(want.state.weights)[far])
+    np.testing.assert_allclose(n(got.state.canonical)[far],
+                               np.asarray(want.state.canonical)[far], rtol=3e-4, atol=3e-6)
+    assert_close(got.final_warp, want.final_warp, rtol=3e-4, atol=3e-6)
+    assert got.final_warp.shape == (*SHAPE, 3)
+
+
+def test_pipelined_equals_serial(runs):
+    """The pipelined loop reads frame t's stats after dispatching frame t + 1
+    and gives the serial loop's reports, states and warps exactly."""
+    _, _, _, (got, twarps), (serial, swarps) = runs
+    assert got.reports == serial.reports
+    for a, b in zip((*got.state, got.final_warp), (*serial.state, serial.final_warp)):
+        np.testing.assert_array_equal(n(a), n(b))
+    assert twarps.keys() == swarps.keys() == {1, 2, 3}
+    for k in twarps:
+        np.testing.assert_array_equal(twarps[k], swarps[k])
+
+
+def test_fuse_frame_equals_sequence_frame(runs):
+    """``fuse_frame`` from frame 1's depth (as the CLI's resume runs it)
+    gives fuse_sequence's first report."""
+    seq, _, _, (got, twarps), _ = runs
+    tseq = synthetic.snoopy_style_sequence_3d(**SEQ)
+    _, tcfg = _configs()
+    state = fusion.init_state(fusion._tsdf(tseq.frames[0], tseq.camera, tcfg, torch.device("cpu")))
+    _, warp, report, solver = fusion.fuse_frame(
+        state, None, torch.zeros((*SHAPE, 3)), tcfg.solver, tcfg, 1,
+        depth=tseq.frames[1], camera=tseq.camera)
+    assert report == got.reports[0] and solver is tcfg.solver
+    np.testing.assert_array_equal(n(warp), twarps[1])
+
+
+def test_callback_gets_reports_and_the_frame_state():
+    tseq = synthetic.snoopy_style_sequence_3d(**{**SEQ, "num_frames": 3})
+    _, tcfg = _configs(max_iterations=4)
+    seen = []
+
+    def cb(t_, state, warp, report, solver):
+        seen.append((t_, report.frame_index, report.band_voxels,
+                     int((torch.abs(state.canonical) < 1 - 1e-5).sum()), solver))
+
+    res = fusion.fuse_sequence(tseq.frames, tseq.camera, tcfg, device="cpu", frame_callback=cb)
+    assert [s[:2] for s in seen] == [(1, 1), (2, 2)]
+    assert all(s[2] == s[3] and s[4] is tcfg.solver for s in seen)
+    assert [r.solver_iterations for r in res.reports] == [4, 4]
+
+
+def test_hierarchical_raises():
+    tseq = synthetic.snoopy_style_sequence_3d(**SEQ)
+    _, tcfg = _configs()
+    with pytest.raises(NotImplementedError, match="A8"):
+        fusion.fuse_sequence(tseq.frames, tseq.camera,
+                             dataclasses.replace(tcfg, hierarchical=True), device="cpu")

@@ -1,9 +1,12 @@
 """Parity of the port's single-level solve with the JAX package's, on the
-golden path and on the fused Pallas path (interpret mode).
+golden path and on the fused Pallas path (interpret mode), and of its
+device-side loop (a done flag read every ``check_every`` iterations) with
+the serial loop that reads ``max_update`` every iteration.
 
 Tolerances are those of tests/test_fused_gradient.py's solver test: warp
 rtol 3e-4 atol 3e-6, telemetry rtol 2e-4 atol 1e-8; iteration counts and
-``converged`` exactly."""
+``converged`` exactly. The device loop equals the serial loop exactly: the
+same plain versions run the same float operations in the same order."""
 
 import dataclasses
 
@@ -16,7 +19,18 @@ from levelsetfusion_tpu.models import params as jparams
 from levelsetfusion_tpu.models.single_level import solve_single_level as jsolve
 from levelsetfusion_tpu.utils.config import PRESETS as JPRESETS
 from levelsetfusion_tpu_torch.models import params as tparams
+from levelsetfusion_tpu_torch.models.single_level import SolveLoop
 from levelsetfusion_tpu_torch.models.single_level import solve_single_level as tsolve
+from levelsetfusion_tpu_torch.ops.kernels.fused_gradient import (
+    fused_gradient_update,
+    fused_gradient_update_reference,
+    sobolev_taps,
+    to_component_major,
+)
+from levelsetfusion_tpu_torch.ops.kernels.resample import (
+    warp_field_cm,
+    warp_field_cm_reference,
+)
 from tests.torch_parity import assert_close, n, t, tsdf_like
 
 CONFIG3 = dict(
@@ -120,3 +134,144 @@ def test_solver_params_from_jax_drops_tpu_fields():
     d = {**dataclasses.asdict(JPRESETS["config3_3d_full_energy"].solver),
          "smoothing_mode": "killing"}
     assert tparams.solver_params_from_jax(d).smoothing_mode is tparams.SmoothingMode.KILLING
+
+
+def _serial(canonical, live, p, initial_warp):
+    """The serial loop: the host reads ``max_update`` after every iteration
+    (the port's loop before the device flag)."""
+    warp_cm = to_component_major(initial_warp)
+    kw = dict(w_data=p.data_term_weight, w_smooth=p.smoothing_term_weight,
+              w_ls=p.level_set_term_weight,
+              killing=p.smoothing_mode is tparams.SmoothingMode.KILLING,
+              gamma=p.rigidity_enforcement_factor, band_union=p.band_union_only,
+              taps=sobolev_taps(p.sobolev_kernel_size, p.sobolev_strength)
+              if p.sobolev_smoothing else ())
+    n = p.max_iterations
+    threshold = float(np.float32(p.convergence_threshold))
+    telemetry = torch.zeros((5, n))
+    rate = torch.tensor(p.learning_rate)
+    prev = torch.tensor(float("inf"))
+    max_disp = torch.amax(torch.abs(warp_cm), dim=(1, 2, 3))
+    max_update, it = float("inf"), 0
+    while it < n and max_update >= threshold:
+        warp_cm, stats = fused_gradient_update(warp_field_cm(live, warp_cm), canonical,
+                                               warp_cm, rate, **kw)
+        energy = stats[0] + stats[1] + stats[2]
+        if p.adaptive_learning_rate:
+            rate = torch.where(energy > prev, rate * 0.5, rate)
+        prev = energy
+        telemetry[:, it] = torch.stack([stats[0], stats[1], stats[2], stats[4],
+                                        stats[3] / float(canonical.numel())])
+        max_disp = torch.maximum(max_disp, stats[5:8])
+        max_update = float(stats[4])
+        it += 1
+    max_disp = torch.maximum(max_disp, torch.amax(torch.abs(warp_cm), dim=(1, 2, 3)))
+    return warp_cm.movedim(0, -1), it, max_update < threshold, telemetry, max_disp, rate
+
+
+LOOP_CASES = {
+    "cap5": dict(max_iterations=5, convergence_threshold=0.0),
+    "cap37": dict(max_iterations=37, convergence_threshold=0.0, level_set_term_weight=0.0,
+                  sobolev_smoothing=False),
+    "converges": dict(max_iterations=60, convergence_threshold=0.03),
+    "halving": dict(max_iterations=20, convergence_threshold=0.0, learning_rate=2.5,
+                    sobolev_smoothing=False),
+    "zero": dict(max_iterations=0),
+}
+
+
+@pytest.mark.parametrize("k", [1, 3, 16])
+@pytest.mark.parametrize("case", sorted(LOOP_CASES))
+def test_device_loop_equals_serial_loop_and_jax(case, k):
+    """Any check interval gives the serial loop's results exactly: the
+    iteration count, ``converged``, the warp, the telemetry (zero past the
+    count) and max |u|; the adaptive rate halves where the serial loop's
+    does. And the JAX solve's, within the solver tolerances."""
+    canonical, live, warp = tsdf_like((12, 10, 8), 31, warp_scale=0.3)
+    jp, tp = _params(**LOOP_CASES[case])
+    loop = SolveLoop(canonical.shape, tp, "cpu", check_every=k)
+    got = loop.solve(t(canonical), t(live), t(warp))
+    w, it, conv, tel, md, rate = _serial(t(canonical), t(live), tp, t(warp))
+    assert (got.iterations, got.converged) == (it, conv)
+    np.testing.assert_array_equal(n(got.warp), n(w))
+    np.testing.assert_array_equal(np.stack([n(b) for b in got.telemetry]), n(tel))
+    np.testing.assert_array_equal(n(got.max_abs_displacement), n(md))
+    assert float(loop.rate) == float(rate)
+    if case == "converges":
+        assert got.converged and 0 < it < 60 and (k == 1 or it % k)  # stops mid-chunk
+    if case == "halving":
+        assert float(rate) < tp.learning_rate
+    if tp.max_iterations:  # JAX's solve does not trace with 0 (an index into size 0)
+        want = jsolve(jnp.asarray(canonical), jnp.asarray(live), jp, jnp.asarray(warp))
+        _compare(got, want, tp.max_iterations)
+
+
+def test_loop_serves_a_sequence_of_solves():
+    """One SolveLoop reused for solves of other inputs gives what a new one
+    gives each time (no state carried over)."""
+    tp = _params(max_iterations=12, convergence_threshold=0.02)[1]
+    loop = SolveLoop((12, 10, 8), tp, "cpu", check_every=4)
+    for seed in (40, 41, 42):
+        canonical, live, warp = (t(a) for a in tsdf_like((12, 10, 8), seed, warp_scale=0.3))
+        got, want = loop.solve(canonical, live, warp), tsolve(canonical, live, tp, warp)
+        assert (got.iterations, got.converged) == (want.iterations, want.converged)
+        np.testing.assert_array_equal(n(got.warp), n(want.warp))
+        for a, b in zip(got.telemetry, want.telemetry):
+            np.testing.assert_array_equal(n(a), n(b))
+
+
+def test_flag_off_leaves_outputs_unwritten():
+    """With the flag false the plain versions compute nothing: the resample
+    and the stats come back NaN (the kernels' unwritten outputs) and ``out``
+    keeps what it held; with it true they equal the calls without it."""
+    canonical, live, warp = (t(a) for a in tsdf_like((6, 5, 4), 50))
+    warp_cm = to_component_major(warp)
+    on, off = torch.tensor(True), torch.tensor(False)
+    assert torch.isnan(warp_field_cm_reference(live, warp_cm, off)).all()
+    np.testing.assert_array_equal(n(warp_field_cm(live, warp_cm, active=on)),
+                                  n(warp_field_cm(live, warp_cm)))
+    rate = torch.tensor(0.3)
+    out = torch.full_like(warp_cm, 7.0)
+    new, stats = fused_gradient_update_reference(live, canonical, warp_cm, rate, out=out,
+                                                 active=off)
+    assert new is out and bool((out == 7.0).all()) and torch.isnan(stats).all()
+    new, stats = fused_gradient_update(live, canonical, warp_cm, rate, out=out, active=on)
+    want_w, want_s = fused_gradient_update(live, canonical, warp_cm, rate)
+    assert new is out
+    np.testing.assert_array_equal(n(out), n(want_w))
+    np.testing.assert_array_equal(n(stats), n(want_s))
+    with pytest.raises(ValueError, match="apart from warp_cm"):
+        fused_gradient_update(live, canonical, warp_cm, rate, out=warp_cm)
+    with pytest.raises(TypeError, match="0-d bool"):
+        warp_field_cm(live, warp_cm, active=torch.tensor(1.0))
+
+
+def test_each_loop_brings_its_own_ticket(monkeypatch):
+    """B2's completion ticket is the loop's own: a captured graph replays on
+    whatever stream is current, so two loops must never share one, and
+    every B2 call a loop makes passes its ticket."""
+    from levelsetfusion_tpu_torch.models import single_level
+
+    tp = _params(max_iterations=5, convergence_threshold=0.0)[1]
+    a, b = (SolveLoop((6, 5, 4), tp, "cpu", check_every=2) for _ in range(2))
+    assert a.ticket.data_ptr() != b.ticket.data_ptr()
+    assert a.ticket.dtype == torch.int32 and a.ticket.numel() == 1 and int(a.ticket) == 0
+    tickets = []
+
+    def spy(*args, ticket=None, **kw):
+        tickets.append(ticket)
+        return fused_gradient_update(*args, ticket=ticket, **kw)
+
+    monkeypatch.setattr(single_level, "fused_gradient_update", spy)
+    canonical, live, _ = (t(x) for x in tsdf_like((6, 5, 4), 60))
+    a.solve(canonical, live)
+    assert len(tickets) == 6 and all(x is a.ticket for x in tickets)  # 3 chunks of 2
+    with pytest.raises(ValueError, match="one int32"):
+        fused_gradient_update(live, canonical, to_component_major(torch.zeros(6, 5, 4, 3)),
+                              torch.tensor(0.1), ticket=torch.zeros(1))
+
+
+def test_loop_device_is_required():
+    """The loop has no default device: a caller names the CPU to get it."""
+    with pytest.raises(TypeError):
+        SolveLoop((6, 5, 4), tparams.SolverParams())
