@@ -27,6 +27,18 @@ at 128³ x 8 frames through ``cli.run_experiment``, this slice's main path,
 with the launch counters reset just before, its checks, frames/s and a
 stop after frame 4's checkpoint resumed to the uninterrupted run's state,
 and the host seconds of its checkpoint saves beside its wall time (17).
+Then the slice of configs 1-2, rigid and the hierarchical fusion, each run
+with the launch counters reset just before and read just after: config1
+(2D) through the CLI against the CPU run, its B1 launches, and its 2D
+graph loop against the eager loop, exactly, both timed with a profiler
+breakdown (18); config2 through the CLI with its EWA depth pyramid and its
+block-mean one against the CPU (19); rigid_2d and rigid_3d through the CLI
+against the CPU and the truth, and their 30 steps under CUDA's sync debug
+mode (20); the hierarchical fusion at (32, 32, 24) x 4 frames against the
+CPU, at 128³ x 8 frames with its checks, graph captures, launches and
+frames/s beside the flat path's, and the EWA TSDF methods at 128³ against
+the CPU, timed (21). The kernels line's launches sum the main paths'
+(config3, config4, config1, config2, the hierarchical fusion).
 Beside each kernel it times, where one exists, one PyTorch call that
 computes the same function (the kernel's yardstick; the port never calls
 it), and it computes each kernel's bound from the run's tensors. Every
@@ -53,7 +65,7 @@ import torch
 import torch.nn.functional as F
 
 from levelsetfusion_tpu_torch import cli
-from levelsetfusion_tpu_torch.cli import _grid, _pair_3d, run_experiment
+from levelsetfusion_tpu_torch.cli import _grid, _pair_2d, _pair_3d, run_experiment
 from levelsetfusion_tpu_torch.core.grid import GridSpec
 from levelsetfusion_tpu_torch.experiments import (
     _sweep,
@@ -69,8 +81,9 @@ from levelsetfusion_tpu_torch.experiments import (
 )
 from levelsetfusion_tpu_torch.experiments._timing import SPIN_CYCLES, best_ms
 from levelsetfusion_tpu_torch.io import synthetic
-from levelsetfusion_tpu_torch.models import fusion
+from levelsetfusion_tpu_torch.models import fusion, single_level
 from levelsetfusion_tpu_torch.models.params import SmoothingMode, SolverParams
+from levelsetfusion_tpu_torch.models.rigid import solve_rigid_2d, solve_rigid_3d
 from levelsetfusion_tpu_torch.models.single_level import (
     CHECK_EVERY,
     SolveLoop,
@@ -87,7 +100,7 @@ from levelsetfusion_tpu_torch.ops.kernels.resample import (
     warp_field_cm,
     warp_field_cm_reference,
 )
-from levelsetfusion_tpu_torch.ops.tsdf import generate_tsdf_3d
+from levelsetfusion_tpu_torch.ops.tsdf import GenerationMethod, generate_tsdf_2d, generate_tsdf_3d
 from levelsetfusion_tpu_torch.utils import checkpoint
 from levelsetfusion_tpu_torch.utils.config import PRESETS
 
@@ -95,11 +108,14 @@ PRESET = "config3_3d_full_energy"
 FULL = (128, 128, 128)
 RAGGED = (37, 50, 61)
 CONFIG1 = (96, 48)  # config1's 2D grid (utils/config.py)
+CONFIG2_LEVELS = ((24, 16), (48, 32), (96, 64))  # config2's 3 levels of (96, 64)
+HIER_LEVELS = ((32, 32, 32), (64, 64, 64))  # the hierarchical fusion's coarse levels of 128³
 STREAM_ROUNDS = 20
 # B2's tiles are 8 x 32 (terms) and 16 x 32 (update) (y, z) columns: shapes
 # that straddle them (z over many tiles with a ragged tail, an extent of 1),
-# and config5's per-shard shape, z 16 tiles wide.
-B2_SHAPES = (FULL, RAGGED, (9, 33, 300), (1, 6, 130), (64, 512, 512))
+# config5's per-shard shape, z 16 tiles wide, and the hierarchical fusion's
+# coarse levels.
+B2_SHAPES = (FULL, RAGGED, (9, 33, 300), (1, 6, 130), (64, 512, 512), *HIER_LEVELS)
 BIG = (256, 256, 256)  # g (201 MB) no longer fits the 50 MB L2
 PROFILE_ITERS = 2 * CHECK_EVERY  # two replays of the graph loop, no frozen iteration
 # Phase 4b's cases on config3's inputs: the preset (converges mid-chunk), a
@@ -120,6 +136,10 @@ C4_SMALL = fusion.FusionPipelineConfig(
                         convergence_threshold=2e-3, smoothing_mode=SmoothingMode.KILLING,
                         adaptive_learning_rate=True))
 C4_STOP = 4  # the resume check stops the run after this frame's checkpoint
+C4_SMALL_HIER = dataclasses.replace(C4_SMALL, hierarchical=True)  # 3 levels
+C1, C2 = "config1_2d_pair", "config2_2d_hierarchical"
+RIGID = ("rigid_2d", "rigid_3d")
+EWA = (GenerationMethod.EWA_IMAGE, GenerationMethod.EWA_TSDF, GenerationMethod.EWA_TSDF_INCLUSIVE)
 # tests/test_fused_gradient.py CASES: (w_smooth, w_ls, killing, sobolev, band_union)
 CASES = [
     (0.2, 0.0, False, False, True),
@@ -272,12 +292,17 @@ def phase1_build():
           f"spill bytes B / stack frame bytes B / static shared S: {'; '.join(parts)}")
 
 
+B1_SHAPES = (FULL, RAGGED, CONFIG1, *CONFIG2_LEVELS, *HIER_LEVELS)
+
+
 def phase2_resample():
-    """B1 is bit-exact with its plain version: at 128^3, RAGGED (Z = 61, a
-    ragged last z tile) and config1's 2D grid (run as (X, 1, Z)), with |u|
-    up to 6 voxels, so that many corners read outside."""
+    """B1 is bit-exact with its plain version at every shape the main paths
+    give it: 128^3 (config3, config4 and its finest level), RAGGED (Z = 61,
+    a ragged last z tile), config1's and config2's 2D grids (run as (X, 1,
+    Z)) and the hierarchical fusion's coarse levels, with |u| up to 6
+    voxels, so that many corners read outside."""
     worst = 0.0
-    for shape, seed in ((FULL, 1), (RAGGED, 2), (CONFIG1, 3)):
+    for seed, shape in enumerate(B1_SHAPES, 1):
         rng = np.random.default_rng(seed)
         live = torch.from_numpy(
             np.tanh(rng.standard_normal(shape).astype(np.float32))
@@ -289,7 +314,7 @@ def phase2_resample():
         torch.cuda.synchronize()
         want = warp_field_cm_reference(live, warp)
         worst = max(worst, _close(f"resample {shape}", got, want, 0.0, 0.0))
-    print(f"[2] resample vs plain at {FULL}, {RAGGED} and {CONFIG1}, |u| <= 6: "
+    print(f"[2] resample vs plain at {B1_SHAPES}, |u| <= 6: "
           f"max|Δ| {worst} (exact)")
     return worst
 
@@ -401,9 +426,10 @@ def _max_diff(a, b):
 
 def _check_capture(loop, k):
     """The calls of each kernel that ``loop``'s capture recorded (what a
-    replay adds to its launch counter) must be the chunk's ``k``."""
+    replay adds to its launch counter) must be the chunk's ``k`` (B2's 0 in
+    2D, where the update is plain torch)."""
     recorded = {m.__name__.rsplit(".", 1)[-1]: c for m, c in loop.graph_launches.items()}
-    if recorded != {"resample": k, "fused_gradient": k}:
+    if recorded != {"resample": k, "fused_gradient": k if loop.dim == 3 else 0}:
         raise AssertionError(f"the capture of a {k}-iteration chunk recorded {recorded}")
 
 
@@ -649,7 +675,7 @@ def _frozen_us(canonical, live, params):
             f"a frozen one {frozen:.1f} us")
 
 
-def _profile_solve(loop, canonical, live, wall_us, label):
+def _profile_solve(loop, canonical, live, wall_us, label, where=f"config3 solve at {FULL}"):
     """``torch.profiler`` over one solve of ``loop`` (after an unprofiled
     one): device µs per iteration by kernel name and device-busy µs per
     iteration (the union of the device events), against ``wall_us``, the
@@ -682,7 +708,7 @@ def _profile_solve(loop, canonical, live, wall_us, label):
         reach = max(reach, end)
     table = ", ".join(f"{k} {v / iters:.1f}" for k, v in
                       sorted(per_name.items(), key=lambda kv: -kv[1])[:10])
-    return (f"profiler over a {iters}-iteration config3 {label} solve at {FULL}: device busy "
+    return (f"profiler over a {iters}-iteration {label} {where}: device busy "
             f"{busy / iters:.1f} us/iter against {wall_us:.1f} us/iter of wall without the "
             f"profiler: host gap {wall_us - busy / iters:.1f} us/iter, idle share "
             f"{1 - busy / iters / wall_us:.1%} (wall with the profiler "
@@ -1248,42 +1274,53 @@ def _frame_warps(store):
     return cb
 
 
-def phase16_config4_parity():
-    """The fusion at tests/test_fusion.py's small size on the card against
-    the plain fusion on the CPU: per-frame iterations equal; the final warp,
-    and the canonical and weights away from voxels whose weight may fall
-    either way, within the solve's tolerances (rtol 3e-4, atol 3e-6). A
-    weight counts |Φ_w| < 1 - 1e-5: a voxel whose warped value lies closer
-    to that bound than the two runs' warped values differ (in some frame)
-    may count on one side only; those are counted, at most 1% of the
-    volume. Then the pipelined loop against the serial loop on the card:
-    reports, states and warps equal."""
-    seq = synthetic.snoopy_style_sequence_3d(**C4_SMALL_SEQ)
-    warps = {"cpu": {}, "cuda": {}, "serial": {}}
-    runs = {name: fusion.fuse_sequence(seq.frames, seq.camera, C4_SMALL, device=device,
-                                       frame_callback=_frame_warps(warps[name]),
-                                       pipelined=name != "serial")
-            for name, device in (("cpu", "cpu"), ("cuda", "cuda"), ("serial", "cuda"))}
+def _fusion_on_card_and_cpu(seq, config, warps):
+    """``config``'s fusion of ``seq`` on the card (pipelined) and on the CPU,
+    each frame's warp kept in ``warps["cuda"]``, ``warps["cpu"]``, held to
+    each other: per-frame iterations equal; the final warp, and the
+    canonical and weights away from voxels whose weight may fall either
+    way, within the solve's tolerances (rtol 3e-4, atol 3e-6). A weight
+    counts |Φ_w| < 1 - 1e-5: a voxel whose warped value lies closer to that
+    bound than the two runs' warped values differ (in some frame) may count
+    on one side only; those are counted, at most 1% of the volume. Returns
+    (the card's run, its iterations, max|Δ|s, near voxels, their share)."""
+    runs = {device: fusion.fuse_sequence(seq.frames, seq.camera, config, device=device,
+                                         frame_callback=_frame_warps(warps[device]))
+            for device in ("cpu", "cuda")}
     torch.cuda.synchronize()
-    ref, got, serial = runs["cpu"], runs["cuda"], runs["serial"]
+    ref, got = runs["cpu"], runs["cuda"]
     its = [r.solver_iterations for r in got.reports]
     if its != [r.solver_iterations for r in ref.reports]:
         raise AssertionError(f"iterations {its} != cpu {[r.solver_iterations for r in ref.reports]}")
     bound = np.float32(1.0 - fusion.TRUNCATION_EPS)
-    near = torch.zeros(C4_SMALL.grid.shape, dtype=torch.bool)
+    near = torch.zeros(config.grid.shape, dtype=torch.bool)
     for t, warp in warps["cpu"].items():
-        live = fusion._tsdf(seq.frames[t], seq.camera, C4_SMALL, torch.device("cpu"))
+        live = fusion._tsdf(seq.frames[t], seq.camera, config, torch.device("cpu"))
         want, have = warp_field(live, warp), warp_field(live, warps["cuda"][t])
         near |= torch.abs(torch.abs(want) - float(bound)) <= float(torch.max(torch.abs(have - want)))
     far = ~near
     share = float(near.float().mean())
     if share > 0.01:
         raise AssertionError(f"{share:.2%} of the voxels lie near the band's bound")
-    errs = {"warp": _close("config4 final warp", got.final_warp.cpu(), ref.final_warp, 3e-4, 3e-6),
-            "canonical": _close("config4 canonical", got.state.canonical.cpu()[far],
+    errs = {"warp": _close("fusion final warp", got.final_warp.cpu(), ref.final_warp, 3e-4, 3e-6),
+            "canonical": _close("fusion canonical", got.state.canonical.cpu()[far],
                                 ref.state.canonical[far], 3e-4, 3e-6),
-            "weights": _close("config4 weights", got.state.weights.cpu()[far],
+            "weights": _close("fusion weights", got.state.weights.cpu()[far],
                               ref.state.weights[far], 0.0, 0.0)}
+    return got, its, errs, int(near.sum()), share
+
+
+def phase16_config4_parity():
+    """The fusion at tests/test_fusion.py's small size on the card against
+    the plain fusion on the CPU (``_fusion_on_card_and_cpu``). Then the
+    pipelined loop against the serial loop on the card: reports, states and
+    warps equal."""
+    seq = synthetic.snoopy_style_sequence_3d(**C4_SMALL_SEQ)
+    warps = {"cpu": {}, "cuda": {}, "serial": {}}
+    got, its, errs, near, share = _fusion_on_card_and_cpu(seq, C4_SMALL, warps)
+    serial = fusion.fuse_sequence(seq.frames, seq.camera, C4_SMALL, device="cuda",
+                                  frame_callback=_frame_warps(warps["serial"]), pipelined=False)
+    torch.cuda.synchronize()
     if got.reports != serial.reports:
         raise AssertionError(f"pipelined reports {got.reports} != serial {serial.reports}")
     for a, b in zip((*got.state, got.final_warp, *warps["cuda"].values()),
@@ -1292,7 +1329,7 @@ def phase16_config4_parity():
             raise AssertionError("the pipelined loop's state or warps differ from the serial loop's")
     print(f"[16] config4 fusion at {C4_SMALL.grid.shape}, {len(seq.frames)} frames, cuda vs cpu: "
           f"iterations {its} equal; max|Δ| {errs} (rtol 3e-4 atol 3e-6) away from "
-          f"{int(near.sum())} voxels near the band's bound ({share:.3%}); pipelined == serial "
+          f"{near} voxels near the band's bound ({share:.3%}); pipelined == serial "
           f"on cuda (reports, state, every frame's warp)")
 
 
@@ -1445,6 +1482,295 @@ def phase17_config4():
     return launches
 
 
+def _reset_launches():
+    resample.launch_count = 0
+    fused_gradient.launch_count = 0
+    torch.cuda.synchronize()
+
+
+def _read_launches():
+    torch.cuda.synchronize()
+    return {"resample": resample.launch_count, "fused_gradient": fused_gradient.launch_count}
+
+
+def _cli_run(cfg, device):
+    """``run_experiment`` into a temporary directory: (summary, wall s)."""
+    with tempfile.TemporaryDirectory() as out:
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        summary = run_experiment(cfg, out, device=device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        return summary, time.perf_counter() - t0
+
+
+def _level_launches(iterations):
+    """B1's and B2's launches of solves that each ran on their own new
+    SolveLoop (a warm-up and a capture each): ``_chunk_launches`` a solve."""
+    return sum(_chunk_launches([it]) for it in iterations)
+
+
+def phase18_config1():
+    """config1 (2D, 96 x 48) through ``cli.run_experiment`` on the card with
+    the launch counters reset: the iterations of the port's plain run on the
+    CPU, converged, the warp within rtol 3e-4 / atol 3e-6 of the CPU's, B1
+    launched 16 a replay + a warm-up + the final resample (B2 never: the 2D
+    update is plain torch). Then the 2D graph loop against the eager loop
+    reading the flag every iteration on the card (exact), both timed in
+    turns on the converged solve, and a profiler breakdown of each."""
+    cfg = PRESETS[C1]
+    grid = _grid(cfg)
+    canonical_cpu, live_cpu, _ = _pair_2d(cfg, grid, torch.device("cpu"))
+    ref = solve_single_level(canonical_cpu, live_cpu, cfg.solver)
+    solves, solve = [], cli.solve_single_level
+
+    def recording(*args, **kw):
+        solves.append(solve(*args, **kw))
+        return solves[-1]
+
+    cli.solve_single_level = recording
+    try:
+        _reset_launches()
+        summary, wall = _cli_run(cfg, "cuda")
+        launches = _read_launches()
+    finally:
+        cli.solve_single_level = solve
+    it = summary["iterations"]
+    if it != ref.iterations or not summary["converged"]:
+        raise AssertionError(f"config1: {it} iterations, converged {summary['converged']}; "
+                             f"the CPU run {ref.iterations}")
+    err = _close("config1 warp", solves[0].warp.cpu(), ref.warp, 3e-4, 3e-6)
+    want = {"resample": _chunk_launches([it]) + 1, "fused_gradient": 0}
+    if launches != want:
+        raise AssertionError(f"config1 launches {launches} for {it} iterations, want {want}")
+    numbers = [summary["residual_before"], summary["residual_after"], *summary["max_abs_displacement"]]
+    if not all(np.isfinite(numbers)) or not summary["residual_reduction"] >= 2.0:
+        raise AssertionError(f"config1 summary {summary}")
+    canonical, live = canonical_cpu.cuda(), live_cpu.cuda()
+    loops = {"serial": SolveLoop(CONFIG1, cfg.solver, "cuda", **SERIAL),
+             "graph": SolveLoop(CONFIG1, cfg.solver, "cuda")}
+    first = {mode: loop.solve(canonical, live) for mode, loop in loops.items()}
+    torch.cuda.synchronize()
+    got, exp = first["graph"], first["serial"]
+    diffs = {"iterations": abs(got.iterations - exp.iterations),
+             "warp": _max_diff(got.warp, exp.warp),
+             "telemetry": max(_max_diff(a, b) for a, b in zip(got.telemetry, exp.telemetry)),
+             "max|u|": _max_diff(got.max_abs_displacement, exp.max_abs_displacement),
+             "rate": abs(float(loops["graph"].rate) - float(loops["serial"].rate))}
+    if any(diffs.values()):
+        raise AssertionError(f"config1: the graph loop differs from the eager loop: {diffs}")
+    _check_capture(loops["graph"], CHECK_EVERY)
+    runs = {"serial": [], "graph": []}
+    for mode in ("graph", "serial", "serial", "graph"):
+        runs[mode].append(_solve_ms(loops[mode], canonical, live))
+    graph_ms, serial_ms = min(runs["graph"]), min(runs["serial"])
+    short = cfg.solver.replace(max_iterations=PROFILE_ITERS, convergence_threshold=0.0)
+    profiles = [_profile_solve(SolveLoop(CONFIG1, short, "cuda", **kw), canonical, live,
+                               ms / it * 1e3, label, where=f"config1 solve at {CONFIG1}")
+                for label, kw, ms in (("graph", {}, graph_ms), ("serial", SERIAL, serial_ms))]
+    print(f"[18] {C1} at {CONFIG1} on cuda through cli.run_experiment: iterations {it} (cpu "
+          f"{ref.iterations}; {-(-it // CHECK_EVERY)} replays of {CHECK_EVERY}), converged, "
+          f"residual {summary['residual_before']:.6f} -> {summary['residual_after']:.6f} "
+          f"(reduction {summary['residual_reduction']:.4f}), warp max|Δ| vs cpu {err:.3e} "
+          f"(rtol 3e-4 atol 3e-6), wall {wall * 1e3:.1f} ms (capture included), launches "
+          f"{launches}; graph loop == eager loop on cuda (max|Δ| 0); converged solve: graph "
+          f"{graph_ms:.2f} ms, {graph_ms / it * 1e3:.1f} us/iter, eager (flag read every "
+          f"iteration) {serial_ms:.2f} ms, {serial_ms / it * 1e3:.1f} us/iter, "
+          f"{serial_ms / graph_ms:.2f}x (runs graph, serial, serial, graph: "
+          f"{[round(v, 2) for v in (runs['graph'][0], *runs['serial'], runs['graph'][1])]} ms)")
+    for profile in profiles:
+        print(f"[18] {profile}")
+    return launches
+
+
+def phase19_config2():
+    """config2 (2D, 96 x 64, 3 levels, Sobolev) through the CLI with its
+    EWA depth pyramid, and once with the block-mean pyramid: per-level
+    iterations equal to the CPU run's, residuals within rtol 1e-3 of it,
+    B1 launched by each level's new loop (a warm-up, 16 a replay) and the
+    final resample."""
+    lines, total = [], {"resample": 0, "fused_gradient": 0}
+    for method in ("ewa_depth", "block_mean"):
+        cfg = dataclasses.replace(PRESETS[C2], pyramid_method=method)
+        cpu, _ = _cli_run(cfg, "cpu")
+        _reset_launches()
+        summary, wall = _cli_run(cfg, "cuda")
+        launches = _read_launches()
+        its = summary["iterations_per_level"]
+        if its != cpu["iterations_per_level"]:
+            raise AssertionError(f"config2 {method}: iterations {its}, cpu "
+                                 f"{cpu['iterations_per_level']}")
+        for key in ("residual_before", "residual_after"):
+            _close(f"config2 {method} {key}", torch.tensor(summary[key]), torch.tensor(cpu[key]),
+                   1e-3, 0.0)
+        want = {"resample": _level_launches(its) + 1, "fused_gradient": 0}
+        if launches != want:
+            raise AssertionError(f"config2 {method} launches {launches}, want {want}")
+        total = {k: total[k] + launches[k] for k in total}
+        lines.append(f"{method}: iterations per level {its} (cpu equal), converged "
+                     f"{summary['converged']}, residual {summary['residual_before']:.6f} -> "
+                     f"{summary['residual_after']:.6f} (reduction "
+                     f"{summary['residual_reduction']:.4f}; cpu {cpu['residual_reduction']:.4f}), "
+                     f"wall {wall * 1e3:.1f} ms (3 captures included), launches {launches}")
+    print(f"[19] {C2} at {PRESETS[C2].grid_shape} on cuda through cli.run_experiment: "
+          f"{'; '.join(lines)}")
+    return total
+
+
+def phase20_rigid():
+    """rigid_2d and rigid_3d through the CLI on the card: pose error <= 2e-3
+    (tests/test_rigid.py's bound) and the estimate within 1e-4 of the CPU
+    run's; then each solve's 30 Gauss-Newton steps with CUDA's sync debug
+    mode set to raise: no step reads a value back to the host."""
+    lines = []
+    for name in RIGID:
+        cfg = PRESETS[name]
+        cpu, _ = _cli_run(cfg, "cpu")
+        summary, wall = _cli_run(cfg, "cuda")
+        diff = float(np.max(np.abs(np.subtract(summary["estimated_extrinsic"],
+                                               cpu["estimated_extrinsic"]))))
+        if not summary["pose_error"] <= 2e-3 or diff > 1e-4:
+            raise AssertionError(f"{name}: pose error {summary['pose_error']}, estimate "
+                                 f"{diff} from the cpu's")
+        if not np.isfinite([summary["initial_energy"], summary["final_energy"]]).all():
+            raise AssertionError(f"{name}: energies {summary}")
+        lines.append(f"{name} pose error {summary['pose_error']:.3e} (cpu {cpu['pose_error']:.3e}), "
+                     f"estimate max|Δ| vs cpu {diff:.2e}, energy {summary['initial_energy']:.4f} "
+                     f"-> {summary['final_energy']:.3e}, wall {wall * 1e3:.1f} ms")
+    pair = synthetic.bump_wall_pair_2d(width=128, bump_height=0.04, live_shift_px=0.0)
+    depth2 = torch.from_numpy(pair.canonical_depth).cuda()
+    grid2 = _grid(PRESETS["rigid_2d"])
+    canonical2 = generate_tsdf_2d(depth2, pair.camera, grid2)
+    depth_np, cam = cli._rigid_depth_3d(PRESETS["rigid_3d"])
+    depth3 = torch.from_numpy(depth_np).cuda()
+    grid3 = _grid(PRESETS["rigid_3d"])
+    canonical3 = generate_tsdf_3d(depth3, cam, grid3)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        solve_rigid_2d(canonical2, depth2, pair.camera, grid2)
+        solve_rigid_3d(canonical3, depth3, cam, grid3)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print(f"[20] rigid through cli.run_experiment on cuda: {'; '.join(lines)}; both solves "
+          f"enqueue their 30 steps with no host read (sync debug mode 'error')")
+
+
+class _CountingLoop(SolveLoop):
+    """A SolveLoop that keeps every instance and each solve's iterations."""
+
+    made: list = []
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.solved = []
+        _CountingLoop.made.append(self)
+
+    def solve(self, *args, **kw):
+        res = super().solve(*args, **kw)
+        self.solved.append(res.iterations)
+        return res
+
+
+def _fps(ds, config):
+    """fuse_sequence alone: (result, frames/s from the second fused frame
+    on, as the CLI counts it)."""
+    stamps = []
+    result = fusion.fuse_sequence(ds.frames, ds.camera, config, device="cuda",
+                                  frame_callback=lambda t, s, w: stamps.append(time.perf_counter()))
+    return result, (len(stamps) - 1) / (stamps[-1] - stamps[0])
+
+
+def phase21_hierarchical_fusion():
+    """The hierarchical fusion (3 levels): at (32, 32, 24) x 4 frames on the
+    card against the CPU (phase 16's rules); at 128³ x 8 frames on config4's
+    sequence through ``fuse_sequence``, phase 17's checks, exactly 3 graph
+    captures (one loop per level shape), each capture recording 16 calls of
+    B1 and of B2, each loop replaying one chunk for every 16 iterations its
+    solves began, B1 and B2 launched as ``_chunk_launches`` of each level's
+    solved iterations (+ B1's blend resample a frame), frames/s beside the
+    flat path's in the same run. Then the three EWA methods of TSDF generation at 128³,
+    card against CPU, timed."""
+    seq = synthetic.snoopy_style_sequence_3d(**C4_SMALL_SEQ)
+    _, small_its, errs, near, share = _fusion_on_card_and_cpu(
+        seq, C4_SMALL_HIER, {"cpu": {}, "cuda": {}})
+    cfg = PRESETS[C4]
+    ds = cli._sequence_dataset(cfg)
+    flat_cfg = fusion.FusionPipelineConfig(
+        grid=_grid(cfg), narrow_band_width_voxels=cfg.narrow_band_width_voxels,
+        hierarchical=False, solver=cfg.solver)
+    hier_cfg = dataclasses.replace(flat_cfg, hierarchical=True)
+    loop_class, single_level.SolveLoop = single_level.SolveLoop, _CountingLoop
+    try:
+        _CountingLoop.made = []
+        _reset_launches()
+        result, fps = _fps(ds, hier_cfg)
+        launches = _read_launches()
+    finally:
+        single_level.SolveLoop = loop_class
+    _, flat_fps = _fps(ds, flat_cfg)
+    hier_again, hier_fps2 = _fps(ds, hier_cfg)
+    loops = _CountingLoop.made
+    captures = sum(loop.graph_launches is not None for loop in loops)  # at most one a loop
+    band0 = int(torch.count_nonzero(torch.abs(generate_tsdf_3d(
+        torch.from_numpy(ds.frames[0]).cuda(), ds.camera, _grid(cfg),
+        narrow_band_width_voxels=cfg.narrow_band_width_voxels)) < 1))
+    bands = [r.band_voxels for r in result.reports]
+    per_level = {tuple(loop.shape): loop.solved for loop in loops}
+    b2 = sum(_chunk_launches(loop.solved) for loop in loops)
+    want = {"resample": b2 + len(result.reports), "fused_gradient": b2}
+    state = result.state
+    for name, t in (("canonical", state.canonical), ("weights", state.weights),
+                    ("warp", result.final_warp)):
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"hierarchical fusion {name} is not finite")
+    if float(state.canonical.min()) < -1.0 or float(state.canonical.max()) > 1.0:
+        raise AssertionError("hierarchical fusion canonical leaves [-1, 1]")
+    if min(bands) < 0.5 * band0:
+        raise AssertionError(f"band voxels {bands} < half of frame 0's {band0}")
+    if captures != 3 or len(loops) != 3:
+        raise AssertionError(f"{captures} graph captures, {len(loops)} loops; want 3 and 3")
+    for loop in loops:
+        _check_capture(loop, CHECK_EVERY)
+        if loop.replays != sum(-(-it // CHECK_EVERY) for it in loop.solved):
+            raise AssertionError(f"the loop at {loop.shape} replayed {loop.replays} chunks "
+                                 f"for solves of {loop.solved} iterations")
+    if launches != want or not all(loop.replays for loop in loops):
+        raise AssertionError(f"hierarchical fusion launches {launches}, want {want}")
+    if hier_again.reports != result.reports:
+        raise AssertionError("a second hierarchical run reports otherwise")
+    print(f"[21] hierarchical fusion (3 levels) at {C4_SMALL.grid.shape} x "
+          f"{len(seq.frames)} frames, cuda vs cpu: iterations {small_its} equal; max|Δ| {errs} "
+          f"(rtol 3e-4 atol 3e-6) away from {near} voxels near the band's bound ({share:.3%})")
+    print(f"[21] hierarchical fusion of {C4}'s sequence at {cfg.grid_shape} x {cfg.num_frames} "
+          f"frames on cuda through fuse_sequence: {fps:.2f} and {hier_fps2:.2f} frames/s (flat "
+          f"path in the same run: {flat_fps:.2f}); iterations per level shape {per_level} "
+          f"(finest as reported: {[r.solver_iterations for r in result.reports]}); band voxels "
+          f"{bands} (frame 0's TSDF: {band0}); {captures} graph captures, replays "
+          f"{[loop.replays for loop in loops]}; launches {launches}")
+    depths = {device: torch.from_numpy(ds.frames[0]).to(device) for device in ("cpu", "cuda")}
+    lines = []
+    for method in (GenerationMethod.BASIC, *EWA):
+        def gen(device, method=method):
+            return generate_tsdf_3d(depths[device], ds.camera, _grid(cfg),
+                                    narrow_band_width_voxels=cfg.narrow_band_width_voxels,
+                                    method=method)
+        got, ref = gen("cuda"), gen("cpu")
+        diff = torch.abs(got.cpu() - ref)
+        off = float((diff > 1e-5).float().mean())
+        if off > 0.005:
+            raise AssertionError(f"TSDF {method.value}: {off:.3%} of voxels off the cpu's by > 1e-5")
+        ms = _time_ms(lambda: gen("cuda"), 5)
+        lines.append(f"{method.value} {ms:.3f} ms (max|Δ| {float(diff.max()):.2e}, {off:.4%} "
+                     f"> 1e-5)")
+    print(f"[21] TSDF generation at {cfg.grid_shape} from a {ds.camera.image_width}x"
+          f"{ds.camera.image_height} depth image on cuda vs cpu: {'; '.join(lines)}")
+    return launches
+
+
+
 def _row(name, source, replaces, numbers, per_iter=0):
     """A row of the ``kernels`` line; ``per_iter`` is the kernel's launches
     per config3 solve iteration."""
@@ -1460,7 +1786,7 @@ def main():
     err_fused = phase3_fused()
     phase4_solve_parity()
     serial_it = phase4b_device_loop()
-    phase5_main_path(serial_it)
+    main_launches = phase5_main_path(serial_it)
     times, grid_sample_ms = phase6_timing()
     phase7_ptxas()
     conv = phase8_mxu_conv()
@@ -1472,12 +1798,20 @@ def main():
     bisect = phase14_bisect()
     loops = phase15_loop_cost()
     phase16_config4_parity()
-    launches = phase17_config4()
+    paths = {"config3": main_launches, "config4": phase17_config4(),
+             "config1": phase18_config1(), "config2": phase19_config2()}
+    phase20_rigid()
+    paths["hierarchical_fusion"] = phase21_hierarchical_fusion()
+    by_path = {name: {path: c[name] for path, c in paths.items()}
+               for name in ("resample", "fused_gradient")}
     ms, plain_ms, bound = times["resample"]
-    resample_row = _numbers(launches["resample"], err_resample, ms, plain_ms, bound,
-                            grid_sample_ms)
+    resample_row = _numbers(sum(by_path["resample"].values()), err_resample, ms, plain_ms,
+                            bound, grid_sample_ms)
+    resample_row["launches_by_path"] = by_path["resample"]
     ms, plain_ms, bound = times["fused_gradient"]
-    fused_row = _numbers(launches["fused_gradient"], err_fused, ms, plain_ms, bound, None)
+    fused_row = _numbers(sum(by_path["fused_gradient"].values()), err_fused, ms, plain_ms,
+                         bound, None)
+    fused_row["launches_by_path"] = by_path["fused_gradient"]
     kernels = [
         _row("warp_field_cm", "resample.cu",
              "levelsetfusion_tpu/ops/pallas/resample.py:427", resample_row, 1),

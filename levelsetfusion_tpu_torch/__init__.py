@@ -9,17 +9,20 @@ Layout (same subpackages as the JAX package):
 
 - ``core``          — grid specs, camera models
 - ``io``            — synthetic depth data
-- ``ops``           — TSDF generation, derivatives, interpolation, energy
-                      terms, Sobolev filtering, gradient assembly (plain
-                      torch), and ``ops.kernels``: the hand-written CUDA
-                      kernels of the solve loop with their plain twins
-- ``models``        — solver parameters and the single-level warp solve
-- ``utils``         — experiment configs and telemetry
+- ``ops``           — TSDF generation (BASIC and EWA), derivatives,
+                      interpolation, energy terms, Sobolev filtering,
+                      gradient assembly, pyramids (plain torch), and
+                      ``ops.kernels``: the hand-written CUDA kernels of the
+                      solve loop with their plain twins
+- ``models``        — solver parameters, the single-level warp solve (2D
+                      and 3D), the hierarchical solve, rigid SDF-2-SDF and
+                      the fusion
+- ``utils``         — experiment configs, telemetry and checkpoints
 - ``cli``           — the experiment runner
 
 Layouts follow the JAX package: fields are ``(*spatial,)`` float32, warps
 ``(*spatial, D)`` in voxel units; inside the solve loop the warp is
-component-major ``(3, X, Y, Z)``.
+component-major ``(D, *spatial)``.
 """
 
 import torch

@@ -2,18 +2,22 @@
 
 Usage:
     python -m levelsetfusion_tpu_torch.cli --list
+    python -m levelsetfusion_tpu_torch.cli --preset config1_2d_pair --out runs/c1
     python -m levelsetfusion_tpu_torch.cli --preset config3_3d_full_energy --out runs/c3
     python -m levelsetfusion_tpu_torch.cli --preset config4_3d_fusion --out runs/c4 [--resume]
     python -m levelsetfusion_tpu_torch.cli --config my_config.json --out runs/x --device cuda
 
 A run writes config.json, telemetry.csv, events.jsonl and summary.json, with
 the JAX run's keys, less its TPU fast-path and clamp-contract entries and
-plus the device and the CUDA kernels' launch counts. Two modes run:
-``single_pair_3d`` (config3) and ``multi_frame_3d`` (config4: the flat
+plus the device and the CUDA kernels' launch counts. The single-device
+modes run: ``single_pair_2d`` (config1) and ``single_pair_3d`` (config3),
+``hierarchical_2d`` (config2: coarse-to-fine over a block-mean or an EWA
+depth pyramid), ``rigid_2d`` and ``rigid_3d`` (SDF-2-SDF pose recovery
+against a known extrinsic), and ``multi_frame_3d`` (config4: the flat
 fusion of a depth sequence, with checkpoints every ``checkpoint_every``
-frames under ``<out>/checkpoints`` and ``--resume`` from the latest); the
-other modes raise ``NotImplementedError`` naming their ROADMAP item. Plots
-and the fusion video wait for the port of ``utils/visualization.py``
+frames under ``<out>/checkpoints`` and ``--resume`` from the latest). The
+sharded modes raise ``NotImplementedError`` naming their ROADMAP item.
+Plots and the fusion video wait for the port of ``utils/visualization.py``
 (ROADMAP A10b).
 """
 
@@ -27,6 +31,7 @@ import time
 import numpy as np
 import torch
 
+from levelsetfusion_tpu_torch.core.camera import PinholeCamera, se2_matrix
 from levelsetfusion_tpu_torch.core.grid import GridSpec
 from levelsetfusion_tpu_torch.io import datasets, synthetic
 from levelsetfusion_tpu_torch.models.fusion import (
@@ -36,21 +41,23 @@ from levelsetfusion_tpu_torch.models.fusion import (
     fuse_frame,
     fuse_sequence,
 )
-from levelsetfusion_tpu_torch.models.single_level import SolveLoop, solve_single_level
+from levelsetfusion_tpu_torch.models.hierarchical import (
+    solve_hierarchical,
+    solve_hierarchical_from_depth,
+)
+from levelsetfusion_tpu_torch.models.params import HierarchicalParams
+from levelsetfusion_tpu_torch.models.rigid import solve_rigid_2d, solve_rigid_3d
+from levelsetfusion_tpu_torch.models.single_level import solve_single_level
 from levelsetfusion_tpu_torch.ops.kernels import fused_gradient, resample
 from levelsetfusion_tpu_torch.ops.kernels.fused_gradient import to_component_major
 from levelsetfusion_tpu_torch.ops.kernels.resample import warp_field_cm
-from levelsetfusion_tpu_torch.ops.tsdf import generate_tsdf_3d
+from levelsetfusion_tpu_torch.ops.tsdf import generate_tsdf_2d, generate_tsdf_3d
 from levelsetfusion_tpu_torch.utils import checkpoint
 from levelsetfusion_tpu_torch.utils.config import PRESETS, ExperimentConfig
 from levelsetfusion_tpu_torch.utils.telemetry import RunLogger, telemetry_to_rows
 
 # Modes of the JAX CLI that this package does not run yet, by ROADMAP item.
 _NOT_PORTED = {
-    "single_pair_2d": "A8",
-    "hierarchical_2d": "A8",
-    "rigid_2d": "A8",
-    "rigid_3d": "A8",
     "sharded_3d": "A11/A12",
     "multi_frame_sharded_3d": "A11",
     "hierarchical_sharded_3d": "A12",
@@ -86,6 +93,23 @@ def _residual_metrics(canonical, live, warped) -> dict:
         "residual_after": r1,
         "residual_reduction": r0 / max(r1, 1e-12),
     }
+
+
+def _pair_2d(cfg: ExperimentConfig, grid: GridSpec, device: torch.device):
+    """The synthetic bump-on-a-wall scanline pair as canonical and live
+    TSDFs, and the pair itself."""
+    kwargs = dict(width=128, bump_height=0.04, bump_radius_px=20.0, live_shift_px=4.0)
+    kwargs.update(cfg.dataset_kwargs)
+    pair = synthetic.bump_wall_pair_2d(**kwargs)
+
+    def gen(depth: np.ndarray) -> torch.Tensor:
+        return generate_tsdf_2d(
+            torch.from_numpy(depth).to(device), pair.camera, grid,
+            narrow_band_width_voxels=cfg.narrow_band_width_voxels,
+            method=cfg.generation_method,
+        )
+
+    return gen(pair.canonical_depth), gen(pair.live_depth), pair
 
 
 def _pair_3d(cfg: ExperimentConfig, grid: GridSpec, device: torch.device):
@@ -137,13 +161,13 @@ def _resume_fusion(state, warp, frames, camera, pipeline_cfg, on_frame, frame_of
     already blended into ``state``), so its first frame is skipped."""
     frame_iter = iter(frames)
     next(frame_iter, None)  # the checkpointed frame itself
-    loop = SolveLoop(pipeline_cfg.grid.shape, pipeline_cfg.solver, state.canonical.device)
+    loops = {}
     reports = []
     solver = pipeline_cfg.solver
     for j, frame in enumerate(frame_iter, start=1):
         t = frame_offset + j
         state, warp, report, solver = fuse_frame(
-            state, None, warp, solver, pipeline_cfg, t, depth=frame, camera=camera, loop=loop
+            state, None, warp, solver, pipeline_cfg, t, depth=frame, camera=camera, loops=loops
         )
         reports.append(report)
         _call_frame_callback(on_frame, t, state, warp, report, solver)
@@ -216,11 +240,111 @@ def _multi_frame_3d(cfg, out_dir, logger, device, resume) -> dict:
     )
 
 
+def _single_pair(cfg, logger, device) -> dict:
+    """config1 (2D) or config3 (3D): one solve of the synthetic pair."""
+    grid = _grid(cfg)
+    if cfg.mode == "single_pair_2d":
+        canonical, live, _ = _pair_2d(cfg, grid, device)
+    else:
+        canonical, live = _pair_3d(cfg, grid, device)
+    res = solve_single_level(canonical, live, cfg.solver)
+    logger.log_solve(res)
+    warped = warp_field_cm(live, to_component_major(res.warp))
+    rows = telemetry_to_rows(res.telemetry, res.iterations)
+    return dict(
+        iterations=int(res.iterations),
+        converged=bool(res.converged),
+        final_data_energy=rows[-1]["data_energy"] if rows else None,
+        **_residual_metrics(canonical, live, warped),
+        max_abs_displacement=[float(v) for v in res.max_abs_displacement.cpu()],
+    )
+
+
+def _hierarchical_2d(cfg, logger, device) -> dict:
+    """config2: the coarse-to-fine solve of the 2D pair, its coarse levels
+    block means of the finest TSDFs or (``pyramid_method="ewa_depth"``)
+    generated from the depth with EWA on coarsened grids."""
+    grid = _grid(cfg)
+    canonical, live, pair = _pair_2d(cfg, grid, device)
+    hp = HierarchicalParams(levels=cfg.levels, base=cfg.solver)
+    if cfg.pyramid_method == "ewa_depth":
+        res = solve_hierarchical_from_depth(
+            torch.from_numpy(pair.canonical_depth).to(device),
+            torch.from_numpy(pair.live_depth).to(device),
+            pair.camera, grid, hp, narrow_band_width_voxels=cfg.narrow_band_width_voxels,
+        )
+    else:
+        res = solve_hierarchical(canonical, live, hp)
+    for level, lr in enumerate(res.level_results):
+        logger.log_solve(lr, level=level)
+    warped = warp_field_cm(live, to_component_major(res.warp))
+    finest = res.level_results[-1]
+    return dict(
+        levels=cfg.levels,
+        iterations_per_level=[int(r.iterations) for r in res.level_results],
+        converged=bool(finest.converged),
+        **_residual_metrics(canonical, live, warped),
+        max_abs_displacement=[float(v) for v in finest.max_abs_displacement.cpu()],
+    )
+
+
+def _rigid_depth_3d(cfg) -> tuple:
+    """rigid_3d's depth image and camera: a narrow camera (the grid covers
+    the blob and the wall around it) on TWO blobs, so that no rotation
+    about a blob's axis leaves the energy unchanged and all six DoF are
+    pinned."""
+    kwargs = dict(wall_depth=0.4, blob_radius_px=10.0, blob_height=0.06)
+    kwargs.update(cfg.dataset_kwargs)
+    cam = PinholeCamera(fx=48.0, fy=48.0, cx=24.0, cy=24.0, image_width=48, image_height=48)
+    second = {**kwargs, "blob_radius_px": kwargs["blob_radius_px"] * 0.6,
+              "blob_height": kwargs["blob_height"] * 0.7, "blob_center_px": (14.0, 31.0)}
+    depth = np.minimum(synthetic.blob_wall_depth_3d(cam, **kwargs),
+                       synthetic.blob_wall_depth_3d(cam, **second))
+    return depth, cam
+
+
+def _rigid(cfg, logger, device) -> dict:
+    """rigid_2d / rigid_3d: the canonical TSDF is generated under a known
+    extrinsic, and SDF-2-SDF recovers it from the identity; the summary
+    holds the pose error against that truth."""
+    grid = _grid(cfg)
+    if cfg.mode == "rigid_2d":
+        kwargs = dict(width=128, bump_height=0.04, live_shift_px=0.0)
+        kwargs.update(cfg.dataset_kwargs)
+        pair = synthetic.bump_wall_pair_2d(**kwargs)
+        depth = torch.from_numpy(pair.canonical_depth).to(device)
+        true_ext = torch.from_numpy(se2_matrix(0.02, 0.008, 0.004)).to(device)
+        canonical = generate_tsdf_2d(depth, pair.camera, grid, extrinsic=true_ext)
+        res = solve_rigid_2d(canonical, depth, pair.camera, grid)
+    else:
+        depth_np, cam = _rigid_depth_3d(cfg)
+        depth = torch.from_numpy(depth_np).to(device)
+        true_ext = torch.eye(4, device=device)
+        true_ext[0, 3], true_ext[2, 3] = 0.012, -0.008
+        nb = cfg.narrow_band_width_voxels
+        canonical = generate_tsdf_3d(depth, cam, grid, extrinsic=true_ext,
+                                     narrow_band_width_voxels=nb)
+        res = solve_rigid_3d(canonical, depth, cam, grid, narrow_band_width_voxels=nb)
+    true_np, est = true_ext.cpu().numpy(), res.extrinsic.cpu().numpy()
+    e = res.energies.cpu().numpy()
+    return dict(
+        true_extrinsic=true_np.tolist(),
+        estimated_extrinsic=est.tolist(),
+        pose_error=float(np.max(np.abs(est - true_np))),
+        initial_energy=float(e[0]),
+        final_energy=float(e[-1]),
+    )
+
+
+_MODES = {"single_pair_2d": _single_pair, "single_pair_3d": _single_pair,
+          "hierarchical_2d": _hierarchical_2d, "rigid_2d": _rigid, "rigid_3d": _rigid}
+
+
 def run_experiment(cfg: ExperimentConfig, out_dir: str, device="cuda",
                    resume: bool = False) -> dict:
     """Run one experiment into ``out_dir``; returns the summary. ``resume``
     (multi_frame_3d) continues from the latest checkpoint there."""
-    if cfg.mode not in ("single_pair_3d", "multi_frame_3d"):
+    if cfg.mode not in _MODES and cfg.mode != "multi_frame_3d":
         item = _NOT_PORTED.get(cfg.mode)
         raise NotImplementedError(
             f"mode {cfg.mode!r} is not ported yet"
@@ -234,21 +358,8 @@ def run_experiment(cfg: ExperimentConfig, out_dir: str, device="cuda",
     if cfg.mode == "multi_frame_3d":
         return _multi_frame_3d(cfg, out_dir, logger, device, resume)
     before = _launches({})
-
-    canonical, live = _pair_3d(cfg, _grid(cfg), device)
-    res = solve_single_level(canonical, live, cfg.solver)
-    logger.log_solve(res)
-    warped = warp_field_cm(live, to_component_major(res.warp))
-    rows = telemetry_to_rows(res.telemetry, res.iterations)
-    return logger.finish(
-        iterations=int(res.iterations),
-        converged=bool(res.converged),
-        final_data_energy=rows[-1]["data_energy"] if rows else None,
-        **_residual_metrics(canonical, live, warped),
-        max_abs_displacement=[float(v) for v in res.max_abs_displacement.cpu()],
-        device=str(device),
-        kernel_launches=_launches(before),
-    )
+    summary = _MODES[cfg.mode](cfg, logger, device)
+    return logger.finish(**summary, device=str(device), kernel_launches=_launches(before))
 
 
 def main(argv=None):

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 
@@ -46,6 +47,19 @@ class PinholeCamera:
     def scanline(self) -> Camera2d:
         """The x–z planar camera of this camera's central scanline."""
         return Camera2d(fx=self.fx, cx=self.cx, image_width=self.image_width)
+
+
+def identity_extrinsic(dim: int, device="cpu") -> torch.Tensor:
+    """Homogeneous identity camera-from-world matrix (3x3 for 2D, 4x4 for 3D)."""
+    return torch.eye(dim + 1, dtype=torch.float32, device=device)
+
+
+def se2_matrix(angle: float, tx: float, tz: float) -> np.ndarray:
+    """Homogeneous 3x3 rigid transform in the x–z plane."""
+    c, s = np.cos(angle), np.sin(angle)
+    return np.array(
+        [[c, -s, tx], [s, c, tz], [0.0, 0.0, 1.0]], dtype=np.float32
+    )
 
 
 def transform_points(matrix: torch.Tensor, points: torch.Tensor) -> torch.Tensor:

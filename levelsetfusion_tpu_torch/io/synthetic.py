@@ -1,9 +1,9 @@
 """Synthetic depth data. Twin of ``levelsetfusion_tpu/io/synthetic.py``.
 
-Deterministic numpy generators; cameras come from the port's ``core``. It
-carries the 3D blob-on-a-wall depth image and pair of the single-pair
-experiment and the snoopy-style sequence of the fusion experiment (config4);
-the 2D generators come with their slice (ROADMAP A8).
+Deterministic numpy generators; cameras come from the port's ``core``: the
+2D bump-on-a-wall scanline pair (configs 1–2 and ``rigid_2d``), the 3D
+blob-on-a-wall depth image and pair of the single-pair experiment, and the
+snoopy-style sequence of the fusion experiment (config4).
 """
 
 from __future__ import annotations
@@ -12,7 +12,13 @@ from typing import List, NamedTuple, Tuple
 
 import numpy as np
 
-from levelsetfusion_tpu_torch.core.camera import PinholeCamera
+from levelsetfusion_tpu_torch.core.camera import Camera2d, PinholeCamera
+
+
+class DepthPair2d(NamedTuple):
+    canonical_depth: np.ndarray  # (W,) meters
+    live_depth: np.ndarray  # (W,) meters
+    camera: Camera2d
 
 
 class DepthSequence3d(NamedTuple):
@@ -20,11 +26,45 @@ class DepthSequence3d(NamedTuple):
     camera: PinholeCamera
 
 
+def default_camera_2d(width: int = 128) -> Camera2d:
+    # Wide-fov scanline camera: view extent ±0.8z around the axis.
+    return Camera2d(fx=float(width) / 2.0, cx=width / 2.0, image_width=width)
+
+
 def default_camera_3d(width: int = 128, height: int = 128) -> PinholeCamera:
     f = float(width) / 2.0
     return PinholeCamera(
         fx=f, fy=f, cx=width / 2.0, cy=height / 2.0,
         image_width=width, image_height=height,
+    )
+
+
+def _bump(x: np.ndarray, center: float, radius: float, height: float) -> np.ndarray:
+    """Smooth C¹ bump: height * cos²(π/2 · d/radius) inside |d| < radius."""
+    d = (x - center) / radius
+    return np.where(np.abs(d) < 1.0, height * np.cos(0.5 * np.pi * d) ** 2, 0.0)
+
+
+def bump_wall_pair_2d(
+    width: int = 128,
+    wall_depth: float = 0.4,
+    bump_height: float = 0.08,
+    bump_radius_px: float = 20.0,
+    bump_center_px: float | None = None,
+    live_shift_px: float = 6.0,
+    live_height_scale: float = 1.0,
+) -> DepthPair2d:
+    """Canonical: bump at ``bump_center_px``; live: bump shifted/scaled (a
+    smooth lateral warp near the bump, zero far away)."""
+    cam = default_camera_2d(width)
+    x = np.arange(width, dtype=np.float32)
+    c = width / 2.0 if bump_center_px is None else bump_center_px
+    canonical = wall_depth - _bump(x, c, bump_radius_px, bump_height)
+    live = wall_depth - _bump(
+        x, c + live_shift_px, bump_radius_px, bump_height * live_height_scale
+    )
+    return DepthPair2d(
+        canonical.astype(np.float32), live.astype(np.float32), cam
     )
 
 

@@ -1,5 +1,5 @@
 """Frame-to-canonical fusion. Twin of ``levelsetfusion_tpu/models/fusion.py``,
-its flat path.
+its flat and hierarchical paths.
 
 After the non-rigid solve aligns live frame t to the canonical frame, the
 warped live TSDF is blended into the canonical field with
@@ -10,41 +10,44 @@ truncation-aware running weighted averaging:
     W(v)    ←  W(v) + w_t(v)
 
 A frame is one device program, as in JAX: TSDF generation, the solve
-(``models/single_level.py``, its loop on the device), the resample of the
-live field by the solved warp (B1), the blend, and the frame's statistics
-packed into one small device tensor that the host reads once. The warp is
-warm-started from the previous frame (JAX's default; the hierarchical
-path's ``levels`` and the ``warm_start`` switch come with A8). ``fuse_sequence`` pipelines frames:
-frame t + 1 is dispatched from frame t's device outputs before frame t's
-statistics are read.
+(``models/single_level.py``, its loop on the device; with ``hierarchical``
+the coarse-to-fine solve of ``models/hierarchical.py`` over ``levels``
+levels), the resample of the live field by the solved warp (B1), the blend,
+and the frame's statistics packed into one small device tensor that the
+host reads once. With ``warm_start`` (JAX's default) a frame's solve starts
+from the previous frame's warp, else from zero. The flat path's
+``fuse_sequence`` pipelines frames: frame t + 1 is dispatched from frame
+t's device outputs before frame t's statistics are read; the hierarchical
+path reads each frame's statistics before the next, as JAX's does. A
+sequence keeps one ``SolveLoop`` per solve shape, so each shape's CUDA graph
+is captured once.
 
 Left out against JAX: its TPU resample clamps ±K, so JAX measures each
 frame's max |u| against K and redoes a frame with K raised; the port's
 resample is exact for any displacement, so there is no clamp, no redo and
 no contract check. ``FrameReport`` keeps those fields with JAX's values for
 the exact gather (``pallas_max_displacement=0``, ``contract_violations=()``).
-The hierarchical path is not ported yet (ROADMAP A8).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import inspect
-from typing import Callable, List, NamedTuple, Tuple
+from typing import Callable, Dict, List, NamedTuple, Tuple
 
 import numpy as np
 import torch
 
 from levelsetfusion_tpu_torch.core.camera import PinholeCamera
 from levelsetfusion_tpu_torch.core.grid import GridSpec
-from levelsetfusion_tpu_torch.models.params import SolverParams
-from levelsetfusion_tpu_torch.models.single_level import SolveLoop, SolveResult
+from levelsetfusion_tpu_torch.models.hierarchical import solve_hierarchical
+from levelsetfusion_tpu_torch.models.params import HierarchicalParams, SolverParams
+from levelsetfusion_tpu_torch.models.single_level import SolveLoop, SolveResult, loop_for
 from levelsetfusion_tpu_torch.ops.kernels.fused_gradient import to_component_major
 from levelsetfusion_tpu_torch.ops.kernels.resample import warp_field_cm
 from levelsetfusion_tpu_torch.ops.tsdf import GenerationMethod, generate_tsdf_3d
 
 TRUNCATION_EPS = 1e-5
-_HIERARCHICAL = "the hierarchical fusion path is not ported yet (ROADMAP A8)"
 
 
 class FusionState(NamedTuple):
@@ -98,6 +101,8 @@ class FusionPipelineConfig:
     generation_method: GenerationMethod = GenerationMethod.BASIC
     hierarchical: bool = True
     solver: SolverParams = SolverParams(learning_rate=1.0, convergence_threshold=1e-3)
+    levels: int = 3
+    warm_start: bool = True
 
 
 def _call_frame_callback(cb, t, state, warp, report, solver) -> None:
@@ -150,12 +155,22 @@ def _tsdf(depth, camera: PinholeCamera, config: FusionPipelineConfig,
     )
 
 
-def _dispatch(t, live, prev_state, init_warp, loop) -> _Frame:
+def _dispatch(t, live, prev_state, init_warp, loops, config, solver) -> _Frame:
     """Frame t's program after TSDF generation: solve, resample, blend and
-    the stats pack. Only the solve's flag reads wait for the device."""
-    res = loop.solve(prev_state.canonical, live, init_warp)
-    state = blend(prev_state, warp_field_cm(live, to_component_major(res.warp)))
-    return _Frame(t, state, res.warp, res.iterations, _pack_stats(res, state))
+    the stats pack. Only the solve's flag reads wait for the device.
+    ``loops`` maps a solve shape to its ``SolveLoop`` (filled at first use);
+    the hierarchical solve's statistics are its finest level's."""
+    if config.hierarchical:
+        hres = solve_hierarchical(
+            prev_state.canonical, live, HierarchicalParams(levels=config.levels, base=solver),
+            initial_warp=init_warp, loops=loops)
+        warp, res = hres.warp, hres.level_results[-1]
+    else:
+        loop = loop_for(loops, tuple(live.shape), solver, live.device)
+        res = loop.solve(prev_state.canonical, live, init_warp)
+        warp = res.warp
+    state = blend(prev_state, warp_field_cm(live, to_component_major(warp)))
+    return _Frame(t, state, warp, res.iterations, _pack_stats(res, state))
 
 
 def _report(frame: _Frame) -> FrameReport:
@@ -179,22 +194,20 @@ def fuse_frame(
     frame_index: int,
     depth=None,
     camera: PinholeCamera | None = None,
-    loop: SolveLoop | None = None,
+    loops: Dict[tuple, SolveLoop] | None = None,
 ):
-    """One flat-path fusion frame: solve, resample, blend, then the stats
-    read; with ``depth`` and ``camera`` the frame's TSDF is generated first
-    (``live`` may be None then). Returns ``(state, warp, report, solver)``,
-    as JAX's does. ``loop`` (for ``config.grid.shape`` and ``solver`` on
-    the state's device) carries one CUDA graph across frames; without it the
-    frame makes its own."""
-    if config.hierarchical:
-        raise NotImplementedError(_HIERARCHICAL)
+    """One fusion frame: solve (flat or hierarchical, as ``config`` says),
+    resample, blend, then the stats read; with ``depth`` and ``camera`` the
+    frame's TSDF is generated first (``live`` may be None then). Returns
+    ``(state, warp, report, solver)``, as JAX's does. ``loops`` (a dict, a
+    solve shape to its ``SolveLoop`` for ``solver`` on the state's device,
+    filled at first use) carries each shape's CUDA graph across frames;
+    without it the frame makes its own."""
     device = state.canonical.device
     if depth is not None:
         live = _tsdf(depth, camera, config, device)
-    if loop is None:
-        loop = SolveLoop(config.grid.shape, solver, device)
-    frame = _dispatch(frame_index, live, state, init_warp, loop)
+    frame = _dispatch(frame_index, live, state, init_warp, {} if loops is None else loops,
+                      config, solver)
     return frame.state, frame.warp, _report(frame), solver
 
 
@@ -217,16 +230,16 @@ def fuse_sequence(
     frame t's device outputs before frame t's packed stats are read, so the
     read waits for nothing. ``pipelined=False`` reads each frame's stats
     before the next is dispatched: the serial loop the tests hold the
-    pipelined one to. Both give the same reports and state.
+    pipelined one to. Both give the same reports and state. The
+    hierarchical path always runs serially, as JAX's does.
     """
-    if config.hierarchical:
-        raise NotImplementedError(_HIERARCHICAL)
     device = torch.device(device)
     grid = config.grid
     frame_iter = iter(frames)
     state = init_state(_tsdf(next(frame_iter), camera, config, device))
     warp = torch.zeros((*grid.shape, grid.dim), dtype=torch.float32, device=device)
-    loop = SolveLoop(grid.shape, config.solver, device)
+    loops: Dict[tuple, SolveLoop] = {}
+    pipelined = pipelined and not config.hierarchical
     reports: List[FrameReport] = []
 
     def emit(frame: _Frame) -> None:
@@ -237,7 +250,8 @@ def fuse_sequence(
 
     pending = None
     for t, depth in enumerate(frame_iter, start=1):
-        cur = _dispatch(t, _tsdf(depth, camera, config, device), state, warp, loop)
+        cur = _dispatch(t, _tsdf(depth, camera, config, device), state,
+                        warp if config.warm_start else None, loops, config, config.solver)
         state, warp = cur.state, cur.warp
         if pending is not None:
             emit(pending)

@@ -1,0 +1,129 @@
+"""Hierarchical coarse-to-fine warp solver. Twin of
+``levelsetfusion_tpu/models/hierarchical.py``.
+
+Builds power-of-two pyramids of the canonical and live TSDF fields, solves
+the warp at the coarsest level, then prolongates it (×2 upsample,
+displacement doubled) as the warm start of each finer level. A level's solve
+is ``SolveLoop.solve`` (``models/single_level.py``): on CUDA its loop is a
+captured graph, so a caller that solves many pairs (the fusion's frames)
+passes ``loops``, one ``SolveLoop`` per level shape, and each level's graph
+is captured once.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, NamedTuple
+
+import torch
+
+from levelsetfusion_tpu_torch.models.params import HierarchicalParams
+from levelsetfusion_tpu_torch.models.single_level import SolveLoop, SolveResult, loop_for
+from levelsetfusion_tpu_torch.ops import pyramid
+from levelsetfusion_tpu_torch.ops.tsdf import (
+    GenerationMethod,
+    generate_tsdf_2d,
+    generate_tsdf_3d,
+)
+
+
+class HierarchicalResult(NamedTuple):
+    warp: torch.Tensor  # finest-level warp
+    level_results: List[SolveResult]  # [coarsest, ..., finest]
+
+
+def build_pyramid_from_depth(
+    depth: torch.Tensor,
+    camera,
+    grid,
+    levels: int,
+    narrow_band_width_voxels: int = 20,
+    coarse_method: GenerationMethod | None = None,
+):
+    """EWA-aware pyramid: instead of block-mean downsampling the fine TSDF,
+    each coarse level is generated from the depth image on a coarsened grid
+    with EWA sampling (the coarse voxel's image footprint is integrated, not
+    aliased). Returns ([coarsest, ..., finest] fields, matching GridSpecs)."""
+    if coarse_method is None:
+        coarse_method = GenerationMethod.EWA_IMAGE
+    gen = generate_tsdf_2d if grid.dim == 2 else generate_tsdf_3d
+    fields, grids = [], []
+    g = grid
+    for level in range(levels):
+        method = GenerationMethod.BASIC if level == 0 else coarse_method
+        fields.append(gen(depth, camera, g, narrow_band_width_voxels=narrow_band_width_voxels,
+                          method=method))
+        grids.append(g)
+        if level + 1 < levels:
+            # Halve the band width in voxels as voxels double in size, so the
+            # metric truncation distance is kept across levels.
+            narrow_band_width_voxels = max(narrow_band_width_voxels // 2, 2)
+            g = g.coarsened(2)
+    return fields[::-1], grids[::-1]
+
+
+def downsample_warp(warp: torch.Tensor, times: int) -> torch.Tensor:
+    """A warp ``(*spatial, D)`` ``times`` levels coarser: block mean per
+    component, displacement halved each level."""
+    for _ in range(times):
+        warp = torch.stack(
+            [pyramid.downsample2x_mean(warp[..., c]) for c in range(warp.shape[-1])], dim=-1
+        ) * 0.5
+    return warp
+
+
+def solve_hierarchical(
+    canonical: torch.Tensor,
+    live: torch.Tensor,
+    params: HierarchicalParams = HierarchicalParams(),
+    initial_warp: torch.Tensor | None = None,
+    loops: Dict[tuple, SolveLoop] | None = None,
+) -> HierarchicalResult:
+    """Coarse-to-fine warp solve on the fields' device.
+
+    ``initial_warp`` (finest resolution) is downsampled to the coarsest level
+    if given, as warm-started multi-frame fusion does. ``loops``: see
+    ``_solve_over_pyramids``.
+    """
+    canon_pyr = pyramid.build_pyramid(canonical, params.levels)
+    live_pyr = pyramid.build_pyramid(live, params.levels)
+    warp = None
+    if initial_warp is not None:
+        warp = downsample_warp(initial_warp, params.levels - 1)
+    return _solve_over_pyramids(canon_pyr, live_pyr, params, warp, loops)
+
+
+def _solve_over_pyramids(canon_pyr, live_pyr, params: HierarchicalParams, warp=None,
+                         loops: Dict[tuple, SolveLoop] | None = None) -> HierarchicalResult:
+    """Solve each level from the prolongated warp of the one before.
+    ``loops`` maps a level shape to the ``SolveLoop`` that solves it; the
+    levels it lacks are added to it (a new dict per call when None)."""
+    loops = {} if loops is None else loops
+    results: List[SolveResult] = []
+    for level in range(params.levels):
+        canon_l, live_l = canon_pyr[level], live_pyr[level]
+        loop = loop_for(loops, tuple(canon_l.shape), params.base, canon_l.device)
+        res = loop.solve(canon_l, live_l, warp)
+        results.append(res)
+        if level + 1 < params.levels:
+            warp = pyramid.prolongate_warp(res.warp, target_shape=canon_pyr[level + 1].shape)
+        else:
+            warp = res.warp
+    return HierarchicalResult(warp=warp, level_results=results)
+
+
+def solve_hierarchical_from_depth(
+    canonical_depth: torch.Tensor,
+    live_depth: torch.Tensor,
+    camera,
+    grid,
+    params: HierarchicalParams = HierarchicalParams(),
+    narrow_band_width_voxels: int = 20,
+    coarse_method: GenerationMethod | None = None,
+    loops: Dict[tuple, SolveLoop] | None = None,
+) -> HierarchicalResult:
+    """Hierarchical solve on pyramids regenerated from depth with EWA."""
+    canon_pyr, _ = build_pyramid_from_depth(
+        canonical_depth, camera, grid, params.levels, narrow_band_width_voxels, coarse_method)
+    live_pyr, _ = build_pyramid_from_depth(
+        live_depth, camera, grid, params.levels, narrow_band_width_voxels, coarse_method)
+    return _solve_over_pyramids(canon_pyr, live_pyr, params, loops=loops)

@@ -13,7 +13,7 @@ from typing import Any, Dict
 
 from levelsetfusion_tpu_torch.ops.gradient import SmoothingMode
 
-__all__ = ["SmoothingMode", "SolverParams", "solver_params_from_jax"]
+__all__ = ["HierarchicalParams", "SmoothingMode", "SolverParams", "solver_params_from_jax"]
 
 # SolverParams fields of the JAX twin that only steer its TPU kernels.
 JAX_ONLY_FIELDS = (
@@ -50,6 +50,20 @@ class SolverParams:
     termination_check_interval: int = 1
 
     def replace(self, **kw) -> "SolverParams":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class HierarchicalParams:
+    """Coarse-to-fine solver parameters."""
+
+    levels: int = 3
+    # Per-level solve settings; max_iterations applies at every level.
+    base: SolverParams = SolverParams(
+        max_iterations=50, convergence_threshold=0.001, sobolev_smoothing=True
+    )
+
+    def replace(self, **kw) -> "HierarchicalParams":
         return dataclasses.replace(self, **kw)
 
 

@@ -1,12 +1,18 @@
 """Single-level non-rigid warp solver. Twin of
 ``levelsetfusion_tpu/models/single_level.py`` (its fused path).
 
-Gradient descent on the warp aligning ``live`` to ``canonical``. Each
-iteration is one resample (``ops/kernels/resample.py``) and one fused
-gradient/update (``ops/kernels/fused_gradient.py``); the warp is carried
-component-major ``(3, X, Y, Z)``, the layout both kernels take. The same
-loop runs on every device: the two kernel wrappers launch the CUDA kernels
-for CUDA tensors and their plain versions for CPU tensors.
+Gradient descent on the warp aligning ``live`` to ``canonical``, 2D or 3D.
+The warp is carried component-major ``(D, *spatial)``, the layout the
+kernels take. A 3D iteration is one resample (B1,
+``ops/kernels/resample.py``) and one fused gradient/update (B2,
+``ops/kernels/fused_gradient.py``). A 2D iteration is B1 (on an (X, 1, Z)
+view) and then, as the JAX twin's unfused ``_solver_step``, the plain
+assembly of ``ops/gradient.py::energy_gradient`` (the gradient of the warped
+field, the terms, the optional Sobolev filter) and u' = u − rate·g with its
+statistics: B2 does not take 2D, since its zero-padded Sobolev pass along a
+y axis of length 1 would scale g by the centre tap. The same loop runs on
+every device: the kernel wrappers launch the CUDA kernels for CUDA tensors
+and their plain versions for CPU tensors.
 
 Semantics kept from the JAX twin:
 
@@ -18,24 +24,27 @@ Semantics kept from the JAX twin:
   ``iterations``; mean update = Σ‖δu‖ / voxel count;
 - ``converged = max_update < convergence_threshold``;
 - ``max_abs_displacement`` is the per-axis max |u| over the warm start,
-  every updated warp and the final warp.
+  every updated warp and the final warp (in 2D JAX takes each entering
+  warp and the final one: the same set).
 
 The loop lives on the device, as JAX's ``lax.while_loop`` does. The done
 test is a device flag, ``active = (iteration < n) & (max_update >=
 threshold)``, that every iteration recomputes; once it is false the state
-stays frozen: both kernels read the flag and return at once, and the scalar
-state and the telemetry column take their new values only where it is true
-(``torch.where`` on 0-d tensors; a frozen iteration writes the spare
-telemetry column ``n``). The host reads the flag once every ``check_every``
+stays frozen: the kernels read the flag and return at once, the 2D update
+writes its warp buffer only where the flag is true, and the scalar state and
+the telemetry column take their new values only where it is true
+(``torch.where``; a frozen iteration writes the spare telemetry column
+``n``). The host reads the flag once every ``check_every``
 iterations (a chunk), so a solve runs as many iterations as the serial loop
 and gives its results exactly, whatever ``check_every``. The warp lives in
 two buffers that the iterations ping-pong; after ``iterations`` active
 iterations it lies in buffer ``iterations % 2``.
 
-On CUDA the chunk is captured once as a CUDA graph and replayed (the
+On CUDA the chunk is captured once as a CUDA graph and replayed: the
 Python work of ~20 ops an iteration, more than the kernels take at 128³,
-leaves the loop). On the CPU, or with ``SolveLoop(..., graph=False)``, the
-same chunk runs eagerly. A capture or replay that fails raises.
+and the host's enqueue of the 2D iteration's ~110 small kernels leave the
+loop. On the CPU, or with ``SolveLoop(..., graph=False)``, the same chunk
+runs eagerly. A capture or replay that fails raises.
 """
 
 from __future__ import annotations
@@ -46,6 +55,8 @@ import numpy as np
 import torch
 
 from levelsetfusion_tpu_torch.models.params import SmoothingMode, SolverParams
+from levelsetfusion_tpu_torch.ops import sobolev
+from levelsetfusion_tpu_torch.ops.gradient import energy_gradient
 from levelsetfusion_tpu_torch.ops.kernels import fused_gradient, resample
 from levelsetfusion_tpu_torch.ops.kernels.fused_gradient import (
     from_component_major,
@@ -72,7 +83,7 @@ class SolveTelemetry(NamedTuple):
 
 
 class SolveResult(NamedTuple):
-    warp: torch.Tensor  # (*spatial, 3)
+    warp: torch.Tensor  # (*spatial, D)
     iterations: int
     converged: bool
     telemetry: SolveTelemetry
@@ -103,8 +114,9 @@ class SolveLoop:
       this object's.
     - The wrappers launch on ``torch.cuda.current_stream``, which is the
       capture stream inside ``torch.cuda.graph``.
-    - B2's taps go by value in a struct; nothing in the chunk reads a value
-      back to the host.
+    - B2's taps go by value in a struct, and the 2D step's Sobolev kernel
+      is a device tensor made here; nothing in the chunk reads a value back
+      to the host.
     - A wrapper called while capturing adds to its ``captured_count``, not
       its ``launch_count``; ``_capture`` keeps what each kernel's count rose
       by (``graph_launches``), and ``_replay`` adds that to its
@@ -113,10 +125,8 @@ class SolveLoop:
 
     def __init__(self, shape, params: SolverParams, device, *,
                  check_every: int = CHECK_EVERY, graph: bool = True):
-        if len(shape) != 3:
-            raise NotImplementedError(
-                "the 2D single-level solve is not ported yet (ROADMAP A8)"
-            )
+        if len(shape) not in (2, 3):
+            raise ValueError(f"the solve takes a 2D or 3D volume, got {tuple(shape)}")
         if check_every < 1:
             raise ValueError(f"check_every must be >= 1, got {check_every}")
         self.device = torch.device(device)
@@ -129,6 +139,8 @@ class SolveLoop:
                 "each replay must start from the same warp buffer"
             )
         self.shape = tuple(shape)
+        self.dim = len(shape)
+        self._spatial = tuple(range(1, self.dim + 1))
         self.params = params
         self.check_every = check_every
         self.n = params.max_iterations
@@ -141,31 +153,47 @@ class SolveLoop:
         f32 = dict(dtype=torch.float32, device=self.device)
         self.canonical = torch.zeros(self.shape, **f32)
         self.live = torch.zeros(self.shape, **f32)
-        self.warps = (torch.zeros((3, *self.shape), **f32),
-                      torch.zeros((3, *self.shape), **f32))
+        self.warps = (torch.zeros((self.dim, *self.shape), **f32),
+                      torch.zeros((self.dim, *self.shape), **f32))
         self.telemetry = torch.zeros((5, self.n + 1), **f32)
         self.rate = torch.zeros((), **f32)
         self.prev_energy = torch.zeros((), **f32)
         self.max_update = torch.zeros((), **f32)
-        self.max_disp = torch.zeros(3, **f32)
+        self.max_disp = torch.zeros(self.dim, **f32)
         self.iteration = torch.zeros((), dtype=torch.int64, device=self.device)
         self.active = torch.zeros((), dtype=torch.bool, device=self.device)
         self.ticket = torch.zeros(1, dtype=torch.int32, device=self.device)
-        # Telemetry rows from the stats: data, smoothing, level set, max and
-        # sum of the update (the sum divided by the voxel count).
+        # Telemetry rows from the stats (B2's layout: data, smoothing and
+        # level-set energies, sum and max of ‖δu‖, per-axis max |u'|): data,
+        # smoothing, level set, max and sum of the update (the sum divided by
+        # the voxel count).
         self._rows = torch.tensor([0, 1, 2, 4, 3], device=self.device)
         self._divisor = torch.tensor([1.0, 1.0, 1.0, 1.0, float(np.prod(self.shape))], **f32)
-        self._kw = dict(
-            w_data=params.data_term_weight,
-            w_smooth=params.smoothing_term_weight,
-            w_ls=params.level_set_term_weight,
-            killing=params.smoothing_mode is SmoothingMode.KILLING,
-            gamma=params.rigidity_enforcement_factor,
-            band_union=params.band_union_only,
-            ticket=self.ticket,
-            taps=(sobolev_taps(params.sobolev_kernel_size, params.sobolev_strength)
-                  if params.sobolev_smoothing else ()),
-        )
+        if self.dim == 3:  # B2's arguments
+            self._kw = dict(
+                w_data=params.data_term_weight,
+                w_smooth=params.smoothing_term_weight,
+                w_ls=params.level_set_term_weight,
+                killing=params.smoothing_mode is SmoothingMode.KILLING,
+                gamma=params.rigidity_enforcement_factor,
+                band_union=params.band_union_only,
+                ticket=self.ticket,
+                taps=(sobolev_taps(params.sobolev_kernel_size, params.sobolev_strength)
+                      if params.sobolev_smoothing else ()),
+            )
+        else:  # the 2D step's gradient assembly
+            self._grad_kw = dict(
+                data_term_weight=params.data_term_weight,
+                smoothing_term_weight=params.smoothing_term_weight,
+                level_set_term_weight=params.level_set_term_weight,
+                smoothing_mode=params.smoothing_mode,
+                rigidity_enforcement_factor=params.rigidity_enforcement_factor,
+                band_union_only=params.band_union_only,
+                sobolev_kernel=torch.as_tensor(
+                    sobolev.generate_1d_sobolev_kernel(params.sobolev_kernel_size,
+                                                       params.sobolev_strength),
+                    device=self.device) if params.sobolev_smoothing else None,
+            )
 
     def _update_flag(self) -> None:
         torch.logical_and(self.iteration < self.n, self.max_update >= self.threshold,
@@ -176,8 +204,11 @@ class SolveLoop:
         by ``flag``; then the flag of the next iteration."""
         src, dst = self.warps[parity], self.warps[1 - parity]
         warped = warp_field_cm(self.live, src, active=flag)
-        _, stats = fused_gradient_update(warped, self.canonical, src, self.rate,
-                                         out=dst, active=flag, **self._kw)
+        if self.dim == 3:
+            _, stats = fused_gradient_update(warped, self.canonical, src, self.rate,
+                                             out=dst, active=flag, **self._kw)
+        else:
+            stats = self._update_2d(warped, src, dst, flag)
         energy = stats[0] + stats[1] + stats[2]
         if self.params.adaptive_learning_rate:
             torch.where(flag & (energy > self.prev_energy), self.rate * 0.5, self.rate,
@@ -187,11 +218,26 @@ class SolveLoop:
         self.telemetry.index_copy_(
             1, column.view(1), (stats.index_select(0, self._rows) / self._divisor).view(5, 1)
         )
-        torch.where(flag, torch.maximum(self.max_disp, stats[5:8]), self.max_disp,
+        torch.where(flag, torch.maximum(self.max_disp, stats[5:]), self.max_disp,
                     out=self.max_disp)
         torch.where(flag, stats[4], self.max_update, out=self.max_update)
         self.iteration += flag
         self._update_flag()
+
+    def _update_2d(self, warped, src, dst, flag) -> torch.Tensor:
+        """The 2D gradient and update, u' = u − rate·g into ``dst`` where
+        ``flag`` is true, as the JAX twin's unfused step computes them;
+        returns the statistics in B2's layout."""
+        res = energy_gradient(self.canonical, warped, src.movedim(0, -1), **self._grad_kw)
+        update = -self.rate * res.gradient
+        torch.where(flag, src + update.movedim(-1, 0), dst, out=dst)
+        update_len = torch.sqrt(torch.sum(update * update, dim=-1))
+        e = res.energies
+        return torch.cat([
+            torch.stack([e.data, e.smoothing, e.level_set, torch.sum(update_len),
+                         torch.amax(update_len)]),
+            torch.amax(torch.abs(dst), dim=self._spatial),
+        ])
 
     def _chunk(self, first: int) -> None:
         for j in range(first, first + self.check_every):
@@ -222,7 +268,7 @@ class SolveLoop:
               initial_warp: torch.Tensor | None = None) -> SolveResult:
         """Optimize the warp aligning ``live`` to ``canonical`` (both
         ``self.shape``, float32, on ``self.device``) from ``initial_warp``
-        (``(X, Y, Z, 3)``, else zeros)."""
+        (``(*self.shape, D)``, else zeros)."""
         for name, t in (("canonical", canonical), ("live", live)):
             if tuple(t.shape) != self.shape or t.device != self.device:
                 raise ValueError(f"{name} {tuple(t.shape)} on {t.device}: this loop takes "
@@ -238,7 +284,7 @@ class SolveLoop:
         self.prev_energy.fill_(float("inf"))
         self.max_update.fill_(float("inf"))
         self.iteration.zero_()
-        torch.amax(torch.abs(self.warps[0]), dim=(1, 2, 3), out=self.max_disp)
+        torch.amax(torch.abs(self.warps[0]), dim=self._spatial, out=self.max_disp)
         self._update_flag()
         chunks = 0
         while bool(self.active):  # the host's one read a chunk
@@ -258,9 +304,22 @@ class SolveLoop:
             converged=bool(converged),
             telemetry=SolveTelemetry(*self.telemetry[:, :self.n].clone()),
             max_abs_displacement=torch.maximum(
-                self.max_disp, torch.amax(torch.abs(final), dim=(1, 2, 3))
+                self.max_disp, torch.amax(torch.abs(final), dim=self._spatial)
             ),
         )
+
+
+def loop_for(loops, shape, params: SolverParams, device) -> SolveLoop:
+    """The loop of one solve shape: ``loops``' (made there at first use).
+    ``device`` is a tensor's, so a CUDA one carries its index. A kept loop
+    of other parameters or on another device is refused."""
+    loop = loops.get(shape)
+    if loop is None:
+        loop = loops[shape] = SolveLoop(shape, params, device)
+    elif loop.params != params or loop.device != device:
+        raise ValueError(f"the loop for {shape} runs {loop.params} on {loop.device}, "
+                         f"not {params} on {device}")
+    return loop
 
 
 def solve_single_level(
@@ -272,10 +331,10 @@ def solve_single_level(
     """Optimize the warp aligning ``live`` to ``canonical``.
 
     Args:
-      canonical: scalar TSDF field ``(X, Y, Z)``, float32.
+      canonical: scalar TSDF field ``(X, Z)`` or ``(X, Y, Z)``, float32.
       live: scalar TSDF field, same shape and device.
       params: solver parameters.
-      initial_warp: optional warm start ``(X, Y, Z, 3)``, else zeros.
+      initial_warp: optional warm start ``(*spatial, D)``, else zeros.
 
     Runs on ``canonical``'s device: on CUDA through the captured graph.
     """

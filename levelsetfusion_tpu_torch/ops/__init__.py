@@ -1,3 +1,3 @@
-from levelsetfusion_tpu_torch.ops import derivatives, interpolation, sobolev, terms, tsdf
+from levelsetfusion_tpu_torch.ops import derivatives, interpolation, pyramid, sobolev, terms, tsdf
 
-__all__ = ["derivatives", "interpolation", "sobolev", "terms", "tsdf"]
+__all__ = ["derivatives", "interpolation", "pyramid", "sobolev", "terms", "tsdf"]

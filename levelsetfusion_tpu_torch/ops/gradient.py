@@ -5,9 +5,12 @@ One function computes the combined descent direction
     g = w_data * ∇E_data + w_smooth * ∇E_smooth + w_ls * ∇E_ls
     (optionally Sobolev-filtered)
 
-and the weighted term energies, from ``(canonical, live, warp)``. This is
-the plain-torch assembly; the solve loop runs the same math through the
-CUDA kernel of ``ops/kernels/fused_gradient.py``.
+and the weighted term energies, from ``(canonical, live, warp)``
+(``warp_energy_gradient``) or, where the warped live field is already
+resampled, from ``(canonical, warped, warp)`` (``energy_gradient``: the 2D
+solve loop resamples with the B1 kernel). This is the plain-torch assembly;
+the 3D solve loop runs the same math through the CUDA kernel of
+``ops/kernels/fused_gradient.py``.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ from typing import NamedTuple
 
 import torch
 
-from levelsetfusion_tpu_torch.ops import interpolation, sobolev, terms
+from levelsetfusion_tpu_torch.ops import derivatives, interpolation, sobolev, terms
 
 
 class SmoothingMode(enum.Enum):
@@ -54,7 +57,30 @@ def warp_energy_gradient(
     sobolev_kernel: torch.Tensor | None = None,
 ) -> GradientResult:
     """Combined energy gradient at the current warp ``(*spatial, D)``."""
-    warped, warped_grad = interpolation.warp_field_with_gradient(live, warp)
+    return energy_gradient(
+        canonical, interpolation.warp_field(live, warp), warp,
+        data_term_weight, smoothing_term_weight, level_set_term_weight,
+        smoothing_mode, rigidity_enforcement_factor, band_union_only, sobolev_kernel,
+    )
+
+
+def energy_gradient(
+    canonical: torch.Tensor,
+    warped: torch.Tensor,
+    warp: torch.Tensor,
+    data_term_weight: float = 1.0,
+    smoothing_term_weight: float = 0.2,
+    level_set_term_weight: float = 0.0,
+    smoothing_mode: SmoothingMode = SmoothingMode.TIKHONOV,
+    rigidity_enforcement_factor: float = 0.1,
+    band_union_only: bool = True,
+    sobolev_kernel: torch.Tensor | None = None,
+) -> GradientResult:
+    """``warp_energy_gradient`` from ``warped``, the live field already
+    resampled at ``v + warp(v)``. Reads nothing back to the host, so it may
+    run inside a CUDA graph capture (with ``sobolev_kernel`` a tensor on
+    the fields' device)."""
+    warped_grad = derivatives.gradient(warped)
     zero = torch.zeros((), dtype=canonical.dtype, device=canonical.device)
 
     g_data, e_data = terms.data_term(

@@ -3,8 +3,9 @@
 One dataclass covers every experiment mode; the JAX package's presets are
 carried as data, without the TPU-only solver fields (see
 ``models/params.py``). Configs serialize to and from JSON, and
-``from_dict`` also reads a JAX run's ``config.json``. This slice runs the
-``single_pair_3d`` mode; the CLI refuses the others by name.
+``from_dict`` also reads a JAX run's ``config.json``. The CLI runs every
+single-device mode (configs 1–4 and the two rigid presets) and refuses the
+sharded ones (config5) by name.
 """
 
 from __future__ import annotations
@@ -113,7 +114,7 @@ PRESETS: Dict[str, ExperimentConfig] = {
         pyramid_method="ewa_depth",
     ),
     # 3D dense 128³ single pair with the full energy: data + Killing +
-    # level set + Sobolev. The slice this package runs end to end.
+    # level set + Sobolev.
     "config3_3d_full_energy": ExperimentConfig(
         name="config3_3d_full_energy",
         mode="single_pair_3d",

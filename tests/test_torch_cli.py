@@ -2,12 +2,14 @@
 to (24, 24, 16) with 20 iterations through both ``run_experiment``s —
 summary numbers and telemetry.csv rows — config4 (``multi_frame_3d``)
 shrunk to JAX's own test size ((32, 32, 24), 4 frames, 25 iterations, a
-checkpoint every frame) with its resume, plus the config plumbing between
-the two packages and the CLI's refusals.
+checkpoint every frame) with its resume, config1 and config2 (both
+pyramids) and the two rigid presets at full size, plus the config plumbing
+between the two packages and the CLI's refusals.
 
 Tolerances: iteration count and ``converged`` exactly; telemetry rows and
 energies rtol 2e-4 atol 1e-8 and max |u| rtol 3e-4 (tests/test_fused_gradient.py's solver
-tolerances); band residuals rtol 1e-4 (means of |Φ_w − Φ_c| over the band)."""
+tolerances); band residuals rtol 1e-4 (means of |Φ_w − Φ_c| over the band);
+rigid extrinsics atol 1e-4 (tests/test_torch_rigid.py)."""
 
 import csv
 import dataclasses
@@ -101,10 +103,14 @@ def test_presets_mirror_jax():
         assert ExperimentConfig.from_json(JPRESETS[name].to_json()) == cfg, name
 
 
-@pytest.mark.parametrize("name", sorted(set(PRESETS) - {"config3_3d_full_energy"}))
+RUNS = ("config1_2d_pair", "config2_2d_hierarchical", "config3_3d_full_energy",
+        "rigid_2d", "rigid_3d")
+
+
+@pytest.mark.parametrize("name", sorted(set(PRESETS) - set(RUNS)))
 def test_other_modes_raise(name, tmp_path):
-    """Each mode that is not ported raises naming its ROADMAP item; config4's
-    mode runs, but not from depth PNGs (A9)."""
+    """Each mode that is not ported (the sharded ones) raises naming its
+    ROADMAP item; config4's mode runs, but not from depth PNGs (A9)."""
     cfg = PRESETS[name]
     if cfg.mode == "multi_frame_3d":
         cfg = dataclasses.replace(cfg, dataset="depth_directory", dataset_kwargs={})
@@ -219,3 +225,84 @@ def test_multi_frame_resume_equals_uninterrupted(c4_runs, tmp_path, monkeypatch)
         np.testing.assert_array_equal(a.numpy(), b.numpy())
     noop = tcli.run_experiment(_small_c4(PRESETS), out, device="cpu", resume=True)
     assert noop["frames"] == 0 and noop["resumed_from"] == 3
+
+
+TWO_D = {"config1": ("config1_2d_pair", {}),
+         "config2_ewa_depth": ("config2_2d_hierarchical", {}),
+         "config2_block_mean": ("config2_2d_hierarchical", {"pyramid_method": "block_mean"})}
+
+
+@pytest.fixture(scope="module", params=sorted(TWO_D))
+def two_d_runs(request, tmp_path_factory):
+    name, kw = TWO_D[request.param]
+    jout = str(tmp_path_factory.mktemp("jax_" + request.param))
+    tout = str(tmp_path_factory.mktemp("torch_" + request.param))
+    jsum = jrun(dataclasses.replace(JPRESETS[name], **kw), jout)
+    tsum = tcli.run_experiment(dataclasses.replace(PRESETS[name], **kw), tout, device="cpu")
+    return jout, jsum, tout, tsum
+
+
+def test_2d_modes_match_jax(two_d_runs):
+    """config1 (``single_pair_2d``) and config2 (``hierarchical_2d``, its EWA
+    depth pyramid and the block-mean one) at full size: JAX's summary keys
+    less its fast paths and contract, plus the device and the launches; the
+    iterations (per level) and ``converged`` exactly; residuals, energies,
+    max |u|, the telemetry rows and the events."""
+    jout, jsum, tout, tsum = two_d_runs
+    with open(os.path.join(tout, "summary.json")) as f:
+        assert json.load(f) == tsum
+    assert set(tsum) == (set(jsum) - {"fast_paths", "contract_violations"}) | {
+        "device", "kernel_launches"}
+    assert tsum["kernel_launches"] == {"resample": 0, "fused_gradient": 0}  # CPU run
+    for key in ("iterations", "converged", "levels", "iterations_per_level"):
+        assert tsum.get(key) == jsum.get(key), key
+    for key in ("residual_before", "residual_after", "residual_reduction"):
+        np.testing.assert_allclose(tsum[key], jsum[key], rtol=1e-4)
+    assert tsum["residual_reduction"] > 2.0
+    np.testing.assert_allclose(tsum["max_abs_displacement"], jsum["max_abs_displacement"],
+                               rtol=3e-4, atol=3e-6)
+    if "final_data_energy" in jsum:
+        np.testing.assert_allclose(tsum["final_data_energy"], jsum["final_data_energy"],
+                                   rtol=2e-4)
+    jrows, trows = _rows(jout), _rows(tout)
+    assert len(trows) == len(jrows) > 0
+    for a, b in zip(trows, jrows):
+        assert (a["level"], a["frame"], a["iteration"]) == (b["level"], b["frame"], b["iteration"])
+        for key in list(a)[3:]:
+            # Each package solves from its own TSDFs (1 ulp apart, BASIC):
+            # the max over voxels of ‖δu‖, ~1e-3 late in config2's finest
+            # level, moves by up to 6.4e-7 with them, so it takes atol 1e-6.
+            atol = 1e-6 if key == "max_warp_update" else 1e-8
+            np.testing.assert_allclose(float(a[key]), float(b[key]), rtol=2e-4, atol=atol)
+    with open(os.path.join(tout, "events.jsonl")) as f:
+        tev = [json.loads(line) for line in f]
+    with open(os.path.join(jout, "events.jsonl")) as f:
+        jev = [json.loads(line) for line in f]
+    assert tev == [e for e in jev if e["event"] == "solve_done"]
+
+
+@pytest.mark.parametrize("name", ["rigid_2d", "rigid_3d"])
+def test_rigid_modes_match_jax(name, tmp_path):
+    """The rigid modes: JAX's summary keys (plus the device and the
+    launches, 0 here and on the card: these modes run no kernel), its true
+    extrinsic exactly, the estimate within 1e-4 and the pose error within
+    the JAX tests' 2e-3."""
+    jsum = jrun(JPRESETS[name], str(tmp_path / "jax"))
+    tsum = tcli.run_experiment(PRESETS[name], str(tmp_path / "torch"), device="cpu")
+    assert set(tsum) == set(jsum) | {"device", "kernel_launches"}
+    assert tsum["kernel_launches"] == {"resample": 0, "fused_gradient": 0}
+    np.testing.assert_array_equal(tsum["true_extrinsic"], jsum["true_extrinsic"])
+    np.testing.assert_allclose(tsum["estimated_extrinsic"], jsum["estimated_extrinsic"],
+                               rtol=0, atol=1e-4)
+    assert tsum["pose_error"] <= 2e-3
+    np.testing.assert_allclose(tsum["pose_error"], jsum["pose_error"], rtol=0, atol=1e-4)
+    np.testing.assert_allclose(tsum["initial_energy"], jsum["initial_energy"], rtol=1e-3)
+    assert tsum["final_energy"] < 0.2 * tsum["initial_energy"]
+
+
+def test_main_runs_a_2d_preset(tmp_path):
+    """The CLI's entry point runs a 2D preset on the CPU."""
+    out = tmp_path / "rigid"
+    assert tcli.main(["--preset", "rigid_2d", "--out", str(out), "--device", "cpu"]) == 0
+    with open(out / "summary.json") as f:
+        assert json.load(f)["pose_error"] <= 2e-3

@@ -1,7 +1,8 @@
-"""Parity of the port's flat fusion path (``models/fusion.py``) with the JAX
+"""Parity of the port's fusion (``models/fusion.py``) with the JAX
 package's: ``blend`` and ``init_state`` on seeded fields, and
 ``fuse_sequence`` on ``tests/test_fusion.py``'s small sequence ((32, 32, 24),
-4 frames, its Killing solver), JAX on its golden path (the exact gather).
+4 frames, its Killing solver), flat and hierarchical (3 levels), with and
+without the warm start, JAX on its golden path (the exact gather).
 
 Tolerances: ``blend`` and ``init_state`` 1e-7 (one division a voxel);
 per-frame iteration counts exactly; the canonical and the final warp within
@@ -186,9 +187,119 @@ def test_callback_gets_reports_and_the_frame_state():
     assert [r.solver_iterations for r in res.reports] == [4, 4]
 
 
-def test_hierarchical_raises():
+def _hier_configs(**kw):
+    jcfg, tcfg = _configs()
+    return (dataclasses.replace(jcfg, hierarchical=True, **kw),
+            dataclasses.replace(tcfg, hierarchical=True, **kw))
+
+
+@pytest.fixture(scope="module")
+def hier_runs():
+    """JAX's and the port's hierarchical fusion (3 levels: (8, 8, 6),
+    (16, 16, 12), (32, 32, 24)) of the small sequence, with every frame's
+    warp; the port's SolveLoops counted."""
+    seq = jsynthetic.snoopy_style_sequence_3d(**SEQ)
     tseq = synthetic.snoopy_style_sequence_3d(**SEQ)
-    _, tcfg = _configs()
-    with pytest.raises(NotImplementedError, match="A8"):
-        fusion.fuse_sequence(tseq.frames, tseq.camera,
-                             dataclasses.replace(tcfg, hierarchical=True), device="cpu")
+    jcfg, tcfg = _hier_configs()
+    jwarps, twarps = {}, {}
+    want = jfusion.fuse_sequence(seq.frames, seq.camera, jcfg, frame_callback=_collect(jwarps))
+    got = fusion.fuse_sequence(tseq.frames, tseq.camera, tcfg, device="cpu",
+                               frame_callback=_collect(twarps))
+    return seq, jcfg, (want, jwarps), (got, twarps)
+
+
+def test_hierarchical_fusion_matches_jax(hier_runs):
+    """The hierarchical branch (JAX's serial loop; statistics of the finest
+    level): the same per-frame iterations, and the flat path's rules for
+    the rest."""
+    seq, jcfg, (want, jwarps), (got, twarps) = hier_runs
+    assert len(got.reports) == len(want.reports) == 3
+    near = _near_bound(seq, jcfg, jwarps, twarps)
+    assert near.mean() <= MAX_NEAR, near.mean()
+    far = ~near
+    for g, w in zip(got.reports, want.reports):
+        assert g.frame_index == w.frame_index
+        assert g.solver_iterations == int(w.solver_iterations) > 0
+        assert abs(g.band_voxels - w.band_voxels) <= near.sum()
+        np.testing.assert_allclose(g.final_data_energy, w.final_data_energy, rtol=2e-4)
+        np.testing.assert_allclose(g.max_abs_displacement, w.max_abs_displacement,
+                                   rtol=3e-4, atol=3e-6)
+    for k in jwarps:
+        assert_close(twarps[k], jwarps[k], rtol=3e-4, atol=3e-6)
+    np.testing.assert_array_equal(n(got.state.weights)[far], np.asarray(want.state.weights)[far])
+    np.testing.assert_allclose(n(got.state.canonical)[far],
+                               np.asarray(want.state.canonical)[far], rtol=3e-4, atol=3e-6)
+    assert_close(got.final_warp, want.final_warp, rtol=3e-4, atol=3e-6)
+
+
+def test_fusion_without_warm_start_matches_jax():
+    """``warm_start=False``: every frame's solve starts from zero, on both
+    paths (per-frame iterations as JAX's)."""
+    seq = jsynthetic.snoopy_style_sequence_3d(**SEQ)
+    tseq = synthetic.snoopy_style_sequence_3d(**SEQ)
+    for hierarchical in (True, False):
+        jcfg, tcfg = (dataclasses.replace(c, hierarchical=hierarchical, warm_start=False)
+                      for c in _configs(max_iterations=30))
+        want = jfusion.fuse_sequence(seq.frames, seq.camera, jcfg)
+        got = fusion.fuse_sequence(tseq.frames, tseq.camera, tcfg, device="cpu")
+        assert [r.solver_iterations for r in got.reports] == [
+            int(r.solver_iterations) for r in want.reports]
+        assert_close(got.final_warp, want.final_warp, rtol=3e-4, atol=3e-6)
+
+
+def test_hierarchical_keeps_one_loop_per_level_shape(hier_runs, monkeypatch):
+    """A hierarchical sequence makes one SolveLoop per level shape (so on
+    CUDA each level's graph is captured once), and ``fuse_frame`` with the
+    caller's loops gives the sequence's first frame."""
+    from levelsetfusion_tpu_torch.models import single_level
+
+    _, _, _, (got, twarps) = hier_runs
+    made = []
+
+    class Counted(single_level.SolveLoop):
+        def __init__(self, shape, *args, **kw):
+            made.append(tuple(shape))
+            super().__init__(shape, *args, **kw)
+
+    monkeypatch.setattr(single_level, "SolveLoop", Counted)
+    tseq = synthetic.snoopy_style_sequence_3d(**SEQ)
+    _, tcfg = _hier_configs()
+    again = fusion.fuse_sequence(tseq.frames, tseq.camera, tcfg, device="cpu")
+    assert made == [(8, 8, 6), (16, 16, 12), (32, 32, 24)]
+    assert again.reports == got.reports
+    loops = {}
+    state = fusion.init_state(fusion._tsdf(tseq.frames[0], tseq.camera, tcfg,
+                                           torch.device("cpu")))
+    _, warp, report, _ = fusion.fuse_frame(state, None, torch.zeros((*SHAPE, 3)), tcfg.solver,
+                                           tcfg, 1, depth=tseq.frames[1], camera=tseq.camera,
+                                           loops=loops)
+    assert report == got.reports[0] and sorted(loops) == made[:3]
+    np.testing.assert_array_equal(n(warp), twarps[1])
+
+
+@pytest.mark.parametrize("hierarchical", [False, True])
+def test_fuse_frame_refuses_a_loop_of_another_solver(hierarchical):
+    """Both branches look a solve shape's loop up in the caller's ``loops``
+    the same way: a kept loop built for other parameters is refused, not
+    reused."""
+    from levelsetfusion_tpu_torch.models.single_level import SolveLoop
+
+    tseq = synthetic.snoopy_style_sequence_3d(**SEQ)
+    _, tcfg = _hier_configs() if hierarchical else _configs()
+    state = fusion.init_state(fusion._tsdf(tseq.frames[0], tseq.camera, tcfg,
+                                           torch.device("cpu")))
+    shape = (8, 8, 6) if hierarchical else SHAPE
+    loops = {shape: SolveLoop(shape, tcfg.solver.replace(max_iterations=3), "cpu")}
+    with pytest.raises(ValueError, match="the loop for"):
+        fusion.fuse_frame(state, None, torch.zeros((*SHAPE, 3)), tcfg.solver, tcfg, 1,
+                          depth=tseq.frames[1], camera=tseq.camera, loops=loops)
+
+
+def test_pipeline_config_matches_jax():
+    """The config's fields and defaults are JAX's, less the clamp's
+    ``auto_raise_displacement``."""
+    tfields = {f.name: f.default for f in dataclasses.fields(fusion.FusionPipelineConfig)}
+    jfields = {f.name: f.default for f in dataclasses.fields(jfusion.FusionPipelineConfig)}
+    assert set(tfields) == set(jfields) - {"auto_raise_displacement"}
+    for name in ("narrow_band_width_voxels", "hierarchical", "levels", "warm_start"):
+        assert tfields[name] == jfields[name], name

@@ -1,7 +1,8 @@
 """Parity of the port's single-level solve with the JAX package's, on the
 golden path and on the fused Pallas path (interpret mode), and of its
 device-side loop (a done flag read every ``check_every`` iterations) with
-the serial loop that reads ``max_update`` every iteration.
+the serial loop that reads ``max_update`` every iteration, in 3D and in 2D
+(JAX's unfused step; config1 at its full preset).
 
 Tolerances are those of tests/test_fused_gradient.py's solver test: warp
 rtol 3e-4 atol 3e-6, telemetry rtol 2e-4 atol 1e-8; iteration counts and
@@ -21,6 +22,8 @@ from levelsetfusion_tpu.utils.config import PRESETS as JPRESETS
 from levelsetfusion_tpu_torch.models import params as tparams
 from levelsetfusion_tpu_torch.models.single_level import SolveLoop
 from levelsetfusion_tpu_torch.models.single_level import solve_single_level as tsolve
+from levelsetfusion_tpu_torch.ops import sobolev
+from levelsetfusion_tpu_torch.ops.gradient import energy_gradient
 from levelsetfusion_tpu_torch.ops.kernels.fused_gradient import (
     fused_gradient_update,
     fused_gradient_update_reference,
@@ -115,9 +118,10 @@ def test_zero_iterations():
     np.testing.assert_array_equal(n(res.warp), warp)
 
 
-def test_2d_solve_not_ported_raises():
-    with pytest.raises(NotImplementedError, match="A8"):
-        tsolve(torch.zeros(8, 8), torch.zeros(8, 8))
+def test_solve_takes_2d_or_3d():
+    for shape in ((8,), (2, 3, 4, 5)):
+        with pytest.raises(ValueError, match="2D or 3D"):
+            SolveLoop(shape, tparams.SolverParams(), "cpu")
 
 
 def test_solver_params_from_jax_drops_tpu_fields():
@@ -275,3 +279,83 @@ def test_loop_device_is_required():
     """The loop has no default device: a caller names the CPU to get it."""
     with pytest.raises(TypeError):
         SolveLoop((6, 5, 4), tparams.SolverParams())
+
+
+def _serial_2d(canonical, live, p, initial_warp):
+    """The 2D serial loop: B1's plain version, the gradient assembly and
+    the update as the JAX twin's unfused step, and a host read of
+    ``max_update`` after every iteration."""
+    warp_cm = to_component_major(initial_warp)
+    kw = dict(data_term_weight=p.data_term_weight,
+              smoothing_term_weight=p.smoothing_term_weight,
+              level_set_term_weight=p.level_set_term_weight, smoothing_mode=p.smoothing_mode,
+              rigidity_enforcement_factor=p.rigidity_enforcement_factor,
+              band_union_only=p.band_union_only,
+              sobolev_kernel=torch.as_tensor(sobolev.generate_1d_sobolev_kernel(
+                  p.sobolev_kernel_size, p.sobolev_strength)) if p.sobolev_smoothing else None)
+    n = p.max_iterations
+    threshold = float(np.float32(p.convergence_threshold))
+    telemetry = torch.zeros((5, n))
+    rate = torch.tensor(p.learning_rate)
+    prev = torch.tensor(float("inf"))
+    max_disp = torch.amax(torch.abs(warp_cm), dim=(1, 2))
+    max_update, it = float("inf"), 0
+    while it < n and max_update >= threshold:
+        res = energy_gradient(canonical, warp_field_cm(live, warp_cm), warp_cm.movedim(0, -1),
+                              **kw)
+        update = -rate * res.gradient
+        warp_cm = warp_cm + update.movedim(-1, 0)
+        length = torch.sqrt(torch.sum(update * update, dim=-1))
+        energy = res.energies.data + res.energies.smoothing + res.energies.level_set
+        if p.adaptive_learning_rate:
+            rate = torch.where(energy > prev, rate * 0.5, rate)
+        prev = energy
+        telemetry[:, it] = torch.stack([*res.energies, torch.amax(length),
+                                        torch.sum(length) / float(canonical.numel())])
+        max_disp = torch.maximum(max_disp, torch.amax(torch.abs(warp_cm), dim=(1, 2)))
+        max_update = float(torch.amax(length))
+        it += 1
+    max_disp = torch.maximum(max_disp, torch.amax(torch.abs(warp_cm), dim=(1, 2)))
+    return warp_cm.movedim(0, -1), it, max_update < threshold, telemetry, max_disp, rate
+
+
+@pytest.mark.parametrize("k", [1, 3, 16])
+@pytest.mark.parametrize("case", sorted(LOOP_CASES))
+def test_2d_loop_equals_serial_loop_and_jax(case, k):
+    """The 2D loop (B1, then the plain gradient and update, gated by the
+    done flag) gives the serial loop's results exactly for any check
+    interval, and JAX's unfused 2D solve's within the solver tolerances."""
+    canonical, live, warp = tsdf_like((14, 10), 34, warp_scale=0.3)
+    jp, tp = _params(**LOOP_CASES[case])
+    loop = SolveLoop(canonical.shape, tp, "cpu", check_every=k)
+    got = loop.solve(t(canonical), t(live), t(warp))
+    w, it, conv, tel, md, rate = _serial_2d(t(canonical), t(live), tp, t(warp))
+    assert (got.iterations, got.converged) == (it, conv)
+    assert got.warp.shape == (14, 10, 2) and got.max_abs_displacement.shape == (2,)
+    np.testing.assert_array_equal(n(got.warp), n(w))
+    np.testing.assert_array_equal(np.stack([n(b) for b in got.telemetry]), n(tel))
+    np.testing.assert_array_equal(n(got.max_abs_displacement), n(md))
+    assert float(loop.rate) == float(rate)
+    if case == "converges":
+        assert got.converged and 0 < it < 60 and (k == 1 or it % k)  # stops mid-chunk
+    if case == "halving":
+        assert float(rate) < tp.learning_rate
+    if tp.max_iterations:
+        want = jsolve(jnp.asarray(canonical), jnp.asarray(live), jp, jnp.asarray(warp))
+        _compare(got, want, tp.max_iterations)
+
+
+def test_config1_preset_matches_jax():
+    """config1 at its full preset (96 x 48, <= 600 iterations, Tikhonov, no
+    Sobolev) on its CLI inputs: the iteration count to the 1e-3 gate, the
+    warp and the telemetry as JAX's unfused 2D solve gives them."""
+    from levelsetfusion_tpu.cli import _grid as jgrid
+    from levelsetfusion_tpu.cli import _pair_2d as jpair
+
+    cfg = JPRESETS["config1_2d_pair"]
+    canonical, live, _ = jpair(cfg, jgrid(cfg))
+    want = jsolve(canonical, live, cfg.solver)
+    got = tsolve(t(canonical), t(live), tparams.solver_params_from_jax(
+        dataclasses.asdict(cfg.solver)))
+    assert got.converged and 300 < got.iterations < 600
+    _compare(got, want, 600)
