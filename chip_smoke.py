@@ -37,8 +37,22 @@ against the CPU and the truth, and their 30 steps under CUDA's sync debug
 mode (20); the hierarchical fusion at (32, 32, 24) x 4 frames against the
 CPU, at 128³ x 8 frames with its checks, graph captures, launches and
 frames/s beside the flat path's, and the EWA TSDF methods at 128³ against
-the CPU, timed (21). The kernels line's launches sum the main paths'
-(config3, config4, config1, config2, the hierarchical fusion).
+the CPU, timed (21). Then the 1D sharded solver (config5) and the
+kernels' sharded arguments: B1 with ``x_start`` and B2 with its x window on
+every rank's haloed block of a 4-way split of 128³, an 8-way split of
+config5_512's 512³ and the worlds of 1 that phases 23 and 24 run (512³,
+(128, 64, 128), 128³), each against its plain version and the union of the
+windows against the whole-volume call, timed at the (74, 512, 512) shard
+(22); ``sharded_3d`` through ``cli.run_experiment`` on a world of 1 (NCCL),
+config5_sharded against the single-device port and config5_512 at 512³
+with its µs/iter, peak memory and a profiler breakdown, and on 2 NCCL
+ranks against 1 where the process sees two devices (23); the sharded
+fusion at 128³ x 8 frames against ``fuse_sequence``, and each frame with no
+live halo against the single-device frame by phase 16's rules (24), each
+run with the launch counters reset just before. The kernels line's launches sum the
+main paths' (config3, config4, config1, config2, the hierarchical fusion,
+config5_sharded, config5_512, the sharded fusion), and B1's and B2's rows
+give their windowed times at the shard.
 Beside each kernel it times, where one exists, one PyTorch call that
 computes the same function (the kernel's yardstick; the port never calls
 it), and it computes each kernel's bound from the run's tensors. Every
@@ -95,12 +109,19 @@ from levelsetfusion_tpu_torch.ops.kernels.fused_gradient import (
     fused_gradient_update,
     fused_gradient_update_reference,
     sobolev_taps,
+    to_component_major,
 )
 from levelsetfusion_tpu_torch.ops.kernels.resample import (
     warp_field_cm,
     warp_field_cm_reference,
 )
 from levelsetfusion_tpu_torch.ops.tsdf import GenerationMethod, generate_tsdf_2d, generate_tsdf_3d
+from levelsetfusion_tpu_torch.parallel import (
+    close_group,
+    init_group,
+    solve_single_level_sharded,
+    warp_field_sharded,
+)
 from levelsetfusion_tpu_torch.utils import checkpoint
 from levelsetfusion_tpu_torch.utils.config import PRESETS
 
@@ -324,13 +345,14 @@ def _case_kw(w_smooth, w_ls, killing, sob, band):
                 band_union=band, taps=sobolev_taps(7, 0.1) if sob else ())
 
 
-def _check_fused(case, got, want):
-    """B2's output against its plain version at phase 3's tolerances; returns
-    the warp's max|Δ|."""
+def _check_fused(case, got, want, rtol=2e-5, atol=2e-5):
+    """B2's output against its plain version: the sums within rel 1e-4, the
+    maxes within rel 1e-5, the warp within ``rtol``/``atol`` (phase 3's
+    2e-5/2e-5 by default); returns the warp's max|Δ|."""
     (got_w, got_s), (want_w, want_s) = got, want
     _close(case + " sums", got_s[:4], want_s[:4], 1e-4)
     _close(case + " maxes", got_s[4:], want_s[4:], 1e-5)
-    return _close(case + " warp", got_w, want_w, 2e-5, 2e-5)
+    return _close(case + " warp", got_w, want_w, rtol, atol)
 
 
 def phase3_fused():
@@ -1771,6 +1793,446 @@ def phase21_hierarchical_fusion():
 
 
 
+C5, C5_512 = "config5_sharded", "config5_512"
+C5_512_SHAPE = (512, 512, 512)
+# Phase 22's splits: (the preset whose solver's terms and halos the calls
+# take, the volume, ranks). 128³ / 4 and config5_512's 512³ / 8 (blocks of
+# (64, 512, 512)) hold interior and edge ranks. A world of 1 is what phases
+# 23 and 24 run: one block with both global edges, B1 on X + 2 live_halo
+# rows and B2's window of X rows on X + 2 stencil_halo, at config5_512's
+# 512³, config5_sharded's (128, 64, 128) and the sharded fusion's (config4)
+# 128³. Ghost rows beyond a global edge hold garbage, which the windowed B2
+# must never read (B1's live halo holds the +1 fill there).
+WINDOW_SPLITS = ((C5_512, FULL, 4), (C5_512, C5_512_SHAPE, 8),
+                 (C5_512, C5_512_SHAPE, 1), (C5, PRESETS[C5].grid_shape, 1),
+                 (C4, PRESETS[C4].grid_shape, 1))
+WINDOW_GHOST = 7.7
+
+
+def _device_fields(shape, seed, warp_scale):
+    """``_fields`` made on the card from a seeded generator (a 512³ volume
+    takes seconds in numpy)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    base = torch.randn(shape, generator=gen, device="cuda")
+    canonical = torch.tanh(base * 0.4)
+    warped = torch.tanh(torch.roll(base, 1, 0) * 0.4)
+    warp = torch.randn((3, *shape), generator=gen, device="cuda") * warp_scale
+    return canonical, warped, warp
+
+
+def _haloed(a, rank, n_local, halo, fill, axis=0):
+    """Rank ``rank``'s block of ``n_local`` rows along ``axis`` with ``halo``
+    rows a side, ``fill`` beyond the volume's edges."""
+    pad = [0, 0] * (a.ndim - 1 - axis) + [halo, halo]
+    ext = F.pad(a[None], pad, value=fill)[0] if halo else a
+    return ext.narrow(axis, rank * n_local, n_local + 2 * halo).contiguous()
+
+
+def _split_name(preset, shape, world):
+    return f"{preset} {tuple(shape)} / {world}"
+
+
+def phase22_windows():
+    """B1 with ``x_start`` and B2 with its x window on every rank's haloed
+    block of each of ``WINDOW_SPLITS``, with the split's preset's energy
+    terms, stencil halo and live halo (at most a block): each held to its
+    plain version (B1 exactly, B2's warp within 4.8e-7), and the union of
+    the ranks' windows to the whole-volume kernel call (B2's warp rows
+    within 4.8e-7; the summed energies and sum|δu| within rel 1e-5, the
+    maxes exactly). Then one windowed B2 call and one B1 call at
+    config5_512's 8-way shard, timed beside their plain versions, B1 also
+    beside one ``grid_sample`` of the haloed field, with their bounds.
+    Returns the worst max|Δ|s, those of each split, and the shard's
+    numbers."""
+    rate = torch.tensor(0.3, device="cuda")
+    worst = {"resample": 0.0, "fused": 0.0, "union": 0.0}
+    by_split = {}
+    timing = None
+    for seed, (preset, shape, world) in enumerate(WINDOW_SPLITS, 40):
+        p = PRESETS[preset]
+        hx, kw = p.solver.stencil_halo, single_level.fused_step_kwargs(p.solver)
+        canonical, warped, warp = _device_fields(shape, seed, 0.8)
+        nl = shape[0] // world
+        lh = min(p.live_halo, nl)
+        whole_w, whole_s = fused_gradient_update(warped, canonical, warp, rate, **kw)
+        sums = torch.zeros(8, dtype=torch.float64, device="cuda")
+        maxes = torch.zeros(4, device="cuda")
+        errs = {"resample": 0.0, "fused": 0.0, "union": 0.0}
+        for rank in range(world):
+            # B1: the rank's warp block from the live block with its halo.
+            live_ext = _haloed(warped, rank, nl, lh, 1.0)
+            warp_blk = warp.narrow(1, rank * nl, nl).contiguous()
+            got = warp_field_cm(live_ext, warp_blk, x_start=lh)
+            torch.cuda.synchronize()
+            want = warp_field_cm_reference(live_ext, warp_blk, x_start=lh)
+            errs["resample"] = max(errs["resample"], _close(
+                f"resample x_start {shape} rank {rank}", got, want, 0.0, 0.0))
+            del got, want
+            # B2: the rank's window of the haloed block.
+            blocks = [_haloed(a, rank, nl, hx, WINDOW_GHOST, axis)
+                      for a, axis in ((warped, 0), (canonical, 0), (warp, 1))]
+            win = dict(x_offset=rank * nl - hx, x_global=shape[0], x_lo=hx, x_len=nl)
+            got = fused_gradient_update(*blocks, rate, **kw, **win)
+            torch.cuda.synchronize()
+            want = fused_gradient_update_reference(*blocks, rate, **kw, **win)
+            errs["fused"] = max(errs["fused"], _check_fused(
+                f"windowed fused {shape} rank {rank}", got, want, rtol=0.0, atol=4.8e-7))
+            del want
+            errs["union"] = max(errs["union"], _close(
+                f"windowed fused {shape} rank {rank} vs the whole call", got[0],
+                whole_w.narrow(1, rank * nl, nl), 0.0, 4.8e-7))
+            sums[:4] += got[1][:4].double()
+            maxes = torch.maximum(maxes, got[1][4:])
+            if (preset, shape, world) == (C5_512, C5_512_SHAPE, 8) and rank == 1:
+                timing = (live_ext, warp_blk, blocks, win, kw, lh)
+            del got, blocks, live_ext, warp_blk
+        _close(f"windowed fused {shape}: summed energies and sum|du|", sums[:4],
+               whole_s[:4].double(), 1e-5)
+        _close(f"windowed fused {shape}: maxes", maxes, whole_s[4:], 0.0)
+        by_split[_split_name(preset, shape, world)] = errs
+        worst = {k: max(v, errs[k]) for k, v in worst.items()}
+        del canonical, warped, warp, whole_w
+        torch.cuda.empty_cache()
+    live_ext, warp_blk, blocks, win, kw, lh = timing
+    b1_call = lambda: warp_field_cm(live_ext, warp_blk, x_start=lh)  # noqa: E731
+    b2_call = lambda: fused_gradient_update(*blocks, rate, **kw, **win)  # noqa: E731
+    # B1's yardstick: one grid_sample of the haloed field at (x_start + i +
+    # ux, j + uy, k + uz), its grid built outside the timed call, held to B1
+    # within 1e-4 (normalised coordinates).
+    idx = torch.stack(torch.meshgrid(
+        *(torch.arange(n, dtype=torch.float32, device="cuda") for n in warp_blk.shape[1:]),
+        indexing="ij"), dim=-1)
+    idx[..., 0] += lh
+    gs_call, gs_value = _grid_sample(live_ext[None], (idx + warp_blk.movedim(0, -1))[None])
+    gs_err = _close("grid_sample vs windowed B1", gs_value(gs_call())[0], b1_call(), 0.0, 1e-4)
+    del idx
+    b1 = [_time_ms(b1_call, 20)]
+    b1_lib = [_time_ms(gs_call, 20)]
+    b1_plain = _time_ms(lambda: warp_field_cm_reference(live_ext, warp_blk, x_start=lh), 3)
+    b1.append(_time_ms(b1_call, 20))
+    b1_lib.append(_time_ms(gs_call, 20))
+    b2 = [_time_ms(b2_call, 20)]
+    b2_plain = _time_ms(lambda: fused_gradient_update_reference(*blocks, rate, **kw, **win), 3)
+    b2.append(_time_ms(b2_call, 20))
+    plane = warp_blk[0, 0].numel()
+    out_vox = warp_blk[0].numel()
+    # The field rows B1 must read: those the warp's x extent reaches (each
+    # sample's two corner rows), inside the field.
+    x = (torch.arange(warp_blk.shape[1], dtype=torch.float32, device="cuda")[:, None, None]
+         + warp_blk[0] + lh)
+    lo = max(0, int(torch.floor(torch.min(x))))
+    hi = min(live_ext.shape[0], int(torch.floor(torch.max(x))) + 2)
+    b1_bound = _bound(4 * ((hi - lo) * plane + 4 * out_vox), OPS_RESAMPLE * out_vox)
+    b2_bound = _bound(4 * (5 * blocks[0].numel() + 3 * win["x_len"] * plane),
+                      OPS_FUSED * win["x_len"] * plane)
+    shard = {"resample": (min(b1), b1_plain, b1_bound, tuple(live_ext.shape), min(b1_lib)),
+             "fused_gradient": (min(b2), b2_plain, b2_bound, tuple(blocks[0].shape), None)}
+    print(f"[22] windows on every rank of {list(by_split)}: B1 x_start = live halo vs plain "
+          f"max|Δ| {worst['resample']} (exact); B2 x window (ghosts {WINDOW_GHOST}) vs plain "
+          f"warp max|Δ| {worst['fused']:.3e} (atol 4.8e-7), union of the windows vs the "
+          f"whole call {worst['union']:.3e}; by split {by_split}")
+    print(f"[22] at config5_512's shard: B1 field {shard['resample'][3]} -> "
+          f"{tuple(warp_blk.shape[1:])} {[round(t * 1e3, 1) for t in b1]} us (plain "
+          f"{b1_plain * 1e3:.1f} us, grid_sample {[round(t * 1e3, 1) for t in b1_lib]} us, "
+          f"max|Δ| {gs_err:.2e} vs B1; bound {b1_bound[0] * 1e3:.1f} us for field rows "
+          f"[{lo}, {hi}) of {live_ext.shape[0]}), B2 {shard['fused_gradient'][3]} window "
+          f"{win['x_len']} rows {[round(t * 1e3, 1) for t in b2]} us (plain "
+          f"{b2_plain * 1e3:.1f} us, bound {b2_bound[0] * 1e3:.1f} us)")
+    return worst, by_split, shard
+
+
+class _ShardedLoop:
+    """The sharded solve on a group as a loop object, for ``_solve_ms`` and
+    ``_profile_solve``."""
+
+    def __init__(self, params, group, live_halo):
+        self.params, self.group, self.live_halo = params, group, live_halo
+
+    def solve(self, canonical, live):
+        return solve_single_level_sharded(canonical, live, self.params, group=self.group,
+                                          live_halo=self.live_halo)
+
+
+def _sharded_launches(iterations):
+    """B1's and B2's launches of a sharded_3d run: one each an iteration,
+    and B1's final resample of the live field."""
+    return {"resample": iterations + 1, "fused_gradient": iterations}
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _ranks(preset, one_rank, world=2):
+    """``preset`` through the CLI on ``world`` NCCL ranks (processes with
+    torchrun's environment, one device each), held to the run on one rank:
+    iterations and ``converged`` equal, the residuals within rel 1e-4 and
+    max|u| within rtol 3e-4."""
+    port = _free_port()
+    with tempfile.TemporaryDirectory() as out:
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "levelsetfusion_tpu_torch.cli", "--preset", preset,
+             "--out", out],
+            env={**os.environ, "MASTER_ADDR": "localhost", "MASTER_PORT": str(port),
+                 "RANK": str(r), "WORLD_SIZE": str(world), "LOCAL_RANK": str(r)},
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True) for r in range(world)]
+        try:
+            errs = [p.communicate(timeout=300)[1] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+        if any(p.returncode for p in procs):
+            raise AssertionError(f"the {world}-rank run failed: {[e[-2000:] for e in errs]}")
+        with open(os.path.join(out, "summary.json")) as f:
+            two = json.load(f)
+    if (two["iterations"], two["converged"], two["devices"]) != (
+            one_rank["iterations"], one_rank["converged"], world):
+        raise AssertionError(f"{world} ranks: {two} against 1 rank: {one_rank}")
+    for key in ("residual_before", "residual_after"):
+        _close(f"{world} ranks {key}", torch.tensor(two[key]), torch.tensor(one_rank[key]),
+               1e-4)
+    _close(f"{world} ranks max|u|", torch.tensor(two["max_abs_displacement"]),
+           torch.tensor(one_rank["max_abs_displacement"]), 3e-4)
+    return (f"{preset} on {world} NCCL ranks: {two['iterations']} iterations, residual_after "
+            f"{two['residual_after']:.6g}, wall {two['wall_seconds']} s, equal to 1 rank's")
+
+
+def phase23_sharded():
+    """``sharded_3d`` through ``cli.run_experiment`` on a world of 1 (NCCL),
+    the launch counters reset just before each run: config5_sharded
+    (iterations, converged; its warp from the same solve on the group
+    against the single-device port on the card at atol 2e-5 / rtol 1e-4,
+    the JAX parity test's; B1 and B2 once an iteration, B1 once more for the
+    final resample), and config5_512 at 512³ (Killing + level set + Sobolev,
+    k = 4), its peak memory. Then config5_512's solve timed on its own
+    (µs/iter, voxel·iter/s, peak memory) and a ``torch.profiler`` breakdown
+    of 8 of its iterations. With two devices, config5_sharded on 2 NCCL
+    ranks against 1."""
+    paths, out = {}, {}
+    for name in (C5, C5_512):
+        cfg = PRESETS[name]
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        summary, wall = _cli_run(cfg, "cuda")
+        paths[name] = _read_launches()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if paths[name] != _sharded_launches(summary["iterations"]):
+            raise AssertionError(f"{name}: launches {paths[name]} for {summary['iterations']} "
+                                 "iterations")
+        numbers = [summary[k] for k in ("residual_before", "residual_after")]
+        if not all(np.isfinite(numbers + summary["max_abs_displacement"])):
+            raise AssertionError(f"{name}: non-finite results {summary}")
+        if (summary["residual_after"] >= summary["residual_before"]
+                or summary["contract_violations"]):
+            raise AssertionError(f"{name}: {summary}")
+        out[name] = (summary, wall, peak)
+    c5, _, _ = out[C5]
+    if not c5["converged"]:
+        raise AssertionError(f"{C5} did not converge in {c5['iterations']} iterations")
+    group = init_group("cuda")
+    try:
+        cfg = PRESETS[C5]
+        canonical, live = _pair_3d(cfg, _grid(cfg), group.device)
+        sh = solve_single_level_sharded(canonical, live, cfg.solver, group=group,
+                                        live_halo=cfg.live_halo)
+        single = solve_single_level(canonical, live, cfg.solver)
+        if not sh.iterations == single.iterations == c5["iterations"]:
+            raise AssertionError(f"{C5}: sharded {sh.iterations}, single-device "
+                                 f"{single.iterations}, CLI {c5['iterations']} iterations")
+        warp_err = _close(f"{C5} warp vs the single-device port", sh.warp, single.warp,
+                          1e-4, 2e-5)
+        c5_loop = _ShardedLoop(cfg.solver, group, cfg.live_halo)
+        c5_ms = [_solve_ms(c5_loop, canonical, live) for _ in range(2)]
+        c5_rate = canonical.numel() * sh.iterations / (min(c5_ms) / 1e3)
+        single_loop = SolveLoop(canonical.shape, cfg.solver, group.device)
+        single_loop.solve(canonical, live)
+        c5_single_ms = _solve_ms(single_loop, canonical, live)
+        cfg = PRESETS[C5_512]
+        canonical, live = _pair_3d(cfg, _grid(cfg), group.device)
+        loop = _ShardedLoop(cfg.solver, group, cfg.live_halo)
+        res = loop.solve(canonical, live)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        runs = [_solve_ms(loop, canonical, live) for _ in range(2)]
+        solve_peak = torch.cuda.max_memory_allocated() / 2**30
+        per_iter_ms = min(runs) / res.iterations
+        rate = canonical.numel() / (per_iter_ms / 1e3)
+        short = _ShardedLoop(cfg.solver.replace(max_iterations=8, convergence_threshold=0.0),
+                             group, cfg.live_halo)
+        profile = _profile_solve(short, canonical, live, per_iter_ms * 1e3, "eager sharded",
+                                 where=f"{C5_512} solve at {C5_512_SHAPE}, world 1")
+    finally:
+        close_group(group)
+    if torch.cuda.device_count() >= 2:
+        multi = _ranks(C5, c5)
+    else:
+        multi = (f"the multi-rank run needs a second device: this process sees "
+                 f"{torch.cuda.device_count()}")
+    s512, wall512, peak512 = out[C5_512]
+    print(f"[23] sharded_3d on a world of 1 (NCCL) through cli.run_experiment: {C5} "
+          f"{PRESETS[C5].grid_shape}: {c5['iterations']} iterations, converged, residual "
+          f"{c5['residual_before']:.6g} -> {c5['residual_after']:.6g}, max|u| "
+          f"{[round(v, 4) for v in c5['max_abs_displacement']]}, wall {out[C5][1]:.2f} s, "
+          f"launches {paths[C5]}; its warp vs the single-device port on the card max|Δ| "
+          f"{warp_err:.3e} (atol 2e-5 rtol 1e-4, {single.iterations} iterations both); its "
+          f"solve {min(c5_ms):.1f} ms (runs {[round(r, 2) for r in c5_ms]}), "
+          f"{min(c5_ms) / sh.iterations * 1e3:.1f} us/iter, {c5_rate:.4e} voxel*iter/s (the "
+          f"single-device graph loop's {c5_single_ms:.1f} ms); "
+          f"{C5_512} {C5_512_SHAPE}: {s512['iterations']} iterations (k = "
+          f"{PRESETS[C5_512].solver.termination_check_interval}), converged "
+          f"{s512['converged']}, residual {s512['residual_before']:.6g} -> "
+          f"{s512['residual_after']:.6g}, wall {wall512:.2f} s, launches {paths[C5_512]}, "
+          f"peak memory {peak512:.2f} GiB; its solve alone {min(runs):.1f} ms "
+          f"(runs {[round(r, 2) for r in runs]} ms), {per_iter_ms * 1e3:.1f} us/iter, "
+          f"{rate:.4e} voxel*iter/s, peak memory {solve_peak:.2f} GiB")
+    print(f"[23] {profile}")
+    print(f"[23] {multi}")
+    return paths, {"config5_512_us_per_iter": per_iter_ms * 1e3, "voxel_iter_per_s": rate,
+                   "peak_gib": solve_peak}
+
+
+def phase24_sharded_fusion():
+    """``multi_frame_sharded_3d``'s fusion on a world of 1 (NCCL): config4's
+    128³ x 8 sequence through ``fuse_sequence_sharded``, the launch counters
+    reset just before, held frame by frame to the single-device frame
+    (``fusion.fuse_frame``, what ``fuse_sequence`` runs) from the same state
+    and warm start, by phase 16's rules at the tolerance of the JAX
+    package's sharded-fusion test (tests/test_fusion_sharded.py: atol 2e-5,
+    rtol 1e-4): iterations equal; the warp, and the canonical and weights
+    away from voxels whose weight may fall either way (at most 1% of the
+    volume). A voxel's weight may fall either way where its two warped
+    values lie closer to the bound than to each other. The block's resample
+    samples at float(x_start + i) + u, not float(x) + u, and a warped value
+    that this moves across the band's bound changes the data term there
+    inside a solve: at 128³ that moves a frame's warp past phase 16's 3e-6
+    (PERF.md §6). The witness shows it: each frame solved and blended on the
+    group with no live halo (x_start 0) is held to phase 16's rules.
+    Frame by frame, since a weight that falls the other way changes the next
+    frames' canonical there: the free-running runs' per-frame iterations are
+    held equal and their warps' differences printed. Frames/s of both from
+    the second fused frame on."""
+    cfg = PRESETS[C4]
+    ds = cli._sequence_dataset(cfg)
+    pipeline_cfg = fusion.FusionPipelineConfig(
+        grid=_grid(cfg), narrow_band_width_voxels=cfg.narrow_band_width_voxels,
+        hierarchical=False, solver=cfg.solver)
+    after = {}  # frame -> (state, warp) of the sharded run
+    stamps = []
+
+    def keep(t, state, warp, report=None, solver=None):
+        after[t] = (fusion.FusionState(*(a.clone() for a in state)), warp.clone())
+        stamps.append(time.perf_counter())
+
+    group = init_group("cuda")
+    try:
+        _reset_launches()
+        got = fusion.fuse_sequence_sharded(ds.frames, ds.camera, pipeline_cfg, group=group,
+                                           live_halo=cfg.live_halo, frame_callback=keep)
+        launches = _read_launches()
+        errs, near_max, witness, witness_near, free, its, flat_fps = _hold_sharded_frames(
+            ds, pipeline_cfg, got, after, group, cfg.live_halo)
+    finally:
+        close_group(group)
+    fps = (len(stamps) - 1) / (stamps[-1] - stamps[0])
+    want = {"resample": sum(its) + len(its), "fused_gradient": sum(its)}
+    if launches != want:
+        raise AssertionError(f"sharded fusion launches {launches}, want {want}")
+    if any(r.contract_violations for r in got.reports):
+        raise AssertionError(f"live-halo violations {[r.contract_violations for r in got.reports]}")
+    print(f"[24] {C4} at {cfg.grid_shape} x {len(ds.frames)} frames through "
+          f"fuse_sequence_sharded on a world of 1 (NCCL): iterations {its}, as fuse_sequence's; "
+          f"each frame vs fuse_frame on the card from the same state: max|Δ| "
+          f"{ {k: f'{v:.3e}' for k, v in errs.items()} } (rtol 1e-4 atol 2e-5) away from "
+          f"voxels near the band's bound (at most {near_max:.3%} a frame); with no live halo "
+          f"(x_start 0) max|Δ| { {k: f'{v:.3e}' for k, v in witness.items()} } (rtol 3e-4 "
+          f"atol 3e-6) away from {witness_near:.3%} near voxels; the free-running "
+          f"runs' warps by frame max|Δ| {[f'{e:.2e}' for e in free]}; launches {launches}; "
+          f"{fps:.2f} frames/s sharded (eager loop), {flat_fps:.2f} frames/s flat (graph "
+          f"loop, pipelined)")
+    return launches
+
+
+def _hold_sharded_frames(ds, pipeline_cfg, got, after, group, live_halo):
+    """Phase 24's checks of the sharded run ``got`` (``after``: each frame's
+    state and warp) against the single-device fusion: the free-running
+    ``fuse_sequence``'s iterations, then each frame against ``fuse_frame``
+    from the sharded run's state before it. A voxel is near the bound where
+    the two paths' blend values (the sharded one resampled as the sharded
+    blend does, from a haloed block with ``x_start``) lie closer to it than
+    to each other. Each frame is also solved and blended on the group with
+    no live halo (the witness), and held to ``fuse_frame`` by phase 16's
+    rules (rtol 3e-4, atol 3e-6; its near voxels as phase 16 counts them).
+    Returns (max|Δ|s, the largest near share, the witness's max|Δ|s and
+    near share, the free runs' warp max|Δ| by frame, iterations, the flat
+    run's frames/s)."""
+    flat_warps = {}
+    ref, flat_fps = _fps(ds, pipeline_cfg)
+    fusion.fuse_sequence(ds.frames, ds.camera, pipeline_cfg, device="cuda",
+                         frame_callback=lambda t, s, w: flat_warps.__setitem__(t, w.clone()))
+    its = [r.solver_iterations for r in got.reports]
+    if its != [r.solver_iterations for r in ref.reports]:
+        raise AssertionError(f"sharded fusion iterations {its} != "
+                             f"{[r.solver_iterations for r in ref.reports]}")
+    free = [float(torch.max(torch.abs(after[t][1] - flat_warps[t]))) for t in sorted(after)]
+    device = torch.device("cuda")
+    first = fusion._tsdf(ds.frames[0], ds.camera, pipeline_cfg, device)
+    after[0] = (fusion.init_state(first), torch.zeros_like(after[1][1]))
+    bound = float(np.float32(1.0 - fusion.TRUNCATION_EPS))
+    errs = {"warp": 0.0, "canonical": 0.0, "weights": 0.0}
+    witness, witness_near = dict(errs), 0.0
+    near_max, loops = 0.0, {}
+    for t in range(1, len(ds.frames)):
+        state0, warp0 = after[t - 1]
+        live = fusion._tsdf(ds.frames[t], ds.camera, pipeline_cfg, device)
+        state, warp, report, _ = fusion.fuse_frame(state0, live, warp0, pipeline_cfg.solver,
+                                                   pipeline_cfg, t, loops=loops)
+        if report.solver_iterations != its[t - 1]:
+            raise AssertionError(f"frame {t}: {report.solver_iterations} iterations, sharded "
+                                 f"{its[t - 1]}")
+        sh_state, sh_warp = after[t]
+        errs["warp"] = max(errs["warp"], _close(f"frame {t} warp", sh_warp, warp, 1e-4, 2e-5))
+        halo = fusion.blend_halo(got.reports[t - 1].max_abs_displacement[0], live_halo)
+        w_sh = warp_field_sharded(live, sh_warp, group, halo)
+        w_flat = warp_field_cm(live, to_component_major(warp))
+        near = torch.abs(torch.abs(w_flat) - bound) <= torch.abs(w_sh - w_flat)
+        near_max = max(near_max, float(near.float().mean()))
+        if near_max > 0.01:
+            raise AssertionError(f"frame {t}: {near_max:.2%} of the voxels lie near the bound")
+        far = ~near
+        errs["canonical"] = max(errs["canonical"], _close(
+            f"frame {t} canonical", sh_state.canonical[far], state.canonical[far], 1e-4, 2e-5))
+        errs["weights"] = max(errs["weights"], _close(
+            f"frame {t} weights", sh_state.weights[far], state.weights[far], 0.0, 0.0))
+        # The witness: the same frame on the group with no live halo, so that
+        # B1 samples at float(i) + u as the flat path does (x_start 0), in
+        # the solve and the blend, held to phase 16's rules.
+        res0 = solve_single_level_sharded(state0.canonical, live, pipeline_cfg.solver,
+                                          group=group, live_halo=0, initial_warp=warp0)
+        w0 = warp_field_sharded(live, res0.warp, group, 0)
+        state_w = fusion.blend(state0, w0)
+        if res0.iterations != its[t - 1]:
+            raise AssertionError(f"witness frame {t}: {res0.iterations} iterations, sharded "
+                                 f"{its[t - 1]}")
+        witness["warp"] = max(witness["warp"], _close(
+            f"witness frame {t} warp", res0.warp, warp, 3e-4, 3e-6))
+        near0 = torch.abs(torch.abs(w_flat) - bound) <= float(torch.max(torch.abs(w0 - w_flat)))
+        witness_near = max(witness_near, float(near0.float().mean()))
+        if witness_near > 0.01:
+            raise AssertionError(f"witness frame {t}: {witness_near:.2%} near the bound")
+        far0 = ~near0
+        witness["canonical"] = max(witness["canonical"], _close(
+            f"witness frame {t} canonical", state_w.canonical[far0], state.canonical[far0],
+            3e-4, 3e-6))
+        witness["weights"] = max(witness["weights"], _close(
+            f"witness frame {t} weights", state_w.weights[far0], state.weights[far0], 0.0, 0.0))
+    return errs, near_max, witness, witness_near, free, its, flat_fps
+
+
 def _row(name, source, replaces, numbers, per_iter=0):
     """A row of the ``kernels`` line; ``per_iter`` is the kernel's launches
     per config3 solve iteration."""
@@ -1802,16 +2264,28 @@ def main():
              "config1": phase18_config1(), "config2": phase19_config2()}
     phase20_rigid()
     paths["hierarchical_fusion"] = phase21_hierarchical_fusion()
+    window_err, window_by_split, shard = phase22_windows()
+    sharded_paths, _ = phase23_sharded()
+    paths.update(sharded_paths)
+    paths["fusion_sharded"] = phase24_sharded_fusion()
     by_path = {name: {path: c[name] for path, c in paths.items()}
                for name in ("resample", "fused_gradient")}
     ms, plain_ms, bound = times["resample"]
-    resample_row = _numbers(sum(by_path["resample"].values()), err_resample, ms, plain_ms,
+    resample_row = _numbers(sum(by_path["resample"].values()),
+                            max(err_resample, window_err["resample"]), ms, plain_ms,
                             bound, grid_sample_ms)
     resample_row["launches_by_path"] = by_path["resample"]
     ms, plain_ms, bound = times["fused_gradient"]
-    fused_row = _numbers(sum(by_path["fused_gradient"].values()), err_fused, ms, plain_ms,
-                         bound, None)
+    fused_row = _numbers(sum(by_path["fused_gradient"].values()),
+                         max(err_fused, window_err["fused"]), ms, plain_ms, bound, None)
     fused_row["launches_by_path"] = by_path["fused_gradient"]
+    for row, name, err in ((resample_row, "resample", "resample"),
+                           (fused_row, "fused_gradient", "fused")):
+        w_ms, w_plain, w_bound, w_shape, w_lib = shard[name]
+        row["windowed"] = {"shape": list(w_shape), "ms": w_ms, "plain_ms": w_plain,
+                           "bound_ms": w_bound[0], "bound_by": w_bound[1], "library_ms": w_lib,
+                           "max_abs_err_by_split": {
+                               split: e[err] for split, e in window_by_split.items()}}
     kernels = [
         _row("warp_field_cm", "resample.cu",
              "levelsetfusion_tpu/ops/pallas/resample.py:427", resample_row, 1),

@@ -15,17 +15,30 @@ modes run: ``single_pair_2d`` (config1) and ``single_pair_3d`` (config3),
 depth pyramid), ``rigid_2d`` and ``rigid_3d`` (SDF-2-SDF pose recovery
 against a known extrinsic), and ``multi_frame_3d`` (config4: the flat
 fusion of a depth sequence, with checkpoints every ``checkpoint_every``
-frames under ``<out>/checkpoints`` and ``--resume`` from the latest). The
-sharded modes raise ``NotImplementedError`` naming their ROADMAP item.
-Plots and the fusion video wait for the port of ``utils/visualization.py``
-(ROADMAP A10b).
+frames under ``<out>/checkpoints`` and ``--resume`` from the latest).
+
+The 1D sharded modes run on ``torch.distributed`` (``parallel/``):
+``sharded_3d`` with the sync solver (config5_sharded, config5_512) and
+``multi_frame_sharded_3d`` (the flat fusion, its checkpoints sharded). The
+world size comes from ``torchrun``'s environment, else it is 1 (one
+process, no launcher); ``num_devices`` is not read. Rank 0 writes the run's
+files; every rank writes its checkpoint shards:
+
+    python -m levelsetfusion_tpu_torch.cli --preset config5_512 --out c5
+    torchrun --nproc-per-node 2 -m levelsetfusion_tpu_torch.cli --preset config5_sharded --out c5
+
+The 2D-mesh and Schur solvers and ``hierarchical_sharded_3d`` raise
+``NotImplementedError`` naming ROADMAP A12. Plots and the fusion video
+wait for the port of ``utils/visualization.py`` (ROADMAP A10b).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -40,6 +53,7 @@ from levelsetfusion_tpu_torch.models.fusion import (
     _call_frame_callback,
     fuse_frame,
     fuse_sequence,
+    fuse_sequence_sharded,
 )
 from levelsetfusion_tpu_torch.models.hierarchical import (
     solve_hierarchical,
@@ -52,16 +66,30 @@ from levelsetfusion_tpu_torch.ops.kernels import fused_gradient, resample
 from levelsetfusion_tpu_torch.ops.kernels.fused_gradient import to_component_major
 from levelsetfusion_tpu_torch.ops.kernels.resample import warp_field_cm
 from levelsetfusion_tpu_torch.ops.tsdf import generate_tsdf_2d, generate_tsdf_3d
+from levelsetfusion_tpu_torch.parallel import (
+    close_group,
+    init_group,
+    solve_single_level_sharded,
+    warp_field_sharded,
+)
+from levelsetfusion_tpu_torch.parallel.mesh import gather_field, shard_field
 from levelsetfusion_tpu_torch.utils import checkpoint
+from levelsetfusion_tpu_torch.utils.debug import check_displacement_contract
 from levelsetfusion_tpu_torch.utils.config import PRESETS, ExperimentConfig
 from levelsetfusion_tpu_torch.utils.telemetry import RunLogger, telemetry_to_rows
 
 # Modes of the JAX CLI that this package does not run yet, by ROADMAP item.
-_NOT_PORTED = {
-    "sharded_3d": "A11/A12",
-    "multi_frame_sharded_3d": "A11",
-    "hierarchical_sharded_3d": "A12",
-}
+_NOT_PORTED = {"hierarchical_sharded_3d": "A12"}
+
+
+def _not_ported(cfg: ExperimentConfig) -> str | None:
+    """The ROADMAP item of a config this package does not run yet: its mode,
+    or in a sharded mode the 2D mesh or a solver other than the 1D sync
+    one."""
+    if cfg.mode in ("sharded_3d", "multi_frame_sharded_3d") and (
+            cfg.mesh_shape is not None or cfg.solver_kind != "sync"):
+        return "A12"
+    return _NOT_PORTED.get(cfg.mode)
 
 
 def _device(name) -> torch.device:
@@ -336,25 +364,112 @@ def _rigid(cfg, logger, device) -> dict:
     )
 
 
+def _sharded_3d(cfg, out_dir, logger, group) -> dict:
+    """config5: the sync solver on the 1D group. Every rank makes the whole
+    pair and keeps its block; the summary holds JAX's keys (the residuals
+    over the whole volume, the per-axis max |u| and the live-halo
+    violations)."""
+    canonical, live = _pair_3d(cfg, _grid(cfg), group.device)
+    live_blk = shard_field(live, group)
+    res = solve_single_level_sharded(shard_field(canonical, group), live_blk, cfg.solver,
+                                     group=group, live_halo=cfg.live_halo)
+    logger.log_solve(res)
+    warped = gather_field(warp_field_sharded(live_blk, res.warp, group, cfg.live_halo), group)
+    return dict(
+        devices=group.world,
+        iterations=int(res.iterations),
+        converged=bool(res.converged),
+        **_residual_metrics(canonical, live, warped),
+        max_abs_displacement=[float(v) for v in res.max_abs_displacement.cpu()],
+        contract_violations=check_displacement_contract(
+            res, live_halo=cfg.live_halo, name=cfg.name),
+    )
+
+
+def _multi_frame_sharded_3d(cfg, out_dir, logger, group) -> dict:
+    """config4 on the 1D group (``fuse_sequence_sharded``), with sharded
+    checkpoints every ``checkpoint_every`` frames under
+    ``<out>/checkpoints``."""
+    ds = _sequence_dataset(cfg)
+    pipeline_cfg = FusionPipelineConfig(
+        grid=_grid(cfg),
+        narrow_band_width_voxels=cfg.narrow_band_width_voxels,
+        generation_method=cfg.generation_method,
+        hierarchical=False,
+        solver=cfg.solver,
+    )
+    ckpt_root = os.path.join(out_dir, "checkpoints")
+    frame_times = []
+
+    def on_frame(t, state, warp, report, solver):
+        frame_times.append(time.perf_counter())
+        logger.event("frame_fused", frame=t, band_voxels=report.band_voxels)
+        if cfg.checkpoint_every and t % cfg.checkpoint_every == 0:
+            checkpoint.save(ckpt_root, t, state, warp, {"config": cfg.name}, group=group)
+
+    result = fuse_sequence_sharded(ds.frame_source(), ds.camera, pipeline_cfg, group=group,
+                                   live_halo=cfg.live_halo, frame_callback=on_frame)
+    processed = len(ds)
+    if len(frame_times) >= 2:
+        fps = (len(frame_times) - 1) / max(frame_times[-1] - frame_times[0], 1e-9)
+    else:
+        fps = processed / max(logger.elapsed(), 1e-9)
+    mds = [r.max_abs_displacement for r in result.reports]
+    return dict(
+        frames=processed,
+        devices=group.world,
+        frames_per_s=round(fps, 3),
+        reports=[r._asdict() for r in result.reports],
+        max_abs_displacement=[float(v) for v in np.max(mds, axis=0)] if mds else None,
+        contract_violations=[v for r in result.reports for v in r.contract_violations],
+    )
+
+
 _MODES = {"single_pair_2d": _single_pair, "single_pair_3d": _single_pair,
           "hierarchical_2d": _hierarchical_2d, "rigid_2d": _rigid, "rigid_3d": _rigid}
+_SHARDED = {"sharded_3d": _sharded_3d, "multi_frame_sharded_3d": _multi_frame_sharded_3d}
+
+
+def _run_sharded(cfg, out_dir, device) -> dict:
+    """A sharded mode on the default process group (``init_group``: made
+    here for a world of 1 without a launcher, and taken down after). Rank 0
+    writes the run's files into ``out_dir``; the other ranks log into a
+    directory that is removed."""
+    group = init_group(device)
+    try:
+        with contextlib.ExitStack() as stack:
+            log_dir = out_dir if group.rank == 0 else stack.enter_context(
+                tempfile.TemporaryDirectory())
+            logger = _logger(cfg, log_dir)
+            before = _launches({})
+            summary = _SHARDED[cfg.mode](cfg, out_dir, logger, group)
+            return logger.finish(**summary, device=str(group.device),
+                                 kernel_launches=_launches(before))
+    finally:
+        close_group(group)
+
+
+def _logger(cfg, out_dir) -> RunLogger:
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "config.json"), "w") as f:
+        f.write(cfg.to_json())
+    return RunLogger(out_dir)
 
 
 def run_experiment(cfg: ExperimentConfig, out_dir: str, device="cuda",
                    resume: bool = False) -> dict:
     """Run one experiment into ``out_dir``; returns the summary. ``resume``
     (multi_frame_3d) continues from the latest checkpoint there."""
-    if cfg.mode not in _MODES and cfg.mode != "multi_frame_3d":
-        item = _NOT_PORTED.get(cfg.mode)
+    item = _not_ported(cfg)
+    if item is not None or cfg.mode not in (*_MODES, *_SHARDED, "multi_frame_3d"):
         raise NotImplementedError(
             f"mode {cfg.mode!r} is not ported yet"
             + (f" (ROADMAP {item})" if item else "")
         )
     device = _device(device)
-    os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "config.json"), "w") as f:
-        f.write(cfg.to_json())
-    logger = RunLogger(out_dir)
+    if cfg.mode in _SHARDED:
+        return _run_sharded(cfg, out_dir, device)
+    logger = _logger(cfg, out_dir)
     if cfg.mode == "multi_frame_3d":
         return _multi_frame_3d(cfg, out_dir, logger, device, resume)
     before = _launches({})

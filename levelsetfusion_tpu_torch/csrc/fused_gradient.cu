@@ -20,6 +20,17 @@
 // and the Hessian rows and grad(div u) as np.gradient of np.gradient. They
 // apply at the faces of the volume only, never at the edge of a tile.
 //
+// The x window (the sharded solvers' haloed blocks; the TPU kernel's
+// x_offset, x_global, x_lo and x_len): input row q is global row x_offset +
+// q of a volume of x_global rows, and the call updates input rows [x_lo,
+// x_lo + x_len) only: u' has x_len rows, and the energies and statistics
+// sum over them. The x face rules fire at global rows 0 and x_global - 1,
+// the Sobolev x pass zero-pads beyond them, and input rows beyond them are
+// never read, so a block's ghost values there cannot change the result.
+// terms_kernel computes g on rows [x_lo - R, x_lo + x_len + R) inside the
+// volume (R the filter's radius) and reads the inputs 2 rows beyond that.
+// x_offset = x_lo = 0, x_len = x_global = X is the whole-volume call.
+//
 // What bounds it on the H100: the function reads Phi_w, Phi_c and u (5
 // volumes) and writes u' (3): 67 MB at 128^3, 20 us at 3.35 TB/s. The TPU
 // design does it all in one pass over haloed windows; here the only volume
@@ -77,6 +88,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 #include "cp_async.cuh"
 #include "occupancy.cuh"
 
@@ -121,6 +134,11 @@ constexpr int kSZ = 32, kLanesZ = kSZ / kVec, kSY = kThreads / kLanesZ;
 struct Dims {
   int nx, ny, nz, plane;
   int64_t n;
+  // The x window: input row q is global row q + x_off of x_global; input
+  // rows [q_lo, q_hi) lie inside the volume, and [w_lo, w_lo + w_len) are
+  // the rows this call updates, n_out = w_len * plane voxels.
+  int x_off, x_global, q_lo, q_hi, w_lo, w_len;
+  int64_t n_out;
 };
 
 struct TermParams {
@@ -134,41 +152,58 @@ struct Taps {
   float w[kMaxTaps];
 };
 
-// A kernel's grid: tiles of (y, z) columns times chunks of x.
+// A kernel's grid: tiles of (y, z) columns times chunks of the x rows
+// [x_begin, x_end).
 struct Plan {
-  int tiles_z, tiles_yz, xchunk, blocks;
+  int tiles_z, tiles_yz, xchunk, blocks, x_begin, x_end;
 };
 
 struct Tile {
   int x0, x1, y0, z0;
 };
 
-Dims dims(int nx, int ny, int nz) {
-  return Dims{nx, ny, nz, ny * nz, (int64_t)nx * ny * nz};
+Dims dims(int nx, int ny, int nz, int x_off, int x_global, int x_lo, int x_len) {
+  Dims d{nx, ny, nz, ny * nz, (int64_t)nx * ny * nz};
+  d.x_off = x_off;
+  d.x_global = x_global;
+  d.q_lo = std::max(0, -x_off);
+  d.q_hi = std::min(nx, x_global - x_off);
+  d.w_lo = x_lo;
+  d.w_len = x_len;
+  d.n_out = (int64_t)x_len * ny * nz;
+  return d;
 }
 
-// As many chunks of x as fill one wave of `wave` CTAs, each of at least
-// kMinXChunk planes.
-Plan plan(const Dims& d, int ty, int tz, int wave) {
+// The rows terms_kernel computes g on: the window and the filter's radius
+// around it, inside the volume.
+int g_begin(const Dims& d, int radius) { return std::max(d.w_lo - radius, d.q_lo); }
+int g_end(const Dims& d, int radius) { return std::min(d.w_lo + d.w_len + radius, d.q_hi); }
+
+// As many chunks of the rows [x_begin, x_end) as fill one wave of `wave`
+// CTAs, each of at least kMinXChunk planes.
+Plan plan(const Dims& d, int x_begin, int x_end, int ty, int tz, int wave) {
   Plan p;
+  const int rows = x_end - x_begin;
+  p.x_begin = x_begin;
+  p.x_end = x_end;
   p.tiles_z = (d.nz + tz - 1) / tz;
   p.tiles_yz = p.tiles_z * ((d.ny + ty - 1) / ty);
   int chunks = wave / p.tiles_yz;
-  const int most = (d.nx + kMinXChunk - 1) / kMinXChunk;
+  const int most = (rows + kMinXChunk - 1) / kMinXChunk;
   if (chunks > most) chunks = most;
   if (chunks < 1) chunks = 1;
-  p.xchunk = (d.nx + chunks - 1) / chunks;
-  p.blocks = p.tiles_yz * ((d.nx + p.xchunk - 1) / p.xchunk);
+  p.xchunk = (rows + chunks - 1) / chunks;
+  p.blocks = p.tiles_yz * ((rows + p.xchunk - 1) / p.xchunk);
   return p;
 }
 
-__device__ __forceinline__ Tile tile_of(const Dims& d, const Plan& p, int ty, int tz) {
+__device__ __forceinline__ Tile tile_of(const Plan& p, int ty, int tz) {
   const int t = blockIdx.x % p.tiles_yz, c = blockIdx.x / p.tiles_yz;
   Tile r;
   r.y0 = (t / p.tiles_z) * ty;
   r.z0 = (t % p.tiles_z) * tz;
-  r.x0 = c * p.xchunk;
-  r.x1 = min(r.x0 + p.xchunk, d.nx);
+  r.x0 = p.x_begin + c * p.xchunk;
+  r.x1 = min(r.x0 + p.xchunk, p.x_end);
   return r;
 }
 
@@ -248,7 +283,7 @@ __global__ void __launch_bounds__(kThreads, 3)
   float* const in = smem;                           // [slot][Phi_w, u0, u1, u2][kIPlane]
   float* const dv = smem + kInSlots * 4 * kIPlane;  // [slot][gw0, gw1, gw2, div][kDPlane]
   const int tid = threadIdx.x;
-  const Tile tl = tile_of(d, pl, kTY, kTZ);
+  const Tile tl = tile_of(pl, kTY, kTZ);
   const bool need_u = p.w_smooth != 0.0f;
   const bool need_div = need_u && p.killing;
 
@@ -294,7 +329,7 @@ __global__ void __launch_bounds__(kThreads, 3)
   const auto in_slot = [&](int q) { return in + (q + kInSlots) % kInSlots * 4 * kIPlane; };
   const auto dv_slot = [&](int q) { return dv + (q + kDerivSlots) % kDerivSlots * 4 * kDPlane; };
   const auto load = [&](int q) {
-    if (q < 0 || q >= d.nx) return;
+    if (q < d.q_lo || q >= d.q_hi) return;
     float* s = in_slot(q);
     const int64_t base = (int64_t)q * d.plane;
     const auto copy = [&](float* dst, const float* src) {
@@ -321,12 +356,13 @@ __global__ void __launch_bounds__(kThreads, 3)
     const float *m = in_slot(a - 1), *c = in_slot(a), *pp = in_slot(a + 1);
     float* out = dv_slot(a) + d_sm[k];
     const int j = d_sm[k] + kIZ + kIZ0 - 1, y = d_y[k], z = d_z[k];  // its input index
-    out[0] = dnp3<E>(m[j], c[j], pp[j], a, d.nx);
+    const int ga = a + d.x_off;
+    out[0] = dnp3<E>(m[j], c[j], pp[j], ga, d.x_global);
     out[kDPlane] = dnp3<E>(c[j - kIZ], c[j], c[j + kIZ], y, d.ny);
     out[2 * kDPlane] = dnp3<E>(c[j - 1], c[j], c[j + 1], z, d.nz);
     if (need_div) {
       const int j0 = kIPlane + j, j1 = 2 * kIPlane + j, j2 = 3 * kIPlane + j;
-      float s = dnp3<E>(m[j0], c[j0], pp[j0], a, d.nx);
+      float s = dnp3<E>(m[j0], c[j0], pp[j0], ga, d.x_global);
       s = s + dnp3<E>(c[j1 - kIZ], c[j1], c[j1 + kIZ], y, d.ny);
       s = s + dnp3<E>(c[j2 - 1], c[j2], c[j2 + 1], z, d.nz);
       out[3 * kDPlane] = s;
@@ -341,6 +377,9 @@ __global__ void __launch_bounds__(kThreads, 3)
     const float *gm = dv_slot(x - 1), *gc = dv_slot(x), *gp = dv_slot(x + 1);
     const float wv = c[ii];
     const bool band = fabsf(cv) < kBand || fabsf(wv) < kBand;
+    // Global row, and whether the row is the window's (the energies'):
+    const int gx = x + d.x_off;
+    const bool counted = x >= d.w_lo && x < d.w_lo + d.w_len;
     float diff = wv - cv;
     if (p.band_union && !band) diff = 0.0f;
     float grad[3], total[3];
@@ -349,14 +388,14 @@ __global__ void __launch_bounds__(kThreads, 3)
       grad[k] = gc[k * kDPlane + di];
       total[k] = p.w_data * (diff * grad[k]);
     }
-    e[0] += (double)(diff * diff);
+    if (counted) e[0] += (double)(diff * diff);
 
     if (need_u) {
       float jac[3][3];  // jac[i][a] = d_a u_i
 #pragma unroll
       for (int i = 0; i < 3; ++i) {
         const int f = (1 + i) * kIPlane + ii;
-        jac[i][0] = dnp3<E>(m[f], c[f], pp[f], x, d.nx);
+        jac[i][0] = dnp3<E>(m[f], c[f], pp[f], gx, d.x_global);
         jac[i][1] = dnp3<E>(c[f - kIZ], c[f], c[f + kIZ], vy, d.ny);
         jac[i][2] = dnp3<E>(c[f - 1], c[f], c[f + 1], vz, d.nz);
       }
@@ -371,13 +410,13 @@ __global__ void __launch_bounds__(kThreads, 3)
 #pragma unroll
       for (int k = 0; k < 3; ++k) {
         const int f = (1 + k) * kIPlane + ii;
-        float lap = d2rep3<E>(m[f], c[f], pp[f], x, d.nx);
+        float lap = d2rep3<E>(m[f], c[f], pp[f], gx, d.x_global);
         lap = lap + d2rep3<E>(c[f - kIZ], c[f], c[f + kIZ], vy, d.ny);
         lap = lap + d2rep3<E>(c[f - 1], c[f], c[f + 1], vz, d.nz);
         float gs = -lap;
         if (p.killing) {
           const int q = 3 * kDPlane + di;
-          const float gd = k == 0   ? dnp3<E>(gm[q], gc[q], gp[q], x, d.nx)
+          const float gd = k == 0   ? dnp3<E>(gm[q], gc[q], gp[q], gx, d.x_global)
                            : k == 1 ? dnp3<E>(gc[q - kDZ], gc[q], gc[q + kDZ], vy, d.ny)
                                     : dnp3<E>(gc[q - 1], gc[q], gc[q + 1], vz, d.nz);
           gs = -(1.0f + p.gamma) * lap - gd;
@@ -385,7 +424,7 @@ __global__ void __launch_bounds__(kThreads, 3)
         total[k] = total[k] + p.w_smooth * gs;
       }
       // 1/2 |J + J^T|^2 = |J|^2 + sum_ij J_ij J_ji
-      e[1] += p.killing ? (double)((1.0f + p.gamma) * sq + cross) : (double)sq;
+      if (counted) e[1] += p.killing ? (double)((1.0f + p.gamma) * sq + cross) : (double)sq;
     }
 
     if (p.w_ls != 0.0f) {
@@ -401,12 +440,12 @@ __global__ void __launch_bounds__(kThreads, 3)
         // Row i of the Hessian dotted with grad Phi_w.
         const int q = i * kDPlane + di;
         float hg = 0.0f;
-        hg += dnp3<E>(gm[q], gc[q], gp[q], x, d.nx) * grad[0];
+        hg += dnp3<E>(gm[q], gc[q], gp[q], gx, d.x_global) * grad[0];
         hg += dnp3<E>(gc[q - kDZ], gc[q], gc[q + kDZ], vy, d.ny) * grad[1];
         hg += dnp3<E>(gc[q - 1], gc[q], gc[q + 1], vz, d.nz) * grad[2];
         total[i] = total[i] + p.w_ls * (scale * hg);
       }
-      e[2] += (double)el;
+      if (counted) e[2] += (double)el;
     }
     const int64_t v = (int64_t)x * d.plane + v_off;
 #pragma unroll
@@ -427,8 +466,8 @@ __global__ void __launch_bounds__(kThreads, 3)
     __syncthreads();  // for every thread, and every read of the slots reused below is done
     if (a + 1 + kAhead <= tl.x1 + 1) load(a + 1 + kAhead);
     lsf_cp::cp_async_commit();
-    if (a <= tl.x1 && a >= 0 && a < d.nx) {
-      const bool a_inner = inner(a, d.nx);
+    if (a <= tl.x1 && a >= d.q_lo && a < d.q_hi) {
+      const bool a_inner = inner(a + d.x_off, d.x_global);
 #pragma unroll
       for (int k = 0; k < kDPerThread; ++k) {
         if (d_y[k] < 0) continue;
@@ -443,7 +482,7 @@ __global__ void __launch_bounds__(kThreads, 3)
     if (x >= tl.x0 && x + 1 < tl.x1 && v_ok)
       cv_next = __ldg(cn + (int64_t)(x + 1) * d.plane + v_off);
     if (x >= tl.x0 && v_ok) {
-      if (v_inner && inner(x, d.nx))
+      if (v_inner && inner(x + d.x_off, d.x_global))
         terms(Edge<false>(), x, cv);
       else
         terms(Edge<true>(), x, cv);
@@ -518,7 +557,7 @@ __global__ void __launch_bounds__(kThreads)
   float* const in = smem;  // [kGSlots][3][IY][IZ]: g, halo R in y and H in z
   float* const mid = in + kGSlots * 3 * IPlane;  // [2][3][IY][kSZ]: filtered along z
   const int tid = threadIdx.x, ty = tid / kLanesZ, tz = tid % kLanesZ * kVec;
-  const Tile tl = tile_of(d, pl, kSY, kSZ);
+  const Tile tl = tile_of(pl, kSY, kSZ);
   const int y = tl.y0 + ty, z = tl.z0 + tz;
   const float neg_rate = -__ldg(rate);
   double sum[1] = {0.0};
@@ -533,10 +572,11 @@ __global__ void __launch_bounds__(kThreads)
       for (int k = 0; k < 3; ++k)
         uv[k][e] = y < d.ny && z + e < d.nz ? u[k * d.n + v0 + e] : 0.0f;
   };
-  // u' and the statistics at this thread's voxels of plane x.
+  // u' (its row x - w_lo) and the statistics at this thread's voxels of
+  // plane x.
   const auto update = [&](int x, const float (&gf)[3][kVec], const float (&uv)[3][kVec]) {
     if (y >= d.ny) return;
-    const int64_t v0 = (int64_t)x * d.plane + y * d.nz + z;
+    const int64_t v0 = (int64_t)(x - d.w_lo) * d.plane + y * d.nz + z;
 #pragma unroll
     for (int e = 0; e < kVec; ++e) {
       if (z + e >= d.nz) break;
@@ -545,7 +585,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int k = 0; k < 3; ++k) {
         upd[k] = neg_rate * gf[k][e];
         const float nu = uv[k][e] + upd[k];
-        new_u[k * d.n + v0 + e] = nu;
+        new_u[k * d.n_out + v0 + e] = nu;
         mx[1 + k] = nanmax(mx[1 + k], fabsf(nu));
       }
       const float ul = sqrtf(upd[0] * upd[0] + upd[1] * upd[1] + upd[2] * upd[2]);
@@ -583,7 +623,7 @@ __global__ void __launch_bounds__(kThreads)
       in_off[k] = gy >= 0 && gy < d.ny && gz >= 0 && gz < d.nz ? gy * d.nz + gz : -1;
     }
     const int q0 = tl.x0 - R, q1 = tl.x1 + R;  // the input planes [q0, q1)
-    const auto inside = [&](int q) { return q >= 0 && q < d.nx; };
+    const auto inside = [&](int q) { return q >= d.q_lo && q < d.q_hi; };
     const auto g_slot = [&](int q) { return in + (q - q0) % kGSlots * 3 * IPlane; };
     const auto load = [&](int q) {
       if (q >= q1 || !inside(q)) return;
@@ -753,26 +793,39 @@ cudaError_t launch_update(const float* g, const float* u, const float* rate, flo
   return cudaGetLastError();
 }
 
-bool args_ok(int nx, int ny, int nz, int ntaps) {
-  return nx >= 1 && ny >= 1 && nz >= 1 && (int64_t)ny * nz <= INT32_MAX && ntaps >= 0 &&
-         ntaps <= kMaxTaps && (ntaps == 0 || ntaps % 2 == 1);
+// The shape, the taps and the x window: the window lies inside the input
+// and the volume, and the input holds every row inside the volume within
+// 2 + R of it.
+bool args_ok(int nx, int ny, int nz, int ntaps, int x_off, int x_global, int x_lo, int x_len) {
+  if (!(nx >= 1 && ny >= 1 && nz >= 1 && (int64_t)ny * nz <= INT32_MAX && ntaps >= 0 &&
+        ntaps <= kMaxTaps && (ntaps == 0 || ntaps % 2 == 1)))
+    return false;
+  const int64_t h = 2 + ntaps / 2, lo = x_lo, hi = (int64_t)x_lo + x_len;
+  return x_global >= 1 && x_len >= 1 && lo >= 0 && hi <= nx && lo + x_off >= 0 &&
+         hi + x_off <= x_global && std::max<int64_t>(lo - h, -(int64_t)x_off) >= 0 &&
+         std::min<int64_t>(hi + h, (int64_t)x_global - x_off) <= nx;
 }
 
 }  // namespace
 
-// Doubles the caller must provide in `partial` for a volume of this shape
-// and tap count (0 for arguments the kernels refuse, -1 if the CUDA runtime could
-// not be asked for the grid).
-extern "C" int64_t lsf_fused_partials_len(int nx, int ny, int nz, int ntaps) {
-  if (!args_ok(nx, ny, nz, ntaps)) return 0;
+// Doubles the caller must provide in `partial` for a volume of this shape,
+// tap count and x window (0 for arguments the kernels refuse, -1 if the CUDA
+// runtime could not be asked for the grid).
+extern "C" int64_t lsf_fused_partials_len(int nx, int ny, int nz, int ntaps, int x_offset,
+                                          int x_global, int x_lo, int x_len) {
+  if (!args_ok(nx, ny, nz, ntaps, x_offset, x_global, x_lo, x_len)) return 0;
   const int tw = terms_wave(), uw = update_wave(ntaps / 2);
   if (tw < 0 || uw < 0) return -1;
-  const Dims d = dims(nx, ny, nz);
-  return (int64_t)plan(d, kTY, kTZ, tw).blocks * kTermCols +
-         (int64_t)plan(d, kSY, kSZ, uw).blocks * kUpdateCols;
+  const Dims d = dims(nx, ny, nz, x_offset, x_global, x_lo, x_len);
+  const int r = ntaps / 2;
+  return (int64_t)plan(d, g_begin(d, r), g_end(d, r), kTY, kTZ, tw).blocks * kTermCols +
+         (int64_t)plan(d, x_lo, x_lo + x_len, kSY, kSZ, uw).blocks * kUpdateCols;
 }
 
 // All pointers are device pointers except `taps` (host, ntaps floats).
+// warped, canonical (nx, ny, nz) and warp_cm (3, nx, ny, nz) are the input
+// block; new_warp is (3, x_len, ny, nz), the window's rows (see the x window
+// above: x_offset = x_lo = 0, x_len = x_global = nx for the whole volume).
 // Scratch: g 3n floats, partial lsf_fused_partials_len doubles, ticket one
 // unsigned that is 0 before the call and is 0 again after it (the kernels
 // reset it), not shared with a call that may run at the same time. active:
@@ -783,10 +836,11 @@ extern "C" int64_t lsf_fused_partials_len(int nx, int ny, int nz, int ntaps) {
 extern "C" int lsf_fused_gradient_update(
     const float* warped, const float* canonical, const float* warp_cm,
     const float* rate, float* new_warp, float* stats, float* g, double* partial,
-    unsigned* ticket, const unsigned char* active, int nx, int ny, int nz, float w_data,
-    float w_smooth, float w_ls, int killing, float gamma, int band_union, const float* taps,
-    int ntaps, void* stream_ptr) {
-  if (!args_ok(nx, ny, nz, ntaps) || !warped || !canonical || !warp_cm || !rate ||
+    unsigned* ticket, const unsigned char* active, int nx, int ny, int nz, int x_offset,
+    int x_global, int x_lo, int x_len, float w_data, float w_smooth, float w_ls, int killing,
+    float gamma, int band_union, const float* taps, int ntaps, void* stream_ptr) {
+  if (!args_ok(nx, ny, nz, ntaps, x_offset, x_global, x_lo, x_len) || !warped || !canonical ||
+      !warp_cm || !rate ||
       !new_warp || !stats || !g || !partial || !ticket || (ntaps && !taps))
     return (int)cudaErrorInvalidValue;
   const int tw = terms_wave(), uw = update_wave(ntaps / 2);
@@ -795,9 +849,11 @@ extern "C" int lsf_fused_gradient_update(
     return (int)(err != cudaSuccess ? err : cudaErrorUnknown);
   }
   const cudaStream_t s = (cudaStream_t)stream_ptr;
-  const Dims d = dims(nx, ny, nz);
+  const Dims d = dims(nx, ny, nz, x_offset, x_global, x_lo, x_len);
   const TermParams p{w_data, w_smooth, w_ls, gamma, killing, band_union};
-  const Plan tp = plan(d, kTY, kTZ, tw), up = plan(d, kSY, kSZ, uw);
+  const int r = ntaps / 2;
+  const Plan tp = plan(d, g_begin(d, r), g_end(d, r), kTY, kTZ, tw),
+             up = plan(d, x_lo, x_lo + x_len, kSY, kSZ, uw);
   terms_kernel<<<tp.blocks, kThreads, kTermsSmem, s>>>(warped, canonical, warp_cm, g, partial,
                                                       d, p, tp, active);
   cudaError_t err = cudaGetLastError();

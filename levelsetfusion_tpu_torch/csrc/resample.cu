@@ -45,6 +45,13 @@
 // itertools.product order. The _rn intrinsics keep nvcc from contracting
 // them into FMAs, so the result equals the plain torch version bit for bit.
 //
+// A haloed block (the sharded solvers). The live field may hold more x
+// rows than the warp: output row i samples live(x_start + i + ux, y + uy,
+// z + uz), +1 outside the field's fx rows. This is the golden gather of
+// levelsetfusion_tpu/parallel/sharded.py on a block with its live halo, not
+// the TPU kernel's x_start over a +-K clamp window. With x_start = 0 and
+// fx = nx it is the whole-volume call above, float for float.
+//
 // Measured at 128^3 (NVIDIA H100 80GB HBM3, 700.00 W): 18.6-18.7 us a call
 // by CUDA events on bench's +-2 random warp (the first port: 31.8-32.5),
 // 14.4-14.6 us an iteration inside the config3 solve (torch.profiler;
@@ -55,6 +62,7 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <cstdlib>
 
 #include "occupancy.cuh"
 
@@ -133,8 +141,9 @@ template <typename Off>
 __global__ void __launch_bounds__(kThreads)
     warp_field_cm_kernel(const float* __restrict__ live, const float* __restrict__ ux,
                          const float* __restrict__ uy, const float* __restrict__ uz,
-                         float* __restrict__ out, int nx, int ny, int nz, int tiles_y,
-                         int chunk, const unsigned char* __restrict__ active) {
+                         float* __restrict__ out, int nx, int ny, int nz, int fx,
+                         int x_start, int tiles_y, int chunk,
+                         const unsigned char* __restrict__ active) {
   // A solve whose done flag is set (active reads 0) skips the call: the
   // frozen iterations of a captured chunk cost one launch and one load.
   if (active != nullptr && *active == 0) return;
@@ -149,9 +158,10 @@ __global__ void __launch_bounds__(kThreads)
     const float fy = (float)y;
     Off v = (Off)x_begin * plane + (Off)y * (Off)nz + (Off)z;
     for (int x = x_begin; x < x_end; ++x, v += plane) {
-      store_stream(out + v, sample<Off>(live, __fadd_rn((float)x, load_stream(ux + v)),
-                                        __fadd_rn(fy, load_stream(uy + v)),
-                                        __fadd_rn(fz, load_stream(uz + v)), nx, ny, nz, plane));
+      store_stream(out + v,
+                   sample<Off>(live, __fadd_rn((float)(x + x_start), load_stream(ux + v)),
+                               __fadd_rn(fy, load_stream(uy + v)),
+                               __fadd_rn(fz, load_stream(uz + v)), fx, ny, nz, plane));
     }
   }
 }
@@ -159,8 +169,8 @@ __global__ void __launch_bounds__(kThreads)
 int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
 
 template <typename Off>
-int launch(const float* live, const float* warp_cm, float* out, int nx, int ny, int nz,
-           const unsigned char* active, cudaStream_t stream) {
+int launch(const float* live, const float* warp_cm, float* out, int nx, int ny, int nz, int fx,
+           int x_start, const unsigned char* active, cudaStream_t stream) {
   static lsf_occ::WaveCache cache;
   const auto kernel = warp_field_cm_kernel<Off>;
   const int wave = lsf_occ::wave((const void*)kernel, kThreads, 0, cache);
@@ -176,23 +186,29 @@ int launch(const float* live, const float* warp_cm, float* out, int nx, int ny, 
   const dim3 grid((unsigned)tiles_z, (unsigned)std::min(tiles_y, kMaxGridYZ),
                   (unsigned)ceil_div(nx, chunk));
   kernel<<<grid, dim3(kLanes, kRows), 0, stream>>>(live, warp_cm, warp_cm + n, warp_cm + 2 * n,
-                                                    out, nx, ny, nz, (int)tiles_y, (int)chunk,
-                                                    active);
+                                                    out, nx, ny, nz, fx, x_start, (int)tiles_y,
+                                                    (int)chunk, active);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// live (nx, ny, nz), warp_cm (3, nx, ny, nz), out (nx, ny, nz): float32
-// device pointers. active: null, or a device byte that, when 0, makes the
-// call leave out unwritten. Returns a cudaError_t.
+// live (fx, ny, nz), warp_cm (3, nx, ny, nz), out (nx, ny, nz): float32
+// device pointers; output row i samples live row x_start + i + ux
+// (|x_start| + nx below 2^24, so that x_start + i is exact in float). active:
+// null, or a device byte that, when 0, makes the call leave out unwritten.
+// Returns a cudaError_t.
 extern "C" int lsf_warp_field_cm(const float* live, const float* warp_cm, float* out, int nx,
-                                 int ny, int nz, const unsigned char* active, void* stream) {
-  if (nx < 1 || ny < 1 || nz < 1 || !live || !warp_cm || !out) return (int)cudaErrorInvalidValue;
+                                 int ny, int nz, int fx, int x_start,
+                                 const unsigned char* active, void* stream) {
+  constexpr int kExact = 1 << 24;
+  if (nx < 1 || ny < 1 || nz < 1 || fx < 1 || !live || !warp_cm || !out ||
+      std::abs((int64_t)x_start) + nx >= kExact)
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  return (int64_t)nx * ny * nz < ((int64_t)1 << 31)
-             ? launch<uint32_t>(live, warp_cm, out, nx, ny, nz, active, s)
-             : launch<uint64_t>(live, warp_cm, out, nx, ny, nz, active, s);
+  return (int64_t)std::max(nx, fx) * ny * nz < ((int64_t)1 << 31)
+             ? launch<uint32_t>(live, warp_cm, out, nx, ny, nz, fx, x_start, active, s)
+             : launch<uint64_t>(live, warp_cm, out, nx, ny, nz, fx, x_start, active, s);
 }
 
 extern "C" const char* lsf_resample_error_string(int err) {

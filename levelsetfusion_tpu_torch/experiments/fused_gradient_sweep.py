@@ -35,14 +35,14 @@ BUILD = _lib.BUILD_DIR / "fused_gradient_sweep"
 SHAPE, BIG = (128, 128, 128), (256, 256, 256)
 REPEATS = 2
 
-_TERMS_LOAD = "    if (q < 0 || q >= d.nx) return;\n    float* s = in_slot(q);"
+_TERMS_LOAD = "    if (q < d.q_lo || q >= d.q_hi) return;\n    float* s = in_slot(q);"
 _G_LOAD = ("      if (q >= q1 || !inside(q)) return;\n      float* s = g_slot(q);\n"
            "      const int64_t base")
 _G_STORE = "    for (int k = 0; k < 3; ++k) g[k * d.n + v] = total[k];"
-_U_STORE = "        new_u[k * d.n + v0 + e] = nu;"
+_U_STORE = "        new_u[k * d.n_out + v0 + e] = nu;"
 _BOUNDS = "__global__ void __launch_bounds__(kThreads, 3)\n    terms_kernel("
 _DERIVS = "        if (a_inner && d_inner[k])"
-_TERMS = "      if (v_inner && inner(x, d.nx))"
+_TERMS = "      if (v_inner && inner(x + d.x_off, d.x_global))"
 _CHUNK = "constexpr int kMinXChunk = 16;"
 
 # name -> (substitutions, timing_only)

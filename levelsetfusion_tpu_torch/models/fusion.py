@@ -25,8 +25,10 @@ is captured once.
 Left out against JAX: its TPU resample clamps ±K, so JAX measures each
 frame's max |u| against K and redoes a frame with K raised; the port's
 resample is exact for any displacement, so there is no clamp, no redo and
-no contract check. ``FrameReport`` keeps those fields with JAX's values for
-the exact gather (``pallas_max_displacement=0``, ``contract_violations=()``).
+no clamp check. ``FrameReport`` keeps those fields with JAX's values for
+the exact gather (``pallas_max_displacement=0``); its
+``contract_violations`` are the sharded fusion's live-halo ones
+(``fuse_sequence_sharded``), else empty.
 """
 
 from __future__ import annotations
@@ -46,6 +48,13 @@ from levelsetfusion_tpu_torch.models.single_level import SolveLoop, SolveResult,
 from levelsetfusion_tpu_torch.ops.kernels.fused_gradient import to_component_major
 from levelsetfusion_tpu_torch.ops.kernels.resample import warp_field_cm
 from levelsetfusion_tpu_torch.ops.tsdf import GenerationMethod, generate_tsdf_3d
+from levelsetfusion_tpu_torch.parallel.halo import psum_axis
+from levelsetfusion_tpu_torch.parallel.mesh import Group, block_rows, gather_field
+from levelsetfusion_tpu_torch.parallel.sharded import (
+    solve_single_level_sharded,
+    warp_field_sharded,
+)
+from levelsetfusion_tpu_torch.utils.debug import check_displacement_contract
 
 TRUNCATION_EPS = 1e-5
 
@@ -146,10 +155,12 @@ def _pack_stats(res: SolveResult, state: FusionState) -> torch.Tensor:
 
 
 def _tsdf(depth, camera: PinholeCamera, config: FusionPipelineConfig,
-          device: torch.device) -> torch.Tensor:
-    """A depth image (numpy, meters) as a TSDF on ``device``."""
+          device: torch.device, grid: GridSpec | None = None) -> torch.Tensor:
+    """A depth image (numpy, meters) as a TSDF on ``device``, over
+    ``config.grid`` or over ``grid`` (a rank's block of it)."""
     return generate_tsdf_3d(
-        torch.as_tensor(np.asarray(depth, dtype=np.float32)).to(device), camera, config.grid,
+        torch.as_tensor(np.asarray(depth, dtype=np.float32)).to(device), camera,
+        config.grid if grid is None else grid,
         narrow_band_width_voxels=config.narrow_band_width_voxels,
         method=config.generation_method,
     )
@@ -261,4 +272,97 @@ def fuse_sequence(
             pending = None
     if pending is not None:
         emit(pending)
+    return FusionResult(state=state, reports=reports, final_warp=warp)
+
+
+def _block_grid(grid: GridSpec, group: Group) -> GridSpec:
+    """The rank's rows of ``grid``: the same voxel centres, so its TSDF is
+    the rank's block of the whole grid's."""
+    start, stop = block_rows(grid.shape[0], group.rank, group.world)
+    return dataclasses.replace(grid, shape=(stop - start, *grid.shape[1:]),
+                               offset=(grid.offset[0] + start, *grid.offset[1:]))
+
+
+def blend_halo(max_u0: float, live_halo: int) -> int:
+    """The sharded blend's live halo, JAX's sizing: the rows a gather reads
+    past a block's face, ceil(max |u| along axis 0) + 2, rounded up to a
+    multiple of 4, and at least ``live_halo``."""
+    return max(live_halo, (int(np.ceil(max_u0)) + 2 + 3) // 4 * 4)
+
+
+def fuse_sequence_sharded(
+    frames,
+    camera: PinholeCamera,
+    config: FusionPipelineConfig,
+    *,
+    group: Group,
+    mesh_axes: tuple | None = None,
+    live_halo: int = 8,
+    frame_callback: Callable[[int, FusionState, torch.Tensor], None] | None = None,
+) -> FusionResult:
+    """Sharded twin of ``fuse_sequence``, flat, on the 1D group: the state,
+    each frame's live TSDF and the warp stay the rank's blocks (rows of axis
+    0) for the whole sequence.
+
+    - Each rank generates the TSDF of its own rows.
+    - The solve is ``parallel.sharded.solve_single_level_sharded``,
+      warm-started per frame (``config.warm_start``).
+    - The blend's resample is ``warp_field_sharded`` with its halo sized from
+      the frame's measured max |u| along axis 0 (``blend_halo``). Past one
+      block it takes JAX's
+      exact fallback: every rank gathers the live field and the warp
+      (``all_gather``) and resamples the whole volume (B1 on CUDA).
+    - The blend is elementwise on the blocks.
+    - The report's ``contract_violations`` are the solve's live-halo ones.
+
+    Each frame reads the host twice, as JAX's does: the solve's energy and
+    max |u| (they size the blend's halo), then the band count after the
+    blend. The result's state and final warp are the rank's blocks.
+    ``frame_callback`` gets the blocks. ``hierarchical`` and a 2D
+    ``mesh_axes`` are not ported yet (ROADMAP A12).
+    """
+    if config.hierarchical or (mesh_axes is not None and len(mesh_axes) != 1):
+        raise NotImplementedError(
+            "the hierarchical and the 2D-mesh sharded fusion are not ported yet (ROADMAP A12)"
+        )
+    device = group.device
+    block = _block_grid(config.grid, group)
+    n_local = block.shape[0]
+    frame_iter = iter(frames)
+    state = init_state(_tsdf(next(frame_iter), camera, config, device, block))
+    warp = torch.zeros((*block.shape, block.dim), dtype=torch.float32, device=device)
+    solver = config.solver
+    reports: List[FrameReport] = []
+    for t, depth in enumerate(frame_iter, start=1):
+        live = _tsdf(depth, camera, config, device, block)
+        res = solve_single_level_sharded(
+            state.canonical, live, solver, group=group, live_halo=live_halo,
+            initial_warp=warp if config.warm_start else None)
+        warp = res.warp
+        energy = res.telemetry.data_energy[max(res.iterations - 1, 0)]
+        energy, *md = torch.cat([energy.view(1), res.max_abs_displacement]).tolist()
+        halo = blend_halo(md[0], live_halo)
+        if halo > n_local:
+            # JAX's exact gather fallback: the whole volume on every rank.
+            start = group.rank * n_local
+            warped = warp_field_cm(
+                gather_field(live, group),
+                to_component_major(gather_field(warp, group)),
+            ).narrow(0, start, n_local)
+        else:
+            warped = warp_field_sharded(live, warp, group, halo)
+        state = blend(state, warped)
+        band = psum_axis(torch.count_nonzero(
+            torch.abs(state.canonical) < 1.0 - TRUNCATION_EPS).view(1), group)
+        reports.append(FrameReport(
+            frame_index=t,
+            solver_iterations=res.iterations,
+            final_data_energy=energy,
+            band_voxels=int(band),
+            max_abs_displacement=tuple(md),
+            contract_violations=tuple(check_displacement_contract(
+                res, live_halo=live_halo, name=f"sharded fusion frame {t}")),
+        ))
+        if frame_callback is not None:
+            _call_frame_callback(frame_callback, t, state, warp, reports[-1], solver)
     return FusionResult(state=state, reports=reports, final_warp=warp)

@@ -44,13 +44,26 @@ class SolverParams:
     band_union_only: bool = True
     # Halve the rate whenever the total energy increases between iterations.
     adaptive_learning_rate: bool = False
-    # Distributed solvers: evaluate the global termination check every k-th
-    # iteration. Kept for config compatibility; the single-level solve
-    # checks every iteration, and the distributed solvers are not ported yet.
+    # The sharded solver (parallel/sharded.py) runs rounds of k iterations
+    # with one global termination check each, so it may run up to k - 1
+    # iterations past the gate; the single-level solve checks every
+    # iteration whatever k.
     termination_check_interval: int = 1
 
     def replace(self, **kw) -> "SolverParams":
         return dataclasses.replace(self, **kw)
+
+    @property
+    def sobolev_radius(self) -> int:
+        """Sobolev filter radius (0 when the filter is off)."""
+        return self.sobolev_kernel_size // 2 if self.sobolev_smoothing else 0
+
+    @property
+    def stencil_halo(self) -> int:
+        """Ghost rows one iteration of the sharded solver needs a side of
+        the sharded axis: the stencils' 2 (central differences, Hessian)
+        and the Sobolev filter's radius."""
+        return 2 + self.sobolev_radius
 
 
 @dataclasses.dataclass(frozen=True)

@@ -71,6 +71,21 @@ from levelsetfusion_tpu_torch.ops.kernels.resample import warp_field_cm
 CHECK_EVERY = 16
 
 
+def fused_step_kwargs(params: SolverParams) -> dict:
+    """B2's (``fused_gradient_update``'s) energy and filter arguments for a
+    solve with ``params``."""
+    return dict(
+        w_data=params.data_term_weight,
+        w_smooth=params.smoothing_term_weight,
+        w_ls=params.level_set_term_weight,
+        killing=params.smoothing_mode is SmoothingMode.KILLING,
+        gamma=params.rigidity_enforcement_factor,
+        band_union=params.band_union_only,
+        taps=(sobolev_taps(params.sobolev_kernel_size, params.sobolev_strength)
+              if params.sobolev_smoothing else ()),
+    )
+
+
 class SolveTelemetry(NamedTuple):
     """Per-iteration log: energy components and warp-update statistics;
     entries past ``iterations`` are 0."""
@@ -170,17 +185,7 @@ class SolveLoop:
         self._rows = torch.tensor([0, 1, 2, 4, 3], device=self.device)
         self._divisor = torch.tensor([1.0, 1.0, 1.0, 1.0, float(np.prod(self.shape))], **f32)
         if self.dim == 3:  # B2's arguments
-            self._kw = dict(
-                w_data=params.data_term_weight,
-                w_smooth=params.smoothing_term_weight,
-                w_ls=params.level_set_term_weight,
-                killing=params.smoothing_mode is SmoothingMode.KILLING,
-                gamma=params.rigidity_enforcement_factor,
-                band_union=params.band_union_only,
-                ticket=self.ticket,
-                taps=(sobolev_taps(params.sobolev_kernel_size, params.sobolev_strength)
-                      if params.sobolev_smoothing else ()),
-            )
+            self._kw = dict(fused_step_kwargs(params), ticket=self.ticket)
         else:  # the 2D step's gradient assembly
             self._grad_kw = dict(
                 data_term_weight=params.data_term_weight,

@@ -2,8 +2,10 @@
 Sobolev filter, warp update, energies and update statistics, in one call.
 
 Port of the TPU kernel ``levelsetfusion_tpu/ops/pallas/fused_gradient.py::
-fused_gradient_update`` (whole volume; the sharded window arguments come
-with the distributed solvers). The CUDA version, ``csrc/fused_gradient.cu``,
+fused_gradient_update``, with its x window (``x_offset``, ``x_global``,
+``x_lo``, ``x_len``: the 1D sharded solver's haloed blocks); its y window
+and ``conv_local_x`` (the 2D-mesh and Schur solvers) are not ported yet
+(ROADMAP B-2c). The CUDA version, ``csrc/fused_gradient.cu``,
 is two kernels: the terms (to g) over tiles of x planes, then the Sobolev
 filter, the update and the statistics, whose last block folds every block's
 partial sums into the stats. ``fused_gradient_update`` launches them for
@@ -11,7 +13,7 @@ CUDA tensors and uses the plain version ``fused_gradient_update_reference``
 only for CPU tensors.
 
 Returns ``(new_warp_cm, stats)``: the updated component-major warp
-``(3, X, Y, Z)`` and a float32 tensor of 8 values in ``STATS_FIELDS`` order
+``(3, x_len, Y, Z)`` and a float32 tensor of 8 values in ``STATS_FIELDS`` order
 (the order of the TPU module's ``FusedStats``). Energies are weighted, as the
 solver's telemetry records them. For the solve loop of
 ``models/single_level.py`` both versions take ``out=`` (the buffer the new
@@ -24,6 +26,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -65,44 +68,108 @@ def sobolev_taps(size: int, strength: float) -> tuple:
     )
 
 
+class Window(NamedTuple):
+    """B2's x window on an input of X rows: input row q is global row
+    ``x_offset + q`` of ``x_global``; the call updates input rows ``[x_lo,
+    x_lo + x_len)``. ``q_lo``/``q_hi``: the input rows inside the volume."""
+
+    x_offset: int
+    x_global: int
+    x_lo: int
+    x_len: int
+    q_lo: int
+    q_hi: int
+
+
+def window(nx, ntaps=0, x_offset=0, x_global=None, x_lo=0, x_len=None) -> Window:
+    """The checked window of a call on ``nx`` input rows (the defaults: the
+    whole volume). The window must lie inside the input and the volume, and
+    the input must hold every row inside the volume within ``2 + R`` of it
+    (R = ntaps // 2; the solvers' ``stencil_halo``): the kernels' contract,
+    which ``csrc/fused_gradient.cu::args_ok`` checks too."""
+    x_global = nx if x_global is None else int(x_global)
+    x_len = nx - x_lo if x_len is None else int(x_len)
+    x_offset, x_lo = int(x_offset), int(x_lo)
+    h = 2 + ntaps // 2
+    q_lo, q_hi = max(0, -x_offset), min(nx, x_global - x_offset)
+    lo, hi = x_lo, x_lo + x_len
+    if not (x_global >= 1 and x_len >= 1 and 0 <= lo and hi <= nx and lo + x_offset >= 0
+            and hi + x_offset <= x_global and max(lo - h, -x_offset) >= 0
+            and min(hi + h, x_global - x_offset) <= nx):
+        raise ValueError(
+            f"bad x window: x_offset={x_offset} x_global={x_global} x_lo={x_lo} "
+            f"x_len={x_len} on {nx} input rows (halo {h} needed inside the volume)"
+        )
+    return Window(x_offset, x_global, x_lo, x_len, q_lo, q_hi)
+
+
+def _window_energies(warped, canonical, wg, jac, *, w_data, w_smooth, w_ls, killing,
+                     gamma, band_union):
+    """The weighted energies of ``ops/terms.py`` summed over the given rows:
+    every argument is already sliced to them, ``wg`` (the warped field's
+    gradient) and ``jac`` (the warp's Jacobian, None without smoothing)
+    computed on the whole block, so that the rows' derivatives are the
+    volume's."""
+    zero = torch.zeros((), dtype=warped.dtype, device=warped.device)
+    e_data = w_data * terms.data_energy(warped, canonical, band_union)
+    e_smooth = e_ls = zero
+    if w_smooth:
+        e_smooth = w_smooth * (terms.killing_energy(jac, gamma) if killing
+                               else terms.tikhonov_energy(jac))
+    if w_ls:
+        e_ls = w_ls * terms.level_set_energy(warped, wg, canonical, band_union)
+    return e_data, e_smooth, e_ls
+
+
 def fused_gradient_update_reference(
     warped, canonical, warp_cm, rate, *, w_data=1.0, w_smooth=0.2, w_ls=0.0,
     killing=False, gamma=0.1, band_union=True, taps=(), out=None, active=None,
+    x_offset=0, x_global=None, x_lo=0, x_len=None,
 ):
     """Plain torch version: the golden term assembly of ``ops/terms.py`` and
-    ``ops/sobolev.py`` on an already-warped field, then the update."""
+    ``ops/sobolev.py`` on an already-warped field, then the update; 2D or 3D
+    (``warp_cm`` ``(D, *spatial)``; the stats hold D per-axis maxes).
+
+    With an x window, the assembly runs on the input rows inside the volume
+    (``Window.q_lo``/``q_hi``): where they end at a global edge the golden
+    edge rules and the filter's zero padding are the volume's, and where they
+    end at a block's halo the rows that the edge rules spoil (2 of them, and
+    R more for the filter) lie in the halo, outside the window. The update,
+    the energies and the statistics are then the window's rows."""
+    win = window(warped.shape[0], len(taps), x_offset, x_global, x_lo, x_len)
+    d = warped.ndim
+    out_shape = (d, win.x_len, *warped.shape[1:])
     if active is not None and not bool(active):
-        new = out if out is not None else torch.full_like(warp_cm, float("nan"))
-        return new, torch.full((8,), float("nan"), dtype=warp_cm.dtype, device=warp_cm.device)
-    warp = from_component_major(warp_cm)
+        new = out if out is not None else torch.full(
+            out_shape, float("nan"), dtype=warp_cm.dtype, device=warp_cm.device)
+        return new, torch.full((5 + d,), float("nan"), dtype=warp_cm.dtype,
+                               device=warp_cm.device)
+    sub = slice(win.q_lo, win.q_hi)
+    rows = slice(win.x_lo - win.q_lo, win.x_lo - win.q_lo + win.x_len)
+    warped, canonical = warped[sub], canonical[sub]
+    warp = from_component_major(warp_cm[:, sub])
     wg = derivatives.gradient(warped)
-    g_data, e_data = terms.data_term(warped, canonical, wg, band_union_only=band_union)
+    g_data, _ = terms.data_term(warped, canonical, wg, band_union_only=band_union)
     total = w_data * g_data
-    e_data = w_data * e_data
-    e_smooth = torch.zeros((), dtype=warped.dtype, device=warped.device)
     if w_smooth:
-        if killing:
-            g_s, e_smooth = terms.killing_term(warp, gamma)
-        else:
-            g_s, e_smooth = terms.tikhonov_term(warp)
+        g_s, _ = terms.killing_term(warp, gamma) if killing else terms.tikhonov_term(warp)
         total = total + w_smooth * g_s
-        e_smooth = w_smooth * e_smooth
-    e_ls = torch.zeros((), dtype=warped.dtype, device=warped.device)
     if w_ls:
-        g_ls, e_ls = terms.level_set_term(
-            warped, wg, canonical, band_union_only=band_union
-        )
+        g_ls, _ = terms.level_set_term(warped, wg, canonical, band_union_only=band_union)
         total = total + w_ls * g_ls
-        e_ls = w_ls * e_ls
     if taps:
         kernel = torch.tensor(taps, dtype=warped.dtype, device=warped.device)
-        total = sobolev.convolve_with_sobolev_kernel(total, kernel, num_spatial_dims=3)
-    upd = -rate * total
-    new_warp = warp + upd
+        total = sobolev.convolve_with_sobolev_kernel(total, kernel, num_spatial_dims=d)
+    jac = derivatives.vector_jacobian(warp)[rows] if w_smooth else None
+    energies = _window_energies(
+        warped[rows], canonical[rows], wg[rows], jac, w_data=w_data, w_smooth=w_smooth,
+        w_ls=w_ls, killing=killing, gamma=gamma, band_union=band_union)
+    upd = -rate * total[rows]
+    new_warp = warp[rows] + upd
     ul = torch.sqrt(torch.sum(upd * upd, dim=-1))
     stats = torch.stack([
-        e_data, e_smooth, e_ls, torch.sum(ul), torch.max(ul),
-        *torch.amax(torch.abs(new_warp), dim=(0, 1, 2)),
+        *energies, torch.sum(ul), torch.max(ul),
+        *torch.amax(torch.abs(new_warp), dim=tuple(range(d))),
     ])
     new_cm = to_component_major(new_warp)
     return (new_cm if out is None else out.copy_(new_cm)), stats
@@ -112,12 +179,14 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # The prototypes of lsf_fused_partials_len and lsf_fused_gradient_update in
 # csrc/fused_gradient.cu, in order (tests/test_torch_fused_gradient.py holds
 # them together).
-PARTIALS_ARGTYPES = (_I, _I, _I, _I)  # nx, ny, nz, ntaps
+# nx, ny, nz, ntaps, x_offset, x_global, x_lo, x_len
+PARTIALS_ARGTYPES = (_I, _I, _I, _I, _I, _I, _I, _I)
 UPDATE_ARGTYPES = (
     _P, _P, _P, _P, _P, _P,  # warped, canonical, warp_cm, rate, new_warp, stats
     _P, _P, _P,  # scratch: g, partial, ticket
     _P,  # active flag (null: always on)
     _I, _I, _I,  # nx, ny, nz
+    _I, _I, _I, _I,  # x_offset, x_global, x_lo, x_len
     _F, _F, _F, _I, _F, _I,  # w_data, w_smooth, w_ls, killing, gamma, band_union
     ctypes.POINTER(ctypes.c_float), _I,  # taps (host), ntaps
     _P,  # stream
@@ -151,18 +220,19 @@ def _ticket(device: torch.device, shape: tuple, stream: int) -> torch.Tensor:
 def fused_gradient_update(
     warped, canonical, warp_cm, rate, *, w_data=1.0, w_smooth=0.2, w_ls=0.0,
     killing=False, gamma=0.1, band_union=True, taps=(), out=None, active=None,
-    ticket=None,
+    ticket=None, x_offset=0, x_global=None, x_lo=0, x_len=None,
 ):
-    """One solver step after the resample, over the whole volume.
+    """One solver step after the resample, over the whole volume or an x
+    window of it.
 
     Args:
-      warped: warped live field ``(X, Y, Z)``.
+      warped: warped live field ``(X, Y, Z)`` (a block with its halo rows).
       canonical: canonical field, same shape.
       warp_cm: component-major warp ``(3, X, Y, Z)``.
       rate: learning rate, a 0-d tensor on the same device (read by the
         kernel from device memory, so an adaptive rate never syncs).
       taps: Sobolev kernel taps (odd count); empty = no filter.
-      out: optional ``(3, X, Y, Z)`` buffer for the new warp, not
+      out: optional ``(3, x_len, Y, Z)`` buffer for the new warp, not
         ``warp_cm``'s (the solve loop ping-pongs two); else a new tensor.
       active: None, or a 0-d bool tensor on the same device; the kernels
         read it and return at once where it is false.
@@ -171,6 +241,12 @@ def fused_gradient_update(
         time uses: the completion counter of the kernels' fold. The solve
         loop brings its own, since its graph replays on any stream. The
         plain version has no fold and ignores it.
+      x_offset, x_global, x_lo, x_len: the x window (host ints, ``window``):
+        input row q is global row ``x_offset + q`` of ``x_global`` (default
+        X), and the new warp, the energies and the statistics cover input
+        rows ``[x_lo, x_lo + x_len)`` (default all). The face rules fire at
+        global rows 0 and ``x_global - 1`` only, and input rows beyond them
+        are never read.
 
     All tensors float32, contiguous, one device. CUDA tensors run the
     kernels, CPU tensors the plain version. The scratch (``g``, the
@@ -190,21 +266,24 @@ def fused_gradient_update(
         raise TypeError("rate must be a 0-d tensor")
     if taps and (len(taps) % 2 == 0 or len(taps) > MAX_TAPS):
         raise ValueError(f"taps must be an odd count <= {MAX_TAPS}, got {len(taps)}")
+    win = window(warped.shape[0], len(taps), x_offset, x_global, x_lo, x_len)
+    out_shape = (3, win.x_len, *warped.shape[1:])
     device = warped.device
     for name, t in (("warped", warped), ("canonical", canonical),
                     ("warp_cm", warp_cm), ("rate", rate)):
         _lib.require_f32_contiguous(name, t, device)
     if out is not None:
         _lib.require_f32_contiguous("out", out, device)
-        if out.shape != warp_cm.shape or out.data_ptr() == warp_cm.data_ptr():
-            raise ValueError("out must be a (3, X, Y, Z) buffer apart from warp_cm")
+        if tuple(out.shape) != out_shape or out.data_ptr() == warp_cm.data_ptr():
+            raise ValueError(f"out must be a {out_shape} buffer apart from warp_cm")
     _lib.require_flag(active, device)
     if ticket is not None and (ticket.dtype != torch.int32 or ticket.numel() != 1
                                or ticket.device != device):
         raise ValueError(f"ticket must be one int32 on {device}, got {ticket.dtype} "
                          f"{tuple(ticket.shape)} on {ticket.device}")
     kw = dict(w_data=w_data, w_smooth=w_smooth, w_ls=w_ls, killing=killing,
-              gamma=gamma, band_union=band_union, taps=taps, out=out, active=active)
+              gamma=gamma, band_union=band_union, taps=taps, out=out, active=active,
+              x_offset=win.x_offset, x_global=win.x_global, x_lo=win.x_lo, x_len=win.x_len)
     if device.type == "cpu":
         return fused_gradient_update_reference(warped, canonical, warp_cm, rate, **kw)
     if device.type != "cuda":
@@ -212,16 +291,17 @@ def fused_gradient_update(
 
     lib = _library()
     nx, ny, nz = warped.shape
-    vol = (3, nx, ny, nz)
-    new_warp = out if out is not None else torch.empty(vol, dtype=torch.float32, device=device)
+    new_warp = out if out is not None else torch.empty(out_shape, dtype=torch.float32,
+                                                       device=device)
     stats = torch.empty(8, dtype=torch.float32, device=device)
-    g = torch.empty(vol, dtype=torch.float32, device=device)
+    g = torch.empty((3, nx, ny, nz), dtype=torch.float32, device=device)
+    xw = (win.x_offset, win.x_global, win.x_lo, win.x_len)
     stream = _lib.stream_handle(device)
     if ticket is None:
         ticket = _ticket(device, (nx, ny, nz), stream)
     taps_arr = (ctypes.c_float * max(len(taps), 1))(*np.asarray(taps, np.float32))
     with torch.cuda.device(device):
-        rows = lib.lsf_fused_partials_len(nx, ny, nz, len(taps))
+        rows = lib.lsf_fused_partials_len(nx, ny, nz, len(taps), *xw)
         if rows <= 0:
             raise RuntimeError(f"fused_gradient_update: no grid for {(nx, ny, nz)}")
         partial = torch.empty(rows, dtype=torch.float64, device=device)
@@ -229,7 +309,7 @@ def fused_gradient_update(
             warped.data_ptr(), canonical.data_ptr(), warp_cm.data_ptr(),
             rate.data_ptr(), new_warp.data_ptr(), stats.data_ptr(),
             g.data_ptr(), partial.data_ptr(), ticket.data_ptr(), _lib.flag_ptr(active),
-            nx, ny, nz,
+            nx, ny, nz, *xw,
             w_data, w_smooth, w_ls, int(bool(killing)), gamma, int(bool(band_union)),
             taps_arr, len(taps), stream,
         )

@@ -41,21 +41,35 @@ def data_term(
     band_union_only: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Data-term gradient and energy."""
+    diff = _data_difference(warped_live, canonical, band_union_only)
+    return diff[..., None] * warped_live_gradient, 0.5 * torch.sum(diff * diff)
+
+
+def _data_difference(warped_live, canonical, band_union_only):
     diff = warped_live - canonical
     if band_union_only:
         diff = torch.where(band_union_mask(canonical, warped_live), diff, 0.0)
-    grad = diff[..., None] * warped_live_gradient
-    energy = 0.5 * torch.sum(diff * diff)
-    return grad, energy
+    return diff
+
+
+def data_energy(
+    warped_live: torch.Tensor, canonical: torch.Tensor, band_union_only: bool = True
+) -> torch.Tensor:
+    """The data term's energy alone (of any rows of the fields)."""
+    diff = _data_difference(warped_live, canonical, band_union_only)
+    return 0.5 * torch.sum(diff * diff)
 
 
 def tikhonov_term(warp: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Tikhonov smoothing gradient ``-Δu`` and energy ``½Σ‖Ju‖²``."""
     d = warp.ndim - 1
     grad = -derivatives.laplacian(warp, num_spatial_dims=d)
-    jac = derivatives.vector_jacobian(warp)
-    energy = 0.5 * torch.sum(jac * jac)
-    return grad, energy
+    return grad, tikhonov_energy(derivatives.vector_jacobian(warp))
+
+
+def tikhonov_energy(jac: torch.Tensor) -> torch.Tensor:
+    """``½Σ‖Ju‖²`` from the warp's Jacobian (of any rows)."""
+    return 0.5 * torch.sum(jac * jac)
 
 
 def killing_term(
@@ -68,10 +82,14 @@ def killing_term(
     lap = derivatives.laplacian(warp, num_spatial_dims=d)
     gdiv = derivatives.gradient_of_divergence(warp)
     grad = -(1.0 + gamma) * lap - gdiv
-    jac = derivatives.vector_jacobian(warp)
+    return grad, killing_energy(derivatives.vector_jacobian(warp), gamma)
+
+
+def killing_energy(jac: torch.Tensor, rigidity_enforcement_factor: float = 0.1) -> torch.Tensor:
+    """``½Σ(½‖J+Jᵀ‖² + γ‖J‖²)`` from the warp's Jacobian (of any rows)."""
     sym = jac + jac.transpose(-1, -2)
-    energy = 0.5 * (0.5 * torch.sum(sym * sym) + gamma * torch.sum(jac * jac))
-    return grad, energy
+    return 0.5 * (0.5 * torch.sum(sym * sym)
+                  + rigidity_enforcement_factor * torch.sum(jac * jac))
 
 
 def level_set_term(
@@ -87,11 +105,21 @@ def level_set_term(
     norm = torch.sqrt(torch.sum(g * g, dim=-1))
     scale = (norm - 1.0) / (norm + epsilon)
     if band_union_only and canonical is not None:
-        mask = band_union_mask(canonical, warped_live)
-        scale = torch.where(mask, scale, 0.0)
-        energy_terms = torch.where(mask, (norm - 1.0) ** 2, 0.0)
-    else:
-        energy_terms = (norm - 1.0) ** 2
+        scale = torch.where(band_union_mask(canonical, warped_live), scale, 0.0)
     grad = scale[..., None] * torch.einsum("...ij,...j->...i", hess, g)
-    energy = 0.5 * torch.sum(energy_terms)
-    return grad, energy
+    return grad, level_set_energy(warped_live, g, canonical, band_union_only)
+
+
+def level_set_energy(
+    warped_live: torch.Tensor,
+    warped_live_gradient: torch.Tensor,
+    canonical: torch.Tensor | None = None,
+    band_union_only: bool = True,
+) -> torch.Tensor:
+    """The level-set term's energy alone (of any rows of the fields and of
+    the gradient)."""
+    g = warped_live_gradient
+    energy_terms = (torch.sqrt(torch.sum(g * g, dim=-1)) - 1.0) ** 2
+    if band_union_only and canonical is not None:
+        energy_terms = torch.where(band_union_mask(canonical, warped_live), energy_terms, 0.0)
+    return 0.5 * torch.sum(energy_terms)

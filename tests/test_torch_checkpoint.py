@@ -76,5 +76,5 @@ def test_layout_and_refusals(tmp_path):
     meta["arrays"]["warp"] = {"sharded": True}
     with open(os.path.join(path, "meta.json"), "w") as f:
         json.dump(meta, f)
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(ValueError, match="lists no shards"):
         checkpoint.load(root)

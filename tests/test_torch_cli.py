@@ -109,11 +109,16 @@ RUNS = ("config1_2d_pair", "config2_2d_hierarchical", "config3_3d_full_energy",
 
 @pytest.mark.parametrize("name", sorted(set(PRESETS) - set(RUNS)))
 def test_other_modes_raise(name, tmp_path):
-    """Each mode that is not ported (the sharded ones) raises naming its
-    ROADMAP item; config4's mode runs, but not from depth PNGs (A9)."""
+    """Each solver that is not ported (the 2D-mesh, Schur and hierarchical
+    sharded ones) raises naming its ROADMAP item. The 1D sync presets
+    (config5_sharded, config5_512) run (tests/test_torch_parallel.py), so
+    they are held to raise on a 2D mesh; config4's mode runs, but not from
+    depth PNGs (A9)."""
     cfg = PRESETS[name]
     if cfg.mode == "multi_frame_3d":
         cfg = dataclasses.replace(cfg, dataset="depth_directory", dataset_kwargs={})
+    if cfg.mode == "sharded_3d" and cfg.mesh_shape is None and cfg.solver_kind == "sync":
+        cfg = dataclasses.replace(cfg, mesh_shape=(2, 4))
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
         tcli.run_experiment(cfg, str(tmp_path), device="cpu")
 

@@ -1,0 +1,168 @@
+"""Runs a function on N gloo ranks, one spawned process each, for the
+parity tests of the port's sharded solvers (tests/test_torch_halo.py,
+tests/test_torch_parallel.py).
+
+The ranks meet on a ``FileStore`` under the test's ``tmp_path`` (no TCP
+port, so xdist workers never collide). The test process computes the JAX
+side and hands numpy arrays to the ranks; each rank runs every case it is
+given, in one spawn, and writes its results with ``torch.save``. Every join
+has a deadline, so a hang fails the test instead of eating the run's time.
+This module imports torch and the port only: a rank never imports JAX.
+"""
+
+from __future__ import annotations
+
+import importlib
+import multiprocessing
+import os
+import time
+import traceback
+
+import torch
+
+JOIN_SECONDS = 240
+
+
+def _rank_main(target, rank, world, store, args, out):
+    """A spawned rank: join the group, run ``target(group, args)``, save
+    its result (or the traceback) to ``out``."""
+    torch.set_num_threads(1)
+    from levelsetfusion_tpu_torch.parallel.mesh import close_group, init_group
+
+    group = init_group("cpu", store_path=store, rank=rank, world=world, timeout_s=180)
+    try:
+        module, name = target.rsplit(".", 1)
+        result = getattr(importlib.import_module(module), name)(group, args)
+        torch.save({"result": result}, out)
+    except BaseException:
+        torch.save({"error": traceback.format_exc()}, out)
+        raise
+    finally:
+        close_group(group)
+
+
+def run_ranks(target: str, world: int, tmp_path, args=None, seconds: float = JOIN_SECONDS):
+    """``[rank 0's result, ..., rank world-1's]`` of ``target(group, args)``
+    (``"module.function"``, importable without JAX) on ``world`` gloo
+    ranks."""
+    ctx = multiprocessing.get_context("spawn")
+    store = str(tmp_path / f"store_{target.rsplit('.', 1)[1]}_{world}")
+    outs = [str(tmp_path / f"rank{r}_{os.getpid()}_{time.monotonic_ns()}.pt")
+            for r in range(world)]
+    procs = [ctx.Process(target=_rank_main, args=(target, r, world, store, args, outs[r]))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + seconds
+    try:
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+    finally:
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(5)
+    results = []
+    for r, out in enumerate(outs):
+        got = torch.load(out, weights_only=False) if os.path.exists(out) else {}
+        if "error" in got:
+            raise AssertionError(f"rank {r} of {world} failed:\n{got['error']}")
+        if hung or "result" not in got:
+            raise AssertionError(f"{target}: ranks {hung} hung past {seconds} s, "
+                                 f"exit codes {[p.exitcode for p in procs]}")
+        results.append(got["result"])
+    return results
+
+
+# --- rank-side cases ---------------------------------------------------------
+
+
+def _np(t):
+    return t.detach().cpu().numpy()
+
+
+def halo_cases(group, fields):
+    """tests/test_halo.py's sharded computations on this rank's block of
+    each field, plus the exchange's other fill, axis and pending forms and
+    the reductions: ``{case: block output}``."""
+    from levelsetfusion_tpu_torch.parallel import halo
+    from levelsetfusion_tpu_torch.parallel.mesh import shard_field
+
+    ramp, rnd, kernel = (torch.from_numpy(fields[k]) for k in ("ramp", "rnd", "kernel"))
+    ramp, rnd = shard_field(ramp, group), shard_field(rnd, group)
+    ext2 = halo.halo_exchange(rnd, 2, group, fill="replicate")
+    g = halo.d_edge_fixed(ext2, 2, group)
+    pending = halo.halo_exchange(rnd, 3, group, fill="zero", wait=False)
+    return {
+        "replicate_left": _np(halo.halo_exchange(ramp, 2, group, fill="replicate")[:4]),
+        "truncation_right": _np(halo.halo_exchange(ramp, 1, group, fill="truncation")[-2:]),
+        "d_edge_fixed": _np(g[1:-1]),
+        "d_edge_fixed_twice": _np(halo.d_edge_fixed(g, 1, group)),
+        "second_diff": _np(halo.second_diff(halo.halo_exchange(rnd, 1, group))),
+        "convolve_zero_edges": _np(halo.convolve_zero_edges(rnd, kernel, group)),
+        "zero_pending": _np(pending.wait()),
+        "axis1": _np(halo.halo_exchange(rnd.T.contiguous(), 2, group, fill="truncation",
+                                        axis=1)),
+        "psum": _np(halo.psum_axis(rnd.sum().view(1), group)),
+        "pmax": _np(halo.pmax_axis(rnd.max().view(1), group)),
+    }
+
+
+def _fusion(group, frames, camera, config, live_halo):
+    """The sharded fusion's gathered state and final warp, and its reports."""
+    from levelsetfusion_tpu_torch.models.fusion import fuse_sequence_sharded
+    from levelsetfusion_tpu_torch.parallel.mesh import gather_field
+
+    res = fuse_sequence_sharded(frames, camera, config, group=group, live_halo=live_halo)
+    return res, [_np(gather_field(t, group)) for t in (*res.state, res.final_warp)]
+
+
+def solve_cases(group, args):
+    """Each case ``(canonical, live, params, live_halo)`` of ``args["solves"]``
+    (full numpy fields) through the port's sharded solver on this rank's
+    blocks, and ``args["fusion"]`` (or None) through the sharded fusion:
+    ``{"solves": [(warp block, iterations, converged, telemetry, max|u|),
+    ...], "fusion": (state, reports)}``."""
+    from levelsetfusion_tpu_torch.parallel import solve_single_level_sharded
+    from levelsetfusion_tpu_torch.parallel.mesh import shard_field
+
+    out = []
+    for canonical, live, params, live_halo in args["solves"]:
+        res = solve_single_level_sharded(
+            shard_field(torch.from_numpy(canonical), group),
+            shard_field(torch.from_numpy(live), group), params, group=group,
+            live_halo=live_halo)
+        out.append((_np(res.warp), res.iterations, res.converged,
+                    [_np(t) for t in res.telemetry], _np(res.max_abs_displacement)))
+    fusion = None
+    if args["fusion"] is not None:
+        res, state = _fusion(group, *args["fusion"])
+        fusion = (state, [r._asdict() for r in res.reports])
+    return {"solves": out, "fusion": fusion}
+
+
+def fusion_cases(group, args):
+    """The sharded fusion (its gathered state and reports), a sharded
+    checkpoint's round trip, the CLI's ``multi_frame_sharded_3d`` run and
+    the JAX-written sharded checkpoint read as this rank's blocks."""
+    from levelsetfusion_tpu_torch.cli import run_experiment
+    from levelsetfusion_tpu_torch.utils import checkpoint
+
+    res, state = _fusion(group, *args["fusion"])
+    root = args["ckpt_root"]
+    checkpoint.save(root, 5, res.state, res.final_warp, {"config": "c5"}, group=group)
+    full = checkpoint.load(root, 5)
+    mine = checkpoint.load(root, 5, group=group)
+    summary = run_experiment(args["cli_config"], args["cli_out"], device="cpu")
+    jax_blocks = checkpoint.load(args["jax_ckpt"], group=group)
+    return {
+        "state": state,
+        "reports": [r._asdict() for r in res.reports],
+        "ckpt_full": [_np(t) for t in (*full[0], full[1])],
+        "ckpt_mine": [_np(t) for t in (*mine[0], mine[1])],
+        "ckpt_blocks": [_np(t) for t in (*res.state, res.final_warp)],
+        "ckpt_meta": full[2],
+        "cli": summary,
+        "jax_blocks": [_np(t) for t in (*jax_blocks[0], jax_blocks[1])],
+    }
