@@ -49,10 +49,20 @@ with its µs/iter, peak memory and a profiler breakdown, and on 2 NCCL
 ranks against 1 where the process sees two devices (23); the sharded
 fusion at 128³ x 8 frames against ``fuse_sequence``, and each frame with no
 live halo against the single-device frame by phase 16's rules (24), each
-run with the launch counters reset just before. The kernels line's launches sum the
+run with the launch counters reset just before. Then the other sharded
+solvers: B2's y window on every block of config5_2dmesh's (2, 4) split and
+of 512³ on (2, 4), and ``conv_local_x`` on every rank of 512³ / 8, each
+against its plain version and the whole call, timed at the 512³ shard
+(25); config5_2dmesh, config5_sharded_schur, config5_schur2d and
+config5_hierarchical through ``cli.run_experiment`` on a world of 1 (a
+(1, 1) mesh) against the single-device port, and config5_512's problem
+through the 2D-mesh solver, timed with a profiler breakdown beside phase
+23's (26); the hierarchical and the 2D-mesh sharded fusion at 128³ x 8
+frames against ``fuse_sequence`` (27). The kernels line's launches sum the
 main paths' (config3, config4, config1, config2, the hierarchical fusion,
-config5_sharded, config5_512, the sharded fusion), and B1's and B2's rows
-give their windowed times at the shard.
+config5_sharded, config5_512, the sharded fusion and those of phases
+26–27), and B1's and B2's rows give their windowed times at the shard (B2
+also its y window's and conv_local_x's).
 Beside each kernel it times, where one exists, one PyTorch call that
 computes the same function (the kernel's yardstick; the port never calls
 it), and it computes each kernel's bound from the run's tensors. Every
@@ -96,13 +106,15 @@ from levelsetfusion_tpu_torch.experiments import (
 from levelsetfusion_tpu_torch.experiments._timing import SPIN_CYCLES, best_ms
 from levelsetfusion_tpu_torch.io import synthetic
 from levelsetfusion_tpu_torch.models import fusion, single_level
-from levelsetfusion_tpu_torch.models.params import SmoothingMode, SolverParams
+from levelsetfusion_tpu_torch.models.hierarchical import solve_hierarchical
+from levelsetfusion_tpu_torch.models.params import HierarchicalParams, SmoothingMode, SolverParams
 from levelsetfusion_tpu_torch.models.rigid import solve_rigid_2d, solve_rigid_3d
 from levelsetfusion_tpu_torch.models.single_level import (
     CHECK_EVERY,
     SolveLoop,
     solve_single_level,
 )
+from levelsetfusion_tpu_torch.ops import pyramid
 from levelsetfusion_tpu_torch.ops.interpolation import warp_field
 from levelsetfusion_tpu_torch.ops.kernels import _lib, fused_gradient, resample
 from levelsetfusion_tpu_torch.ops.kernels.fused_gradient import (
@@ -119,7 +131,12 @@ from levelsetfusion_tpu_torch.ops.tsdf import GenerationMethod, generate_tsdf_2d
 from levelsetfusion_tpu_torch.parallel import (
     close_group,
     init_group,
+    make_mesh_2d,
+    solve_hierarchical_sharded,
+    solve_single_level_schur,
+    solve_single_level_schur2d,
     solve_single_level_sharded,
+    solve_single_level_sharded2d,
     warp_field_sharded,
 )
 from levelsetfusion_tpu_torch.utils import checkpoint
@@ -1967,15 +1984,25 @@ def _free_port():
         return sock.getsockname()[1]
 
 
-def _ranks(preset, one_rank, world=2):
-    """``preset`` through the CLI on ``world`` NCCL ranks (processes with
+def _steps(summary):
+    """A sharded run's iterations: per level where it has levels."""
+    return summary.get("iterations_per_level") or summary["iterations"]
+
+
+def _ranks(cfg, one_rank, world=2, equal=True):
+    """``cfg`` through the CLI on ``world`` NCCL ranks (processes with
     torchrun's environment, one device each), held to the run on one rank:
     iterations and ``converged`` equal, the residuals within rel 1e-4 and
-    max|u| within rtol 3e-4."""
+    max|u| within rtol 3e-4. With ``equal`` false (the Schur solvers, whose
+    result depends on the cuts) it only has to converge as the one rank's
+    run does and reduce the residual."""
     port = _free_port()
     with tempfile.TemporaryDirectory() as out:
+        path = os.path.join(out, "config.in.json")
+        with open(path, "w") as f:
+            f.write(cfg.to_json())
         procs = [subprocess.Popen(
-            [sys.executable, "-m", "levelsetfusion_tpu_torch.cli", "--preset", preset,
+            [sys.executable, "-m", "levelsetfusion_tpu_torch.cli", "--config", path,
              "--out", out],
             env={**os.environ, "MASTER_ADDR": "localhost", "MASTER_PORT": str(port),
                  "RANK": str(r), "WORLD_SIZE": str(world), "LOCAL_RANK": str(r)},
@@ -1990,16 +2017,24 @@ def _ranks(preset, one_rank, world=2):
             raise AssertionError(f"the {world}-rank run failed: {[e[-2000:] for e in errs]}")
         with open(os.path.join(out, "summary.json")) as f:
             two = json.load(f)
-    if (two["iterations"], two["converged"], two["devices"]) != (
-            one_rank["iterations"], one_rank["converged"], world):
-        raise AssertionError(f"{world} ranks: {two} against 1 rank: {one_rank}")
+    name = f"{cfg.name} (mesh {cfg.mesh_shape}) on {world} NCCL ranks"
+    if two["devices"] != world or two["converged"] != one_rank["converged"]:
+        raise AssertionError(f"{name}: {two} against 1 rank: {one_rank}")
+    if not equal:
+        if two["residual_after"] >= two["residual_before"] or two["contract_violations"]:
+            raise AssertionError(f"{name}: {two}")
+        return (f"{name}: {two['iterations']} steps (1 rank: {one_rank['iterations']}), "
+                f"residual_after {two['residual_after']:.6g} (1 rank: "
+                f"{one_rank['residual_after']:.6g}), wall {two['wall_seconds']} s")
+    if _steps(two) != _steps(one_rank):
+        raise AssertionError(f"{name}: {two} against 1 rank: {one_rank}")
     for key in ("residual_before", "residual_after"):
-        _close(f"{world} ranks {key}", torch.tensor(two[key]), torch.tensor(one_rank[key]),
-               1e-4)
-    _close(f"{world} ranks max|u|", torch.tensor(two["max_abs_displacement"]),
+        _close(f"{name} {key}", torch.tensor(two[key]), torch.tensor(one_rank[key]), 1e-4)
+    _close(f"{name} max|u|", torch.tensor(two["max_abs_displacement"]),
            torch.tensor(one_rank["max_abs_displacement"]), 3e-4)
-    return (f"{preset} on {world} NCCL ranks: {two['iterations']} iterations, residual_after "
-            f"{two['residual_after']:.6g}, wall {two['wall_seconds']} s, equal to 1 rank's")
+    return (f"{name}: {_steps(two)} iterations, "
+            f"residual_after {two['residual_after']:.6g}, wall {two['wall_seconds']} s, "
+            "equal to 1 rank's")
 
 
 def phase23_sharded():
@@ -2069,7 +2104,7 @@ def phase23_sharded():
     finally:
         close_group(group)
     if torch.cuda.device_count() >= 2:
-        multi = _ranks(C5, c5)
+        multi = _ranks(PRESETS[C5], c5)
     else:
         multi = (f"the multi-rank run needs a second device: this process sees "
                  f"{torch.cuda.device_count()}")
@@ -2233,6 +2268,412 @@ def _hold_sharded_frames(ds, pipeline_cfg, got, after, group, live_halo):
     return errs, near_max, witness, witness_near, free, its, flat_fps
 
 
+C5_2D, C5_SCHUR, C5_SCHUR2D, C5_HIER = ("config5_2dmesh", "config5_sharded_schur",
+                                        "config5_schur2d", "config5_hierarchical")
+# Phase 25's splits of B2's y window: (label, the preset whose terms and halos
+# the calls take, the volume, the mesh). config5_2dmesh's (2, 4) split of
+# (128, 64, 128) (blocks (64, 16, 128)) under its own Tikhonov energy and
+# under config5_512's Killing + level set + Sobolev, and config5_512's 512³
+# on a (2, 4) mesh (blocks (256, 128, 512)). Every block keeps stencil_halo
+# slices a side along both axes, garbage beyond the volume.
+WINDOW_2D_SPLITS = (
+    (f"{C5_2D} {tuple(PRESETS[C5_2D].grid_shape)} / (2, 4)", C5_2D,
+     PRESETS[C5_2D].grid_shape, (2, 4)),
+    (f"{C5_2D} {tuple(PRESETS[C5_2D].grid_shape)} / (2, 4), {C5_512}'s terms", C5_512,
+     PRESETS[C5_2D].grid_shape, (2, 4)),
+    (f"{C5_512} {C5_512_SHAPE} / (2, 4)", C5_512, C5_512_SHAPE, (2, 4)),
+)
+CONV_LOCAL_SPLIT = (C5_512, C5_512_SHAPE, 8)  # conv_local_x on 512³ / 8, 2 ghost rows
+
+
+def _haloed_2d(ext, i0, n0, i1, n1, h0, h1, axis=0):
+    """Block (i0, i1) of a field padded by ``h0`` rows and ``h1`` columns a
+    side (``ext``), with that halo."""
+    return ext.narrow(axis, i0 * n0, n0 + 2 * h0).narrow(axis + 1, i1 * n1,
+                                                            n1 + 2 * h1).contiguous()
+
+
+def _pad_2d(a, h0, h1, fill):
+    """``a`` (X, Y, Z) or (3, X, Y, Z) padded by ``h0`` rows and ``h1``
+    columns a side with ``fill``."""
+    return F.pad(a[None], [0, 0, h1, h1, h0, h0], value=fill)[0]
+
+
+def _time_b2(blocks, rate, kw, win):
+    """B2 on a window, timed in turns with its plain version: (the kernel's
+    best ms of two runs of 20 calls, the plain version's ms of 3, the
+    function's bound)."""
+    call = lambda: fused_gradient_update(*blocks, rate, **kw, **win)  # noqa: E731
+    runs = [_time_ms(call, 20)]
+    plain = _time_ms(lambda: fused_gradient_update_reference(*blocks, rate, **kw, **win), 3)
+    runs.append(_time_ms(call, 20))
+    out_vox = win["x_len"] * win.get("y_len", blocks[0].shape[1]) * blocks[0].shape[2]
+    bound = _bound(4 * (5 * blocks[0].numel() + 3 * out_vox), OPS_FUSED * out_vox)
+    return min(runs), runs, plain, bound
+
+
+def phase25_windows_2d():
+    """B2's y window on every block of ``WINDOW_2D_SPLITS`` and
+    ``conv_local_x`` on every rank of config5_512's 512³ / 8 (the Schur
+    presets run no Sobolev filter, so they cannot show it), each held to
+    its plain version (the warp within 4.8e-7, the sums within rel 1e-4,
+    the maxes rel 1e-5). The y windows' union equals the whole-volume call
+    (the warp within 4.8e-7, the summed energies and sum|δu| within rel
+    1e-5, the maxes exactly). conv_local_x's does not: its x pass stops at
+    each block's rows, so only the rows at least R from a block face equal
+    the whole call's (within 4.8e-7), and those are held. Then one windowed
+    B2 call at the 512³ 2D shard and one under conv_local_x at the 512³ / 8
+    shard, timed beside their plain versions, with their bounds. Returns the
+    worst max|Δ|s, those of each split, and the two shards' numbers."""
+    rate = torch.tensor(0.3, device="cuda")
+    worst = {"fused": 0.0, "union": 0.0}
+    by_split, timing = {}, {}
+    for seed, (label, preset, shape, mesh) in enumerate(WINDOW_2D_SPLITS, 60):
+        p = PRESETS[preset]
+        h, kw = p.solver.stencil_halo, single_level.fused_step_kwargs(p.solver)
+        canonical, warped, warp = _device_fields(shape, seed, 0.8)
+        whole_w, whole_s = fused_gradient_update(warped, canonical, warp, rate, **kw)
+        exts = [_pad_2d(a, h, h, WINDOW_GHOST) for a in (warped, canonical, warp)]
+        del canonical, warped, warp
+        n0, n1 = shape[0] // mesh[0], shape[1] // mesh[1]
+        sums = torch.zeros(4, dtype=torch.float64, device="cuda")
+        maxes = torch.zeros(4, device="cuda")
+        errs = {"fused": 0.0, "union": 0.0}
+        for i0 in range(mesh[0]):
+            for i1 in range(mesh[1]):
+                blocks = [_haloed_2d(e, i0, n0, i1, n1, h, h, axis) for e, axis in
+                          zip(exts, (0, 0, 1))]
+                win = dict(x_offset=i0 * n0 - h, x_global=shape[0], x_lo=h, x_len=n0,
+                           y_offset=i1 * n1 - h, y_global=shape[1], y_lo=h, y_len=n1)
+                got = fused_gradient_update(*blocks, rate, **kw, **win)
+                torch.cuda.synchronize()
+                want = fused_gradient_update_reference(*blocks, rate, **kw, **win)
+                name = f"y window {label} block ({i0}, {i1})"
+                errs["fused"] = max(errs["fused"], _check_fused(name, got, want, rtol=0.0,
+                                                                atol=4.8e-7))
+                del want
+                errs["union"] = max(errs["union"], _close(
+                    f"{name} vs the whole call", got[0],
+                    whole_w[:, i0 * n0:(i0 + 1) * n0, i1 * n1:(i1 + 1) * n1], 0.0, 4.8e-7))
+                sums += got[1][:4].double()
+                maxes = torch.maximum(maxes, got[1][4:])
+                if shape == C5_512_SHAPE and (i0, i1) == (0, 1):
+                    timing["y_window"] = _time_b2(blocks, rate, kw, win) + (
+                        tuple(blocks[0].shape), (n0, n1))
+                del got, blocks
+        _close(f"y window {label}: summed energies and sum|du|", sums[:4],
+               whole_s[:4].double(), 1e-5)
+        _close(f"y window {label}: maxes", maxes, whole_s[4:], 0.0)
+        by_split[label] = errs
+        worst = {k: max(v, errs[k]) for k, v in worst.items()}
+        del exts, whole_w
+        torch.cuda.empty_cache()
+    # conv_local_x: the Schur solvers' block-local filter on 512³ / 8.
+    preset, shape, world = CONV_LOCAL_SPLIT
+    kw = single_level.fused_step_kwargs(PRESETS[preset].solver)
+    radius = len(kw["taps"]) // 2
+    canonical, warped, warp = _device_fields(shape, 70, 0.8)
+    whole_w, _ = fused_gradient_update(warped, canonical, warp, rate, **kw)
+    nl = shape[0] // world
+    errs = {"fused": 0.0, "interior": 0.0}
+    for rank in range(world):
+        blocks = [_haloed(a, rank, nl, 2, WINDOW_GHOST, axis)
+                  for a, axis in ((warped, 0), (canonical, 0), (warp, 1))]
+        win = dict(x_offset=rank * nl - 2, x_global=shape[0], x_lo=2, x_len=nl,
+                   conv_local_x=True)
+        got = fused_gradient_update(*blocks, rate, **kw, **win)
+        torch.cuda.synchronize()
+        want = fused_gradient_update_reference(*blocks, rate, **kw, **win)
+        name = f"conv_local_x {shape} rank {rank}"
+        errs["fused"] = max(errs["fused"], _check_fused(name, got, want, rtol=0.0,
+                                                        atol=4.8e-7))
+        errs["interior"] = max(errs["interior"], _close(
+            f"{name}: rows at least {radius} from a block face vs the whole call",
+            got[0][:, radius:nl - radius],
+            whole_w[:, rank * nl + radius:(rank + 1) * nl - radius], 0.0, 4.8e-7))
+        if rank == 1:
+            timing["conv_local_x"] = _time_b2(blocks, rate, kw, win) + (
+                tuple(blocks[0].shape), (nl, shape[1]))
+        del got, want, blocks
+    label = _split_name(preset, shape, world) + " conv_local_x"
+    by_split[label] = errs
+    worst["fused"] = max(worst["fused"], errs["fused"])
+    del canonical, warped, warp, whole_w
+    torch.cuda.empty_cache()
+    shards = {}
+    for key, (ms, runs, plain, bound, in_shape, out_2d) in timing.items():
+        shards[key] = (ms, plain, bound, in_shape)
+        print(f"[25] B2 {key} at the shard {in_shape} -> window {out_2d}: "
+              f"{[round(t * 1e3, 1) for t in runs]} us (plain {plain * 1e3:.1f} us, bound "
+              f"{bound[0] * 1e3:.1f} us by {bound[1]})")
+    print(f"[25] B2's y window on every block of {[s[0] for s in WINDOW_2D_SPLITS]} vs plain "
+          f"warp max|Δ| {worst['fused']:.3e} (atol 4.8e-7), the union vs the whole call "
+          f"{worst['union']:.3e}; conv_local_x on every rank of {_split_name(*CONV_LOCAL_SPLIT)} "
+          f"vs plain {errs['fused']:.3e}, rows at least {radius} from a block face vs the "
+          f"whole call {errs['interior']:.3e} (the rows nearer differ: the x pass stops at "
+          f"the block); by split {by_split}")
+    return worst, by_split, shards
+
+
+class _Sharded2DLoop:
+    """The 2D-mesh solve on a mesh as a loop object, for ``_solve_ms`` and
+    ``_profile_solve``."""
+
+    def __init__(self, params, mesh, live_halo):
+        self.params, self.mesh, self.live_halo = params, mesh, live_halo
+
+    def solve(self, canonical, live):
+        return solve_single_level_sharded2d(canonical, live, self.params, mesh=self.mesh,
+                                            live_halo=self.live_halo)
+
+
+def _one_rank(cfg):
+    """``cfg`` on a world of 1: a ``mesh_shape`` (1, 1) where it has one."""
+    return dataclasses.replace(cfg, mesh_shape=(1, 1)) if cfg.mesh_shape else cfg
+
+
+def _mesh_multi(runs):
+    """The new solvers on 2 and 4 NCCL ranks, each against its one-rank run
+    (``runs``: a preset's name to that run's summary), as many as the
+    process's devices allow."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        return [f"the multi-rank runs need a second device: this process sees {n}"]
+    lines = []
+    for world, mesh in ((2, (1, 2)), (4, (2, 2))):
+        if world > n:
+            break
+        for name, equal in ((C5_2D, True), (C5_SCHUR2D, False), (C5_SCHUR, False),
+                            (C5_HIER, True)):
+            cfg = PRESETS[name]
+            cfg = dataclasses.replace(cfg, mesh_shape=mesh) if cfg.mesh_shape else cfg
+            lines.append(_ranks(cfg, runs[name], world, equal))
+    return lines
+
+
+def _hierarchical_held(hier, ref, canonical, live, hp, group):
+    """The hierarchical sharded solve on a world of 1 against the
+    single-device one (``ref``), as phase 24 holds the sharded fusion: its
+    sharded levels sample at float(x_start + i) + u, the single-device
+    levels at float(i) + u, and a warped value that this rounding moves
+    across the band's bound switches the data term there for the rest of a
+    level's ~100 iterations, with this preset's 10-voxel motion. So the warp
+    within atol 5e-5 rtol 1e-4 on all but at most 1% of the voxels; and the
+    witness, each level solved as ``hier`` solved it but its sharded levels
+    with no live halo (x_start 0), held to phase 16's rules (rtol 3e-4,
+    atol 3e-6). Returns (max|Δ|, the share beyond the tolerance, the
+    witness's max|Δ|)."""
+    diff = torch.abs(hier.warp - ref.warp)
+    share = float((diff > 5e-5 + 1e-4 * torch.abs(ref.warp)).float().mean())
+    if share > 0.01:
+        raise AssertionError(f"{C5_HIER}: {share:.3%} of the warp beyond atol 5e-5 rtol 1e-4")
+    canon_pyr = pyramid.build_pyramid(canonical, hp.levels)
+    live_pyr = pyramid.build_pyramid(live, hp.levels)
+    warp = None
+    for level, halo in enumerate(hier.level_halos):
+        c, l = canon_pyr[level], live_pyr[level]
+        res = (solve_single_level(c, l, hp.base, initial_warp=warp) if halo is None else
+               solve_single_level_sharded(c, l, hp.base, group=group, live_halo=0,
+                                          initial_warp=warp))
+        warp = (pyramid.prolongate_warp(res.warp, target_shape=canon_pyr[level + 1].shape)
+                if level + 1 < hp.levels else res.warp)
+    witness = _close(f"{C5_HIER} witness (no live halo) vs the single-device port", warp,
+                     ref.warp, 3e-4, 3e-6)
+    return float(torch.max(diff)), share, witness
+
+
+def phase26_mesh_solvers(sharded_1d):
+    """The slice's solvers through ``cli.run_experiment`` on a world of 1
+    (NCCL), the launch counters reset just before each run: config5_2dmesh
+    and config5_schur2d on a (1, 1) mesh, config5_sharded_schur and
+    config5_hierarchical; each converges or reduces the residual, with no
+    contract violation. Held to the single-device port on the card: the 2D
+    sync solve's iterations and warp (atol 2e-5 rtol 1e-4, the JAX parity
+    test's); the Schur solvers', whose one block has no cut, to
+    ``solve_single_level`` run for their outer steps x T iterations (the
+    presets' rate is fixed); the hierarchical solve's per-level iterations
+    and warp to ``solve_hierarchical``. Then
+    config5_512's problem through ``solve_single_level_sharded2d`` on a
+    (1, 1) mesh: µs/iter, voxel·iter/s and peak memory beside phase 23's 1D
+    numbers (``sharded_1d``), and a profiler breakdown of 8 iterations.
+    With more devices, the solvers on 2 and 4 NCCL ranks. The hierarchical
+    solve is held by ``_hierarchical_held``'s rules."""
+    paths, runs, errs = {}, {}, {}
+    for name in (C5_2D, C5_SCHUR, C5_SCHUR2D, C5_HIER):
+        cfg = _one_rank(PRESETS[name])
+        _reset_launches()
+        summary, wall = _cli_run(cfg, "cuda")
+        paths[name] = _read_launches()
+        numbers = [summary[k] for k in ("residual_before", "residual_after")]
+        if (not all(np.isfinite(numbers + summary["max_abs_displacement"]))
+                or summary["residual_after"] >= summary["residual_before"]
+                or summary["contract_violations"]):
+            raise AssertionError(f"{name}: {summary}")
+        if "outer_steps" in summary:
+            inner = summary["total_inner_iterations"]
+            want = {"resample": inner + 1, "fused_gradient": inner}
+        elif "iterations_per_level" in summary:
+            want = None
+        else:
+            want = _sharded_launches(summary["iterations"])
+        if want is not None and paths[name] != want:
+            raise AssertionError(f"{name}: launches {paths[name]}, want {want}")
+        if min(paths[name].values()) == 0:
+            raise AssertionError(f"{name}: a kernel never launched: {paths[name]}")
+        runs[name] = summary
+        runs[name]["wall"] = wall
+    group = init_group("cuda")
+    try:
+        mesh = make_mesh_2d(group, (1, 1))
+        cfg = PRESETS[C5_2D]
+        canonical, live = _pair_3d(cfg, _grid(cfg), group.device)
+        sh = solve_single_level_sharded2d(canonical, live, cfg.solver, mesh=mesh,
+                                          live_halo=cfg.live_halo)
+        single = solve_single_level(canonical, live, cfg.solver)
+        if not sh.iterations == single.iterations == runs[C5_2D]["iterations"]:
+            raise AssertionError(f"{C5_2D}: 2D {sh.iterations}, single-device "
+                                 f"{single.iterations}, CLI {runs[C5_2D]['iterations']}")
+        errs[C5_2D] = _close(f"{C5_2D} warp vs the single-device port", sh.warp, single.warp,
+                             1e-4, 2e-5)
+        for name in (C5_SCHUR, C5_SCHUR2D):
+            cfg = PRESETS[name]
+            steps, t = runs[name]["outer_steps"], cfg.schur_inner_iterations
+            kw = dict(live_halo=cfg.live_halo, inner_iterations=t)
+            res = (solve_single_level_schur(canonical, live, cfg.solver, group=group, **kw)
+                   if name == C5_SCHUR else
+                   solve_single_level_schur2d(canonical, live, cfg.solver, mesh=mesh, **kw))
+            plain = solve_single_level(canonical, live, cfg.solver.replace(
+                max_iterations=steps * t, convergence_threshold=0.0))
+            if res.outer_steps != steps or plain.iterations != steps * t:
+                raise AssertionError(f"{name}: {res.outer_steps} outer steps (CLI {steps}), "
+                                     f"the single-device solve {plain.iterations}")
+            errs[name] = _close(f"{name} warp vs the single-device port", res.warp,
+                                plain.warp, 1e-4, 2e-5)
+        cfg = PRESETS[C5_HIER]
+        hc, hl = _pair_3d(cfg, _grid(cfg), group.device)
+        hp = HierarchicalParams(levels=cfg.levels, base=cfg.solver)
+        hier = solve_hierarchical_sharded(hc, hl, hp, group=group, min_live_halo=cfg.live_halo)
+        ref = solve_hierarchical(hc, hl, hp)
+        its = [r.iterations for r in hier.level_results]
+        if its != [r.iterations for r in ref.level_results] or its != runs[C5_HIER][
+                "iterations_per_level"]:
+            raise AssertionError(f"{C5_HIER}: {its}, single-device "
+                                 f"{[r.iterations for r in ref.level_results]}, CLI "
+                                 f"{runs[C5_HIER]['iterations_per_level']}")
+        errs[C5_HIER] = _hierarchical_held(hier, ref, hc, hl, hp, group)
+        del canonical, live, hc, hl, sh, single, hier, ref
+        cfg = PRESETS[C5_512]
+        canonical, live = _pair_3d(cfg, _grid(cfg), group.device)
+        loop = _Sharded2DLoop(cfg.solver, mesh, cfg.live_halo)
+        res = loop.solve(canonical, live)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        timed = [_solve_ms(loop, canonical, live) for _ in range(2)]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        per_iter_ms = min(timed) / res.iterations
+        rate = canonical.numel() / (per_iter_ms / 1e3)
+        short = _Sharded2DLoop(cfg.solver.replace(max_iterations=8, convergence_threshold=0.0),
+                               mesh, cfg.live_halo)
+        profile = _profile_solve(short, canonical, live, per_iter_ms * 1e3, "eager 2D sharded",
+                                 where=f"{C5_512} solve at {C5_512_SHAPE}, (1, 1) mesh")
+        del canonical, live
+    finally:
+        close_group(group)
+    torch.cuda.empty_cache()
+    hier_err, hier_share, witness = errs.pop(C5_HIER)
+    errs[C5_HIER] = hier_err
+    for name in (C5_2D, C5_SCHUR, C5_SCHUR2D, C5_HIER):
+        r = runs[name]
+        steps = (f"{r['outer_steps']} outer steps x {r['inner_per_outer']}"
+                 if "outer_steps" in r else _steps(r))
+        print(f"[26] {name} on a world of 1 (NCCL) through cli.run_experiment: {steps} "
+              f"iterations, converged {r['converged']}, residual {r['residual_before']:.6g} -> "
+              f"{r['residual_after']:.6g}, wall {r['wall']:.2f} s, launches {paths[name]}; "
+              f"warp vs the single-device port max|Δ| {errs[name]:.3e}")
+    print(f"[26] {C5_HIER}: {hier_share:.4%} of the warp beyond atol 5e-5 rtol 1e-4 (at most "
+          f"1%: B1's x_start rounding at the band's bound); level halos "
+          f"{runs[C5_HIER]['level_live_halos']}; the witness with no live halo max|Δ| "
+          f"{witness:.3e} (rtol 3e-4 atol 3e-6)")
+    print(f"[26] {C5_512} {C5_512_SHAPE} through solve_single_level_sharded2d on a (1, 1) "
+          f"mesh: {res.iterations} iterations in {min(timed):.1f} ms (runs "
+          f"{[round(r, 2) for r in timed]}), {per_iter_ms * 1e3:.1f} us/iter, {rate:.4e} "
+          f"voxel*iter/s, peak memory {peak:.2f} GiB; the 1D solver (phase 23): "
+          f"{sharded_1d['config5_512_us_per_iter']:.1f} us/iter, "
+          f"{sharded_1d['voxel_iter_per_s']:.4e} voxel*iter/s, {sharded_1d['peak_gib']:.2f} GiB")
+    print(f"[26] {profile}")
+    for line in _mesh_multi(runs):
+        print(f"[26] {line}")
+    return paths
+
+
+def _fusion_held(label, got, ref, its):
+    """A sharded fusion's final state against the single-device fusion's:
+    the per-frame iterations equal; the canonical within atol 2e-5 rtol
+    1e-4 (tests/test_fusion_sharded.py's) and the weights equal on all but
+    at most 1% of the voxels (those whose blend value a resample's rounding
+    moved across the band's bound, phase 24); the max|Δ| over the others."""
+    want_its = [r.solver_iterations for r in ref.reports]
+    if its != want_its:
+        raise AssertionError(f"{label}: iterations {its} != {want_its}")
+    a, b = got.state, ref.state
+    off = (torch.abs(a.canonical - b.canonical) > 2e-5 + 1e-4 * torch.abs(b.canonical)) | (
+        a.weights != b.weights)
+    share = float(off.float().mean())
+    if share > 0.01:
+        raise AssertionError(f"{label}: {share:.2%} of the voxels differ")
+    keep = ~off
+    err = float(torch.max(torch.abs(a.canonical - b.canonical)[keep]))
+    return share, err
+
+
+def phase27_mesh_fusion():
+    """``fuse_sequence_sharded`` on a world of 1 (NCCL) with config4's 128³
+    x 8 sequence, the launch counters reset just before each run: with
+    ``hierarchical=True`` (3 levels: coarse levels replicated, the finest
+    sharded) against the hierarchical ``fuse_sequence``, and on a (1, 1)
+    mesh against the flat ``fuse_sequence``, by ``_fusion_held``'s rules;
+    frames/s of each beside the single-device path's."""
+    cfg = PRESETS[C4]
+    ds = cli._sequence_dataset(cfg)
+    paths, lines = {}, []
+    group = init_group("cuda")
+    try:
+        for label, hierarchical, mesh in (
+                ("fusion_sharded_hierarchical", True, group),
+                ("fusion_sharded_2d", False, make_mesh_2d(group, (1, 1)))):
+            pipeline_cfg = fusion.FusionPipelineConfig(
+                grid=_grid(cfg), narrow_band_width_voxels=cfg.narrow_band_width_voxels,
+                hierarchical=hierarchical, solver=cfg.solver)
+            stamps = []
+            _reset_launches()
+            got = fusion.fuse_sequence_sharded(
+                ds.frames, ds.camera, pipeline_cfg, group=mesh,
+                mesh_axes=None if hierarchical else ("x", "y"), live_halo=cfg.live_halo,
+                frame_callback=lambda t, s, w: stamps.append(time.perf_counter()))
+            paths[label] = _read_launches()
+            fps = (len(stamps) - 1) / (stamps[-1] - stamps[0])
+            its = [r.solver_iterations for r in got.reports]
+            if any(r.contract_violations for r in got.reports) or min(
+                    paths[label].values()) == 0:
+                raise AssertionError(f"{label}: {paths[label]} "
+                                     f"{[r.contract_violations for r in got.reports]}")
+            if not hierarchical and paths[label] != {"resample": sum(its) + len(its),
+                                                     "fused_gradient": sum(its)}:
+                raise AssertionError(f"{label}: launches {paths[label]} for {its}")
+            ref, ref_fps = _fps(ds, pipeline_cfg)
+            share, err = _fusion_held(label, got, ref, its)
+            lines.append(f"{label}: iterations {its}, as fuse_sequence's; the final "
+                         f"canonical max|Δ| {err:.3e} (atol 2e-5 rtol 1e-4) away from "
+                         f"{share:.3%} of the voxels; launches {paths[label]}; {fps:.2f} "
+                         f"frames/s (fuse_sequence {ref_fps:.2f})")
+    finally:
+        close_group(group)
+    for line in lines:
+        print(f"[27] {C4} at {cfg.grid_shape} x {len(ds.frames)} frames on a world of 1 "
+              f"(NCCL): {line}")
+    return paths
+
+
 def _row(name, source, replaces, numbers, per_iter=0):
     """A row of the ``kernels`` line; ``per_iter`` is the kernel's launches
     per config3 solve iteration."""
@@ -2265,9 +2706,12 @@ def main():
     phase20_rigid()
     paths["hierarchical_fusion"] = phase21_hierarchical_fusion()
     window_err, window_by_split, shard = phase22_windows()
-    sharded_paths, _ = phase23_sharded()
+    sharded_paths, sharded_1d = phase23_sharded()
     paths.update(sharded_paths)
     paths["fusion_sharded"] = phase24_sharded_fusion()
+    window2d_err, window2d_by_split, shards2d = phase25_windows_2d()
+    paths.update(phase26_mesh_solvers(sharded_1d))
+    paths.update(phase27_mesh_fusion())
     by_path = {name: {path: c[name] for path, c in paths.items()}
                for name in ("resample", "fused_gradient")}
     ms, plain_ms, bound = times["resample"]
@@ -2277,7 +2721,8 @@ def main():
     resample_row["launches_by_path"] = by_path["resample"]
     ms, plain_ms, bound = times["fused_gradient"]
     fused_row = _numbers(sum(by_path["fused_gradient"].values()),
-                         max(err_fused, window_err["fused"]), ms, plain_ms, bound, None)
+                         max(err_fused, window_err["fused"], window2d_err["fused"]), ms,
+                         plain_ms, bound, None)
     fused_row["launches_by_path"] = by_path["fused_gradient"]
     for row, name, err in ((resample_row, "resample", "resample"),
                            (fused_row, "fused_gradient", "fused")):
@@ -2286,6 +2731,14 @@ def main():
                            "bound_ms": w_bound[0], "bound_by": w_bound[1], "library_ms": w_lib,
                            "max_abs_err_by_split": {
                                split: e[err] for split, e in window_by_split.items()}}
+    # B2's y window and conv_local_x (phase 25), each at its 512³ shard.
+    for key, (w_ms, w_plain, w_bound, w_shape) in shards2d.items():
+        fused_row["windowed_" + key] = {
+            "shape": list(w_shape), "ms": w_ms, "plain_ms": w_plain, "bound_ms": w_bound[0],
+            "bound_by": w_bound[1], "library_ms": None,
+            "max_abs_err_by_split": {split: e["fused"] for split, e in window2d_by_split.items()
+                                     if split.endswith("conv_local_x") == (
+                                         key == "conv_local_x")}}
     kernels = [
         _row("warp_field_cm", "resample.cu",
              "levelsetfusion_tpu/ops/pallas/resample.py:427", resample_row, 1),

@@ -17,19 +17,27 @@ against a known extrinsic), and ``multi_frame_3d`` (config4: the flat
 fusion of a depth sequence, with checkpoints every ``checkpoint_every``
 frames under ``<out>/checkpoints`` and ``--resume`` from the latest).
 
-The 1D sharded modes run on ``torch.distributed`` (``parallel/``):
-``sharded_3d`` with the sync solver (config5_sharded, config5_512) and
-``multi_frame_sharded_3d`` (the flat fusion, its checkpoints sharded). The
-world size comes from ``torchrun``'s environment, else it is 1 (one
-process, no launcher); ``num_devices`` is not read. Rank 0 writes the run's
-files; every rank writes its checkpoint shards:
+The sharded modes run on ``torch.distributed`` (``parallel/``):
+``sharded_3d`` with the sync solver (config5_sharded, config5_512), the
+Schur solver (``solver_kind="schur"``, config5_sharded_schur), the 2D-mesh
+sync solver (a ``mesh_shape``, config5_2dmesh) and the Schur-2D solver
+(``mesh_shape`` and ``solver_kind="schur2d"``, config5_schur2d);
+``hierarchical_sharded_3d`` (config5_hierarchical: coarse levels
+replicated, fine levels sharded, on the 1D or the 2D mesh); and
+``multi_frame_sharded_3d`` (the flat fusion on either mesh, its checkpoints
+sharded). The world size comes from ``torchrun``'s environment, else it is
+1 (one process, no launcher); ``num_devices`` is not read, and a
+``mesh_shape`` must hold the world's ranks (``(1, 1)`` for one). Rank 0
+writes the run's files; every rank writes its checkpoint shards:
 
     python -m levelsetfusion_tpu_torch.cli --preset config5_512 --out c5
     torchrun --nproc-per-node 2 -m levelsetfusion_tpu_torch.cli --preset config5_sharded --out c5
+    torchrun --nproc-per-node 8 -m levelsetfusion_tpu_torch.cli --preset config5_2dmesh --out c5
+    python -m levelsetfusion_tpu_torch.cli --config c5_2dmesh_1x1.json --out c5
 
-The 2D-mesh and Schur solvers and ``hierarchical_sharded_3d`` raise
-``NotImplementedError`` naming ROADMAP A12. Plots and the fusion video
-wait for the port of ``utils/visualization.py`` (ROADMAP A10b).
+A ``depth_directory`` dataset raises ``NotImplementedError`` naming ROADMAP
+A9. Plots and the fusion video wait for the port of
+``utils/visualization.py`` (ROADMAP A10b).
 """
 
 from __future__ import annotations
@@ -56,6 +64,7 @@ from levelsetfusion_tpu_torch.models.fusion import (
     fuse_sequence_sharded,
 )
 from levelsetfusion_tpu_torch.models.hierarchical import (
+    build_pyramid_from_depth,
     solve_hierarchical,
     solve_hierarchical_from_depth,
 )
@@ -69,27 +78,26 @@ from levelsetfusion_tpu_torch.ops.tsdf import generate_tsdf_2d, generate_tsdf_3d
 from levelsetfusion_tpu_torch.parallel import (
     close_group,
     init_group,
+    make_mesh_2d,
+    solve_hierarchical_sharded,
+    solve_single_level_schur,
+    solve_single_level_schur2d,
     solve_single_level_sharded,
+    solve_single_level_sharded2d,
     warp_field_sharded,
 )
-from levelsetfusion_tpu_torch.parallel.mesh import gather_field, shard_field
+from levelsetfusion_tpu_torch.parallel.mesh import Mesh2D, gather_field, shard_field
 from levelsetfusion_tpu_torch.utils import checkpoint
 from levelsetfusion_tpu_torch.utils.debug import check_displacement_contract
 from levelsetfusion_tpu_torch.utils.config import PRESETS, ExperimentConfig
 from levelsetfusion_tpu_torch.utils.telemetry import RunLogger, telemetry_to_rows
 
-# Modes of the JAX CLI that this package does not run yet, by ROADMAP item.
-_NOT_PORTED = {"hierarchical_sharded_3d": "A12"}
-
 
 def _not_ported(cfg: ExperimentConfig) -> str | None:
-    """The ROADMAP item of a config this package does not run yet: its mode,
-    or in a sharded mode the 2D mesh or a solver other than the 1D sync
-    one."""
-    if cfg.mode in ("sharded_3d", "multi_frame_sharded_3d") and (
-            cfg.mesh_shape is not None or cfg.solver_kind != "sync"):
-        return "A12"
-    return _NOT_PORTED.get(cfg.mode)
+    """The ROADMAP item of a config this package does not run yet: a fusion
+    of a sequence of depth PNGs (A9)."""
+    multi_frame = cfg.mode in ("multi_frame_3d", "multi_frame_sharded_3d")
+    return "A9" if multi_frame and cfg.dataset == "depth_directory" else None
 
 
 def _device(name) -> torch.device:
@@ -140,8 +148,10 @@ def _pair_2d(cfg: ExperimentConfig, grid: GridSpec, device: torch.device):
     return gen(pair.canonical_depth), gen(pair.live_depth), pair
 
 
-def _pair_3d(cfg: ExperimentConfig, grid: GridSpec, device: torch.device):
-    """The synthetic blob-on-a-wall depth pair as canonical and live TSDFs."""
+def _pair_3d(cfg: ExperimentConfig, grid: GridSpec, device: torch.device,
+             depths: bool = False):
+    """The synthetic blob-on-a-wall depth pair as canonical and live TSDFs
+    (with ``depths``, also the two depth images and the camera)."""
     kwargs = dict(blob_height=0.06, blob_radius_px=18.0)
     kwargs.update(cfg.dataset_kwargs)
     shift = kwargs.pop("live_shift_px", 4.0)
@@ -160,7 +170,8 @@ def _pair_3d(cfg: ExperimentConfig, grid: GridSpec, device: torch.device):
             method=cfg.generation_method,
         )
 
-    return gen(canonical_depth), gen(live_depth)
+    pair = gen(canonical_depth), gen(live_depth)
+    return (*pair, (canonical_depth, live_depth, cam)) if depths else pair
 
 
 def _sequence_dataset(cfg: ExperimentConfig) -> datasets.SequenceDataset:
@@ -364,31 +375,92 @@ def _rigid(cfg, logger, device) -> dict:
     )
 
 
-def _sharded_3d(cfg, out_dir, logger, group) -> dict:
-    """config5: the sync solver on the 1D group. Every rank makes the whole
-    pair and keeps its block; the summary holds JAX's keys (the residuals
-    over the whole volume, the per-axis max |u| and the live-halo
-    violations)."""
-    canonical, live = _pair_3d(cfg, _grid(cfg), group.device)
-    live_blk = shard_field(live, group)
-    res = solve_single_level_sharded(shard_field(canonical, group), live_blk, cfg.solver,
-                                     group=group, live_halo=cfg.live_halo)
+def _sharded_3d(cfg, out_dir, logger, mesh) -> dict:
+    """config5: the sync or Schur solver on the 1D group, or with a
+    ``mesh_shape`` the 2D-mesh sync or Schur-2D solver. Every rank makes the
+    whole pair and keeps its block; the summary holds JAX's keys (the
+    residuals over the whole volume, the per-axis max |u|, the live-halo
+    violations on the sharded axes, and the Schur solvers' step counts)."""
+    canonical, live = _pair_3d(cfg, _grid(cfg), mesh.device)
+    live_blk = shard_field(live, mesh)
+    args = (shard_field(canonical, mesh), live_blk, cfg.solver)
+    schur = dict(live_halo=cfg.live_halo, inner_iterations=cfg.schur_inner_iterations)
+    if isinstance(mesh, Mesh2D):
+        if cfg.solver_kind == "schur2d":
+            res = solve_single_level_schur2d(*args, mesh=mesh, **schur)
+        else:
+            res = solve_single_level_sharded2d(*args, mesh=mesh, live_halo=cfg.live_halo)
+        # The whole volume's gather, as JAX's 2D-mesh runs take it.
+        warped = warp_field_cm(live, to_component_major(gather_field(res.warp, mesh)))
+    else:
+        if cfg.solver_kind == "schur":
+            res = solve_single_level_schur(*args, group=mesh, **schur)
+        else:
+            res = solve_single_level_sharded(*args, group=mesh, live_halo=cfg.live_halo)
+        warped = gather_field(warp_field_sharded(live_blk, res.warp, mesh, cfg.live_halo),
+                              mesh)
     logger.log_solve(res)
-    warped = gather_field(warp_field_sharded(live_blk, res.warp, group, cfg.live_halo), group)
+    extra = {}
+    if hasattr(res, "outer_steps"):
+        extra = dict(solver_kind=cfg.solver_kind, outer_steps=res.outer_steps,
+                     inner_per_outer=res.inner_per_outer,
+                     total_inner_iterations=res.outer_steps * res.inner_per_outer)
     return dict(
-        devices=group.world,
+        devices=mesh.world,
         iterations=int(res.iterations),
         converged=bool(res.converged),
         **_residual_metrics(canonical, live, warped),
         max_abs_displacement=[float(v) for v in res.max_abs_displacement.cpu()],
         contract_violations=check_displacement_contract(
-            res, live_halo=cfg.live_halo, name=cfg.name),
+            res, live_halo=cfg.live_halo, sharded_axes=_sharded_axes(mesh), name=cfg.name),
+        **extra,
+    )
+
+
+def _sharded_axes(mesh) -> tuple:
+    return (0, 1) if isinstance(mesh, Mesh2D) else (0,)
+
+
+def _hierarchical_sharded_3d(cfg, out_dir, logger, mesh) -> dict:
+    """config5 x the hierarchical solve: coarse levels replicated, fine
+    levels sharded on the 1D group or the 2D mesh, their halos sized from
+    the measured coarse motion (``parallel/hierarchical.py``), over
+    block-mean or EWA depth pyramids. Each level's contract is checked
+    against the halo it ran with."""
+    grid = _grid(cfg)
+    canonical, live, (cdepth, ldepth, cam) = _pair_3d(cfg, grid, mesh.device, depths=True)
+    hp = HierarchicalParams(levels=cfg.levels, base=cfg.solver)
+    pyramids = None
+    if cfg.pyramid_method == "ewa_depth":
+        pyramids = tuple(build_pyramid_from_depth(
+            torch.from_numpy(depth).to(mesh.device), cam, grid, cfg.levels,
+            cfg.narrow_band_width_voxels)[0] for depth in (cdepth, ldepth))
+    res = solve_hierarchical_sharded(canonical, live, hp, group=mesh,
+                                     min_live_halo=cfg.live_halo, pyramids=pyramids)
+    for level, lr in enumerate(res.level_results):
+        logger.log_solve(lr, level=level)
+    warped = warp_field_cm(live, to_component_major(res.warp))
+    violations = []
+    for li, (lr, lh) in enumerate(zip(res.level_results, res.level_halos)):
+        if lh is not None:
+            violations += [f"level {li}: {v}" for v in check_displacement_contract(
+                lr, live_halo=lh, sharded_axes=_sharded_axes(mesh), name=cfg.name)]
+    finest = res.level_results[-1]
+    return dict(
+        devices=mesh.world,
+        levels=cfg.levels,
+        iterations_per_level=[int(r.iterations) for r in res.level_results],
+        level_live_halos=list(res.level_halos),
+        converged=bool(finest.converged),
+        **_residual_metrics(canonical, live, warped),
+        max_abs_displacement=[float(v) for v in finest.max_abs_displacement.cpu()],
+        contract_violations=violations,
     )
 
 
 def _multi_frame_sharded_3d(cfg, out_dir, logger, group) -> dict:
-    """config4 on the 1D group (``fuse_sequence_sharded``), with sharded
-    checkpoints every ``checkpoint_every`` frames under
+    """config4 on the 1D group or the 2D mesh (``fuse_sequence_sharded``),
+    with sharded checkpoints every ``checkpoint_every`` frames under
     ``<out>/checkpoints``."""
     ds = _sequence_dataset(cfg)
     pipeline_cfg = FusionPipelineConfig(
@@ -407,8 +479,10 @@ def _multi_frame_sharded_3d(cfg, out_dir, logger, group) -> dict:
         if cfg.checkpoint_every and t % cfg.checkpoint_every == 0:
             checkpoint.save(ckpt_root, t, state, warp, {"config": cfg.name}, group=group)
 
-    result = fuse_sequence_sharded(ds.frame_source(), ds.camera, pipeline_cfg, group=group,
-                                   live_halo=cfg.live_halo, frame_callback=on_frame)
+    result = fuse_sequence_sharded(
+        ds.frame_source(), ds.camera, pipeline_cfg, group=group,
+        mesh_axes=("x", "y") if isinstance(group, Mesh2D) else None,
+        live_halo=cfg.live_halo, frame_callback=on_frame)
     processed = len(ds)
     if len(frame_times) >= 2:
         fps = (len(frame_times) - 1) / max(frame_times[-1] - frame_times[0], 1e-9)
@@ -427,22 +501,25 @@ def _multi_frame_sharded_3d(cfg, out_dir, logger, group) -> dict:
 
 _MODES = {"single_pair_2d": _single_pair, "single_pair_3d": _single_pair,
           "hierarchical_2d": _hierarchical_2d, "rigid_2d": _rigid, "rigid_3d": _rigid}
-_SHARDED = {"sharded_3d": _sharded_3d, "multi_frame_sharded_3d": _multi_frame_sharded_3d}
+_SHARDED = {"sharded_3d": _sharded_3d, "multi_frame_sharded_3d": _multi_frame_sharded_3d,
+            "hierarchical_sharded_3d": _hierarchical_sharded_3d}
 
 
 def _run_sharded(cfg, out_dir, device) -> dict:
     """A sharded mode on the default process group (``init_group``: made
-    here for a world of 1 without a launcher, and taken down after). Rank 0
-    writes the run's files into ``out_dir``; the other ranks log into a
-    directory that is removed."""
+    here for a world of 1 without a launcher, and taken down after), as a
+    1D group or, with a ``mesh_shape``, a 2D mesh over it. Rank 0 writes the
+    run's files into ``out_dir``; the other ranks log into a directory that
+    is removed."""
     group = init_group(device)
     try:
+        mesh = group if cfg.mesh_shape is None else make_mesh_2d(group, cfg.mesh_shape)
         with contextlib.ExitStack() as stack:
             log_dir = out_dir if group.rank == 0 else stack.enter_context(
                 tempfile.TemporaryDirectory())
             logger = _logger(cfg, log_dir)
             before = _launches({})
-            summary = _SHARDED[cfg.mode](cfg, out_dir, logger, group)
+            summary = _SHARDED[cfg.mode](cfg, out_dir, logger, mesh)
             return logger.finish(**summary, device=str(group.device),
                                  kernel_launches=_launches(before))
     finally:
@@ -464,7 +541,7 @@ def run_experiment(cfg: ExperimentConfig, out_dir: str, device="cuda",
     if item is not None or cfg.mode not in (*_MODES, *_SHARDED, "multi_frame_3d"):
         raise NotImplementedError(
             f"mode {cfg.mode!r} is not ported yet"
-            + (f" (ROADMAP {item})" if item else "")
+            + (f" (ROADMAP {item}: dataset {cfg.dataset!r})" if item else "")
         )
     device = _device(device)
     if cfg.mode in _SHARDED:

@@ -31,6 +31,15 @@
 // volume (R the filter's radius) and reads the inputs 2 rows beyond that.
 // x_offset = x_lo = 0, x_len = x_global = X is the whole-volume call.
 //
+// The y window (the 2D-mesh solvers' blocks; y_offset, y_global, y_lo,
+// y_len) is the same along the columns: input column c is global column
+// y_offset + c of y_global, u' has y_len columns, the y face rules fire at
+// the global columns only, the y pass zero-pads beyond them, and
+// terms_kernel computes g on columns [y_lo - R, y_lo + y_len + R) inside
+// the volume. conv_local_x (the Schur solvers' block-local filter): the x
+// pass reads g as zero outside the window's rows, so terms_kernel computes
+// g on the window's rows only and the input needs 2 halo rows, not 2 + R.
+//
 // What bounds it on the H100: the function reads Phi_w, Phi_c and u (5
 // volumes) and writes u' (3): 67 MB at 128^3, 20 us at 3.35 TB/s. The TPU
 // design does it all in one pass over haloed windows; here the only volume
@@ -136,8 +145,15 @@ struct Dims {
   int64_t n;
   // The x window: input row q is global row q + x_off of x_global; input
   // rows [q_lo, q_hi) lie inside the volume, and [w_lo, w_lo + w_len) are
-  // the rows this call updates, n_out = w_len * plane voxels.
+  // the rows this call updates.
   int x_off, x_global, q_lo, q_hi, w_lo, w_len;
+  // The y window, the same along the columns: [p_lo, p_hi) inside the
+  // volume, [w_ylo, w_ylo + w_ylen) updated.
+  int y_off, y_global, p_lo, p_hi, w_ylo, w_ylen;
+  // The rows the filter's x pass reads g from ([q_lo, q_hi), or the
+  // window's under conv_local_x); the output's plane, w_ylen * nz, and its
+  // n_out = w_len * out_plane voxels.
+  int c_lo, c_hi, out_plane;
   int64_t n_out;
 };
 
@@ -152,42 +168,56 @@ struct Taps {
   float w[kMaxTaps];
 };
 
-// A kernel's grid: tiles of (y, z) columns times chunks of the x rows
-// [x_begin, x_end).
+// A kernel's grid: tiles of the (y, z) columns [y_begin, y_end) x [0, nz)
+// times chunks of the x rows [x_begin, x_end).
 struct Plan {
-  int tiles_z, tiles_yz, xchunk, blocks, x_begin, x_end;
+  int tiles_z, tiles_yz, xchunk, blocks, x_begin, x_end, y_begin, y_end;
 };
 
 struct Tile {
   int x0, x1, y0, z0;
 };
 
-Dims dims(int nx, int ny, int nz, int x_off, int x_global, int x_lo, int x_len) {
-  Dims d{nx, ny, nz, ny * nz, (int64_t)nx * ny * nz};
-  d.x_off = x_off;
-  d.x_global = x_global;
-  d.q_lo = std::max(0, -x_off);
-  d.q_hi = std::min(nx, x_global - x_off);
-  d.w_lo = x_lo;
-  d.w_len = x_len;
-  d.n_out = (int64_t)x_len * ny * nz;
+// The call's arguments: the input's extents and both windows.
+struct Args {
+  int nx, ny, nz, ntaps, x_off, x_global, x_lo, x_len, y_off, y_global, y_lo, y_len,
+      conv_local_x;
+};
+
+Dims dims(const Args& a) {
+  Dims d{a.nx, a.ny, a.nz, a.ny * a.nz, (int64_t)a.nx * a.ny * a.nz};
+  d.x_off = a.x_off;
+  d.x_global = a.x_global;
+  d.q_lo = std::max(0, -a.x_off);
+  d.q_hi = std::min(a.nx, a.x_global - a.x_off);
+  d.w_lo = a.x_lo;
+  d.w_len = a.x_len;
+  d.y_off = a.y_off;
+  d.y_global = a.y_global;
+  d.p_lo = std::max(0, -a.y_off);
+  d.p_hi = std::min(a.ny, a.y_global - a.y_off);
+  d.w_ylo = a.y_lo;
+  d.w_ylen = a.y_len;
+  d.c_lo = a.conv_local_x ? a.x_lo : d.q_lo;
+  d.c_hi = a.conv_local_x ? a.x_lo + a.x_len : d.q_hi;
+  d.out_plane = a.y_len * a.nz;
+  d.n_out = (int64_t)a.x_len * d.out_plane;
   return d;
 }
 
-// The rows terms_kernel computes g on: the window and the filter's radius
-// around it, inside the volume.
-int g_begin(const Dims& d, int radius) { return std::max(d.w_lo - radius, d.q_lo); }
-int g_end(const Dims& d, int radius) { return std::min(d.w_lo + d.w_len + radius, d.q_hi); }
-
 // As many chunks of the rows [x_begin, x_end) as fill one wave of `wave`
-// CTAs, each of at least kMinXChunk planes.
-Plan plan(const Dims& d, int x_begin, int x_end, int ty, int tz, int wave) {
+// CTAs, each of at least kMinXChunk planes, over the columns [y_begin,
+// y_end).
+Plan plan(const Dims& d, int x_begin, int x_end, int y_begin, int y_end, int ty, int tz,
+          int wave) {
   Plan p;
   const int rows = x_end - x_begin;
   p.x_begin = x_begin;
   p.x_end = x_end;
+  p.y_begin = y_begin;
+  p.y_end = y_end;
   p.tiles_z = (d.nz + tz - 1) / tz;
-  p.tiles_yz = p.tiles_z * ((d.ny + ty - 1) / ty);
+  p.tiles_yz = p.tiles_z * ((y_end - y_begin + ty - 1) / ty);
   int chunks = wave / p.tiles_yz;
   const int most = (rows + kMinXChunk - 1) / kMinXChunk;
   if (chunks > most) chunks = most;
@@ -197,10 +227,23 @@ Plan plan(const Dims& d, int x_begin, int x_end, int ty, int tz, int wave) {
   return p;
 }
 
+// terms_kernel's grid: g on the window's rows and columns with the filter's
+// radius around them (along x none under conv_local_x), inside the volume.
+Plan terms_plan(const Dims& d, int radius, int wave) {
+  return plan(d, std::max(d.w_lo - radius, d.c_lo), std::min(d.w_lo + d.w_len + radius, d.c_hi),
+              std::max(d.w_ylo - radius, d.p_lo),
+              std::min(d.w_ylo + d.w_ylen + radius, d.p_hi), kTY, kTZ, wave);
+}
+
+// sobolev_update_kernel's grid: the window.
+Plan update_plan(const Dims& d, int wave) {
+  return plan(d, d.w_lo, d.w_lo + d.w_len, d.w_ylo, d.w_ylo + d.w_ylen, kSY, kSZ, wave);
+}
+
 __device__ __forceinline__ Tile tile_of(const Plan& p, int ty, int tz) {
   const int t = blockIdx.x % p.tiles_yz, c = blockIdx.x / p.tiles_yz;
   Tile r;
-  r.y0 = (t / p.tiles_z) * ty;
+  r.y0 = p.y_begin + (t / p.tiles_z) * ty;
   r.z0 = (t % p.tiles_z) * tz;
   r.x0 = p.x_begin + c * p.xchunk;
   r.x1 = min(r.x0 + p.xchunk, p.x_end);
@@ -299,30 +342,37 @@ __global__ void __launch_bounds__(kThreads, 3)
     const int i = tid + k * kThreads, iy = i / per_row, iz = i % per_row * width;
     const int y = tl.y0 - 2 + iy, z = tl.z0 - kIZ0 + iz;
     in_sm[k] = iy * kIZ + iz;
-    in_off[k] = (iy < kIY && y >= 0 && y < d.ny && z >= 0 && z < d.nz) ? y * d.nz + z : -1;
+    in_off[k] = (iy < kIY && y >= d.p_lo && y < d.p_hi && z >= 0 && z < d.nz) ? y * d.nz + z
+                                                                            : -1;
   }
-  // Its derivative positions: shared index, (y, z) (y = -1 outside the
-  // volume), and whether its warp's positions are all inside the faces.
+  // Its derivative positions: shared index, global column and z (column -1
+  // outside the volume), and whether its warp's positions are all inside the
+  // faces.
   int d_sm[kDPerThread], d_y[kDPerThread], d_z[kDPerThread];
   bool d_inner[kDPerThread];
 #pragma unroll
   for (int k = 0; k < kDPerThread; ++k) {
     const int i = tid + k * kThreads, dy = i / kDW, dz = i % kDW;
     d_sm[k] = dy * kDZ + dz;
-    d_y[k] = tl.y0 - 1 + dy;
+    const int y = tl.y0 - 1 + dy;
+    d_y[k] = y + d.y_off;
     d_z[k] = tl.z0 - 1 + dz;
-    if (i >= kDY * kDW || d_y[k] < 0 || d_y[k] >= d.ny || d_z[k] < 0 || d_z[k] >= d.nz)
+    if (i >= kDY * kDW || y < d.p_lo || y >= d.p_hi || d_z[k] < 0 || d_z[k] >= d.nz)
       d_y[k] = -1;
-    d_inner[k] = __all_sync(0xffffffffu, d_y[k] >= 0 && inner(d_y[k], d.ny) &&
+    d_inner[k] = __all_sync(0xffffffffu, d_y[k] >= 0 && inner(d_y[k], d.y_global) &&
                                              inner(d_z[k], d.nz));
   }
-  // Its voxel, and whether its warp's voxels are all inside the faces.
+  // Its voxel (gy: its global column), and whether its warp's voxels are all
+  // inside the faces.
   const int warp = tid >> 5, lane = tid & 31;
   const int ty = warp / (kTZ / kWarpZ) * kWarpY + lane / kWarpZ;
   const int tz = warp % (kTZ / kWarpZ) * kWarpZ + lane % kWarpZ;
-  const int vy = tl.y0 + ty, vz = tl.z0 + tz;
-  const bool v_ok = vy < d.ny && vz < d.nz;
-  const bool v_inner = __all_sync(0xffffffffu, v_ok && inner(vy, d.ny) && inner(vz, d.nz));
+  const int vy = tl.y0 + ty, vz = tl.z0 + tz, gy = vy + d.y_off;
+  const bool v_ok = vy < pl.y_end && vz < d.nz;
+  const bool v_inner =
+      __all_sync(0xffffffffu, v_ok && inner(gy, d.y_global) && inner(vz, d.nz));
+  // Whether its column is the window's (the energies').
+  const bool y_counted = vy >= d.w_ylo && vy < d.w_ylo + d.w_ylen;
   const int ii = (ty + 2) * kIZ + tz + kIZ0, di = (ty + 1) * kDZ + tz + 1;
   const int v_off = vy * d.nz + vz;
 
@@ -358,12 +408,12 @@ __global__ void __launch_bounds__(kThreads, 3)
     const int j = d_sm[k] + kIZ + kIZ0 - 1, y = d_y[k], z = d_z[k];  // its input index
     const int ga = a + d.x_off;
     out[0] = dnp3<E>(m[j], c[j], pp[j], ga, d.x_global);
-    out[kDPlane] = dnp3<E>(c[j - kIZ], c[j], c[j + kIZ], y, d.ny);
+    out[kDPlane] = dnp3<E>(c[j - kIZ], c[j], c[j + kIZ], y, d.y_global);
     out[2 * kDPlane] = dnp3<E>(c[j - 1], c[j], c[j + 1], z, d.nz);
     if (need_div) {
       const int j0 = kIPlane + j, j1 = 2 * kIPlane + j, j2 = 3 * kIPlane + j;
       float s = dnp3<E>(m[j0], c[j0], pp[j0], ga, d.x_global);
-      s = s + dnp3<E>(c[j1 - kIZ], c[j1], c[j1 + kIZ], y, d.ny);
+      s = s + dnp3<E>(c[j1 - kIZ], c[j1], c[j1 + kIZ], y, d.y_global);
       s = s + dnp3<E>(c[j2 - 1], c[j2], c[j2 + 1], z, d.nz);
       out[3 * kDPlane] = s;
     }
@@ -377,9 +427,9 @@ __global__ void __launch_bounds__(kThreads, 3)
     const float *gm = dv_slot(x - 1), *gc = dv_slot(x), *gp = dv_slot(x + 1);
     const float wv = c[ii];
     const bool band = fabsf(cv) < kBand || fabsf(wv) < kBand;
-    // Global row, and whether the row is the window's (the energies'):
+    // Global row, and whether the voxel is the window's (the energies'):
     const int gx = x + d.x_off;
-    const bool counted = x >= d.w_lo && x < d.w_lo + d.w_len;
+    const bool counted = y_counted && x >= d.w_lo && x < d.w_lo + d.w_len;
     float diff = wv - cv;
     if (p.band_union && !band) diff = 0.0f;
     float grad[3], total[3];
@@ -396,7 +446,7 @@ __global__ void __launch_bounds__(kThreads, 3)
       for (int i = 0; i < 3; ++i) {
         const int f = (1 + i) * kIPlane + ii;
         jac[i][0] = dnp3<E>(m[f], c[f], pp[f], gx, d.x_global);
-        jac[i][1] = dnp3<E>(c[f - kIZ], c[f], c[f + kIZ], vy, d.ny);
+        jac[i][1] = dnp3<E>(c[f - kIZ], c[f], c[f + kIZ], gy, d.y_global);
         jac[i][2] = dnp3<E>(c[f - 1], c[f], c[f + 1], vz, d.nz);
       }
       float sq = 0.0f, cross = 0.0f;
@@ -411,13 +461,13 @@ __global__ void __launch_bounds__(kThreads, 3)
       for (int k = 0; k < 3; ++k) {
         const int f = (1 + k) * kIPlane + ii;
         float lap = d2rep3<E>(m[f], c[f], pp[f], gx, d.x_global);
-        lap = lap + d2rep3<E>(c[f - kIZ], c[f], c[f + kIZ], vy, d.ny);
+        lap = lap + d2rep3<E>(c[f - kIZ], c[f], c[f + kIZ], gy, d.y_global);
         lap = lap + d2rep3<E>(c[f - 1], c[f], c[f + 1], vz, d.nz);
         float gs = -lap;
         if (p.killing) {
           const int q = 3 * kDPlane + di;
           const float gd = k == 0   ? dnp3<E>(gm[q], gc[q], gp[q], gx, d.x_global)
-                           : k == 1 ? dnp3<E>(gc[q - kDZ], gc[q], gc[q + kDZ], vy, d.ny)
+                           : k == 1 ? dnp3<E>(gc[q - kDZ], gc[q], gc[q + kDZ], gy, d.y_global)
                                     : dnp3<E>(gc[q - 1], gc[q], gc[q + 1], vz, d.nz);
           gs = -(1.0f + p.gamma) * lap - gd;
         }
@@ -441,7 +491,7 @@ __global__ void __launch_bounds__(kThreads, 3)
         const int q = i * kDPlane + di;
         float hg = 0.0f;
         hg += dnp3<E>(gm[q], gc[q], gp[q], gx, d.x_global) * grad[0];
-        hg += dnp3<E>(gc[q - kDZ], gc[q], gc[q + kDZ], vy, d.ny) * grad[1];
+        hg += dnp3<E>(gc[q - kDZ], gc[q], gc[q + kDZ], gy, d.y_global) * grad[1];
         hg += dnp3<E>(gc[q - 1], gc[q], gc[q + 1], vz, d.nz) * grad[2];
         total[i] = total[i] + p.w_ls * (scale * hg);
       }
@@ -559,24 +609,25 @@ __global__ void __launch_bounds__(kThreads)
   const int tid = threadIdx.x, ty = tid / kLanesZ, tz = tid % kLanesZ * kVec;
   const Tile tl = tile_of(pl, kSY, kSZ);
   const int y = tl.y0 + ty, z = tl.z0 + tz;
+  const bool y_ok = y < pl.y_end;  // a column of the window
   const float neg_rate = -__ldg(rate);
   double sum[1] = {0.0};
   float mx[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // max|du|, max|u'_0..2|
 
-  // u at this thread's voxels of plane x (0 outside the volume).
+  // u at this thread's voxels of plane x (0 outside the window).
   const auto read_u = [&](int x, float (&uv)[3][kVec]) {
     const int64_t v0 = (int64_t)x * d.plane + y * d.nz + z;
 #pragma unroll
     for (int e = 0; e < kVec; ++e)
 #pragma unroll
       for (int k = 0; k < 3; ++k)
-        uv[k][e] = y < d.ny && z + e < d.nz ? u[k * d.n + v0 + e] : 0.0f;
+        uv[k][e] = y_ok && z + e < d.nz ? u[k * d.n + v0 + e] : 0.0f;
   };
-  // u' (its row x - w_lo) and the statistics at this thread's voxels of
-  // plane x.
+  // u' (its row x - w_lo, column y - w_ylo) and the statistics at this
+  // thread's voxels of plane x.
   const auto update = [&](int x, const float (&gf)[3][kVec], const float (&uv)[3][kVec]) {
-    if (y >= d.ny) return;
-    const int64_t v0 = (int64_t)(x - d.w_lo) * d.plane + y * d.nz + z;
+    if (!y_ok) return;
+    const int64_t v0 = (int64_t)(x - d.w_lo) * d.out_plane + (y - d.w_ylo) * d.nz + z;
 #pragma unroll
     for (int e = 0; e < kVec; ++e) {
       if (z + e >= d.nz) break;
@@ -600,7 +651,7 @@ __global__ void __launch_bounds__(kThreads)
       const int64_t v0 = (int64_t)x * d.plane + y * d.nz + z;
 #pragma unroll
       for (int e = 0; e < kVec; ++e)
-        if (y < d.ny && z + e < d.nz) {
+        if (y_ok && z + e < d.nz) {
 #pragma unroll
           for (int k = 0; k < 3; ++k) gf[k][e] = g[k * d.n + v0 + e];
         }
@@ -609,9 +660,9 @@ __global__ void __launch_bounds__(kThreads)
     }
   } else {
     // Staging copies: shared index (-1: none) and in-plane offset (-1:
-    // outside the volume, zero-filled). Where z is a multiple of 4 a row is
-    // IZ / 4 copies of 16 bytes, each inside the volume or outside it; else
-    // IZ of 4.
+    // outside the volume, zero-filled; a column inside it lies in the
+    // input). Where z is a multiple of 4 a row is IZ / 4 copies of 16 bytes,
+    // each inside the volume or outside it; else IZ of 4.
     const bool vec = d.nz % 4 == 0;
     const int per_row = vec ? IZ / 4 : IZ, width = vec ? 4 : 1;
     int in_sm[InPerThread], in_off[InPerThread];
@@ -620,10 +671,12 @@ __global__ void __launch_bounds__(kThreads)
       const int i = tid + k * kThreads, iy = i / per_row, iz = i % per_row * width;
       const int gy = tl.y0 - R + iy, gz = tl.z0 - H + iz;
       in_sm[k] = iy < IY ? iy * IZ + iz : -1;
-      in_off[k] = gy >= 0 && gy < d.ny && gz >= 0 && gz < d.nz ? gy * d.nz + gz : -1;
+      in_off[k] = gy >= d.p_lo && gy < d.p_hi && gz >= 0 && gz < d.nz ? gy * d.nz + gz : -1;
     }
     const int q0 = tl.x0 - R, q1 = tl.x1 + R;  // the input planes [q0, q1)
-    const auto inside = [&](int q) { return q >= d.q_lo && q < d.q_hi; };
+    // The planes the x pass reads (the others add 0): inside the volume, or
+    // under conv_local_x the window's.
+    const auto inside = [&](int q) { return q >= d.c_lo && q < d.c_hi; };
     const auto g_slot = [&](int q) { return in + (q - q0) % kGSlots * 3 * IPlane; };
     const auto load = [&](int q) {
       if (q >= q1 || !inside(q)) return;
@@ -793,55 +846,67 @@ cudaError_t launch_update(const float* g, const float* u, const float* rate, flo
   return cudaGetLastError();
 }
 
-// The shape, the taps and the x window: the window lies inside the input
-// and the volume, and the input holds every row inside the volume within
-// 2 + R of it.
-bool args_ok(int nx, int ny, int nz, int ntaps, int x_off, int x_global, int x_lo, int x_len) {
-  if (!(nx >= 1 && ny >= 1 && nz >= 1 && (int64_t)ny * nz <= INT32_MAX && ntaps >= 0 &&
-        ntaps <= kMaxTaps && (ntaps == 0 || ntaps % 2 == 1)))
+// One axis's window lies inside the input of n slices and the volume, and
+// the input holds every slice inside the volume within h of it.
+bool window_ok(int n, int h, int off, int global, int lo, int len) {
+  const int64_t l = lo, hi = (int64_t)lo + len;
+  return global >= 1 && len >= 1 && l >= 0 && hi <= n && l + off >= 0 && hi + off <= global &&
+         std::max<int64_t>(l - h, -(int64_t)off) >= 0 &&
+         std::min<int64_t>(hi + h, (int64_t)global - off) <= n;
+}
+
+// The shape, the taps and both windows, with the halos 2 + R (x: 2 under
+// conv_local_x).
+bool args_ok(const Args& a) {
+  if (!(a.nx >= 1 && a.ny >= 1 && a.nz >= 1 && (int64_t)a.ny * a.nz <= INT32_MAX &&
+        a.ntaps >= 0 && a.ntaps <= kMaxTaps && (a.ntaps == 0 || a.ntaps % 2 == 1)))
     return false;
-  const int64_t h = 2 + ntaps / 2, lo = x_lo, hi = (int64_t)x_lo + x_len;
-  return x_global >= 1 && x_len >= 1 && lo >= 0 && hi <= nx && lo + x_off >= 0 &&
-         hi + x_off <= x_global && std::max<int64_t>(lo - h, -(int64_t)x_off) >= 0 &&
-         std::min<int64_t>(hi + h, (int64_t)x_global - x_off) <= nx;
+  const int h = 2 + a.ntaps / 2;
+  return window_ok(a.nx, a.conv_local_x ? 2 : h, a.x_off, a.x_global, a.x_lo, a.x_len) &&
+         window_ok(a.ny, h, a.y_off, a.y_global, a.y_lo, a.y_len);
 }
 
 }  // namespace
 
 // Doubles the caller must provide in `partial` for a volume of this shape,
-// tap count and x window (0 for arguments the kernels refuse, -1 if the CUDA
+// tap count and windows (0 for arguments the kernels refuse, -1 if the CUDA
 // runtime could not be asked for the grid).
 extern "C" int64_t lsf_fused_partials_len(int nx, int ny, int nz, int ntaps, int x_offset,
-                                          int x_global, int x_lo, int x_len) {
-  if (!args_ok(nx, ny, nz, ntaps, x_offset, x_global, x_lo, x_len)) return 0;
+                                          int x_global, int x_lo, int x_len, int y_offset,
+                                          int y_global, int y_lo, int y_len, int conv_local_x) {
+  const Args a{nx, ny, nz, ntaps, x_offset, x_global, x_lo, x_len, y_offset, y_global, y_lo,
+               y_len, conv_local_x != 0};
+  if (!args_ok(a)) return 0;
   const int tw = terms_wave(), uw = update_wave(ntaps / 2);
   if (tw < 0 || uw < 0) return -1;
-  const Dims d = dims(nx, ny, nz, x_offset, x_global, x_lo, x_len);
-  const int r = ntaps / 2;
-  return (int64_t)plan(d, g_begin(d, r), g_end(d, r), kTY, kTZ, tw).blocks * kTermCols +
-         (int64_t)plan(d, x_lo, x_lo + x_len, kSY, kSZ, uw).blocks * kUpdateCols;
+  const Dims d = dims(a);
+  return (int64_t)terms_plan(d, ntaps / 2, tw).blocks * kTermCols +
+         (int64_t)update_plan(d, uw).blocks * kUpdateCols;
 }
 
 // All pointers are device pointers except `taps` (host, ntaps floats).
 // warped, canonical (nx, ny, nz) and warp_cm (3, nx, ny, nz) are the input
-// block; new_warp is (3, x_len, ny, nz), the window's rows (see the x window
-// above: x_offset = x_lo = 0, x_len = x_global = nx for the whole volume).
-// Scratch: g 3n floats, partial lsf_fused_partials_len doubles, ticket one
-// unsigned that is 0 before the call and is 0 again after it (the kernels
-// reset it), not shared with a call that may run at the same time. active:
-// null, or a device byte that, when 0, makes both kernels return at once
-// (new_warp and stats unwritten). The launch is capture-safe once this
-// shape's occupancy is cached (a call before the capture): the taps go by
-// value in a struct, nothing is allocated. Returns a cudaError_t.
+// block; new_warp is (3, x_len, y_len, nz), the windows' voxels (see the
+// windows above: offsets and lo 0, len and global the input's extents for
+// the whole volume). Scratch: g 3n floats, partial lsf_fused_partials_len
+// doubles, ticket one unsigned that is 0 before the call and is 0 again
+// after it (the kernels reset it), not shared with a call that may run at
+// the same time. active: null, or a device byte that, when 0, makes both
+// kernels return at once (new_warp and stats unwritten). The launch is
+// capture-safe once this shape's occupancy is cached (a call before the
+// capture): the taps go by value in a struct, nothing is allocated. Returns
+// a cudaError_t.
 extern "C" int lsf_fused_gradient_update(
     const float* warped, const float* canonical, const float* warp_cm,
     const float* rate, float* new_warp, float* stats, float* g, double* partial,
     unsigned* ticket, const unsigned char* active, int nx, int ny, int nz, int x_offset,
-    int x_global, int x_lo, int x_len, float w_data, float w_smooth, float w_ls, int killing,
-    float gamma, int band_union, const float* taps, int ntaps, void* stream_ptr) {
-  if (!args_ok(nx, ny, nz, ntaps, x_offset, x_global, x_lo, x_len) || !warped || !canonical ||
-      !warp_cm || !rate ||
-      !new_warp || !stats || !g || !partial || !ticket || (ntaps && !taps))
+    int x_global, int x_lo, int x_len, int y_offset, int y_global, int y_lo, int y_len,
+    int conv_local_x, float w_data, float w_smooth, float w_ls, int killing, float gamma,
+    int band_union, const float* taps, int ntaps, void* stream_ptr) {
+  const Args a{nx, ny, nz, ntaps, x_offset, x_global, x_lo, x_len, y_offset, y_global, y_lo,
+               y_len, conv_local_x != 0};
+  if (!args_ok(a) || !warped || !canonical || !warp_cm || !rate || !new_warp || !stats ||
+      !g || !partial || !ticket || (ntaps && !taps))
     return (int)cudaErrorInvalidValue;
   const int tw = terms_wave(), uw = update_wave(ntaps / 2);
   if (tw < 0 || uw < 0) {
@@ -849,11 +914,9 @@ extern "C" int lsf_fused_gradient_update(
     return (int)(err != cudaSuccess ? err : cudaErrorUnknown);
   }
   const cudaStream_t s = (cudaStream_t)stream_ptr;
-  const Dims d = dims(nx, ny, nz, x_offset, x_global, x_lo, x_len);
+  const Dims d = dims(a);
   const TermParams p{w_data, w_smooth, w_ls, gamma, killing, band_union};
-  const int r = ntaps / 2;
-  const Plan tp = plan(d, g_begin(d, r), g_end(d, r), kTY, kTZ, tw),
-             up = plan(d, x_lo, x_lo + x_len, kSY, kSZ, uw);
+  const Plan tp = terms_plan(d, ntaps / 2, tw), up = update_plan(d, uw);
   terms_kernel<<<tp.blocks, kThreads, kTermsSmem, s>>>(warped, canonical, warp_cm, g, partial,
                                                       d, p, tp, active);
   cudaError_t err = cudaGetLastError();

@@ -49,10 +49,21 @@ from levelsetfusion_tpu_torch.ops.kernels.fused_gradient import to_component_maj
 from levelsetfusion_tpu_torch.ops.kernels.resample import warp_field_cm
 from levelsetfusion_tpu_torch.ops.tsdf import GenerationMethod, generate_tsdf_3d
 from levelsetfusion_tpu_torch.parallel.halo import psum_axis
-from levelsetfusion_tpu_torch.parallel.mesh import Group, block_rows, gather_field
+from levelsetfusion_tpu_torch.parallel.hierarchical import solve_hierarchical_sharded
+from levelsetfusion_tpu_torch.parallel.mesh import (
+    Group,
+    Mesh2D,
+    block_index,
+    gather_field,
+    shard_field,
+)
 from levelsetfusion_tpu_torch.parallel.sharded import (
     solve_single_level_sharded,
     warp_field_sharded,
+)
+from levelsetfusion_tpu_torch.parallel.sharded2d import (
+    solve_single_level_sharded2d,
+    warp_field_sharded2d,
 )
 from levelsetfusion_tpu_torch.utils.debug import check_displacement_contract
 
@@ -275,19 +286,21 @@ def fuse_sequence(
     return FusionResult(state=state, reports=reports, final_warp=warp)
 
 
-def _block_grid(grid: GridSpec, group: Group) -> GridSpec:
-    """The rank's rows of ``grid``: the same voxel centres, so its TSDF is
-    the rank's block of the whole grid's."""
-    start, stop = block_rows(grid.shape[0], group.rank, group.world)
-    return dataclasses.replace(grid, shape=(stop - start, *grid.shape[1:]),
-                               offset=(grid.offset[0] + start, *grid.offset[1:]))
+def _block_grid(grid: GridSpec, group) -> GridSpec:
+    """The rank's block of ``grid`` (rows on a ``Group``, rows and columns
+    on a ``Mesh2D``): the same voxel centres, so its TSDF is the rank's
+    block of the whole grid's."""
+    cuts = block_index(grid.shape, group)
+    return dataclasses.replace(
+        grid, shape=tuple(stop - start for start, stop in cuts),
+        offset=tuple(o + start for o, (start, _) in zip(grid.offset, cuts)))
 
 
-def blend_halo(max_u0: float, live_halo: int) -> int:
-    """The sharded blend's live halo, JAX's sizing: the rows a gather reads
-    past a block's face, ceil(max |u| along axis 0) + 2, rounded up to a
-    multiple of 4, and at least ``live_halo``."""
-    return max(live_halo, (int(np.ceil(max_u0)) + 2 + 3) // 4 * 4)
+def blend_halo(max_u: float, live_halo: int) -> int:
+    """The sharded blend's live halo, JAX's sizing: the slices a gather
+    reads past a block's face, ceil(max |u| along the sharded axes) + 2,
+    rounded up to a multiple of 4, and at least ``live_halo``."""
+    return max(live_halo, (int(np.ceil(max_u)) + 2 + 3) // 4 * 4)
 
 
 def fuse_sequence_sharded(
@@ -295,73 +308,106 @@ def fuse_sequence_sharded(
     camera: PinholeCamera,
     config: FusionPipelineConfig,
     *,
-    group: Group,
+    group: Group | Mesh2D,
     mesh_axes: tuple | None = None,
     live_halo: int = 8,
     frame_callback: Callable[[int, FusionState, torch.Tensor], None] | None = None,
 ) -> FusionResult:
-    """Sharded twin of ``fuse_sequence``, flat, on the 1D group: the state,
-    each frame's live TSDF and the warp stay the rank's blocks (rows of axis
-    0) for the whole sequence.
+    """Sharded twin of ``fuse_sequence``: the state, each frame's live TSDF
+    and the warp stay the rank's blocks for the whole sequence, rows of axis
+    0 on a ``Group``, or with ``mesh_axes=("x", "y")`` and a ``Mesh2D`` as
+    ``group`` rows and columns (axes 0 and 1).
 
-    - Each rank generates the TSDF of its own rows.
-    - The solve is ``parallel.sharded.solve_single_level_sharded``,
-      warm-started per frame (``config.warm_start``).
-    - The blend's resample is ``warp_field_sharded`` with its halo sized from
-      the frame's measured max |u| along axis 0 (``blend_halo``). Past one
-      block it takes JAX's
-      exact fallback: every rank gathers the live field and the warp
+    - Each rank generates the TSDF of its own block.
+    - The solve: ``parallel.sharded.solve_single_level_sharded`` (1D),
+      ``parallel.sharded2d.solve_single_level_sharded2d`` (2D), or with
+      ``config.hierarchical`` (1D only, as JAX's) the coarse-to-fine
+      ``parallel.hierarchical.solve_hierarchical_sharded`` on the gathered
+      fields, its fine levels sharded with halos sized from the measured
+      coarse motion; warm-started per frame (``config.warm_start``).
+    - The blend's resample is ``warp_field_sharded`` (``warp_field_sharded2d``)
+      with its halo sized from the frame's measured max |u| along the
+      sharded axes (``blend_halo``). Past one block it takes JAX's exact
+      fallback: every rank gathers the live field and the warp
       (``all_gather``) and resamples the whole volume (B1 on CUDA).
     - The blend is elementwise on the blocks.
-    - The report's ``contract_violations`` are the solve's live-halo ones.
+    - The report's ``contract_violations`` are the solve's live-halo ones
+      on the sharded axes (per level against each level's halo in the
+      hierarchical solve).
 
     Each frame reads the host twice, as JAX's does: the solve's energy and
     max |u| (they size the blend's halo), then the band count after the
     blend. The result's state and final warp are the rank's blocks.
-    ``frame_callback`` gets the blocks. ``hierarchical`` and a 2D
-    ``mesh_axes`` are not ported yet (ROADMAP A12).
+    ``frame_callback`` gets the blocks.
     """
-    if config.hierarchical or (mesh_axes is not None and len(mesh_axes) != 1):
-        raise NotImplementedError(
-            "the hierarchical and the 2D-mesh sharded fusion are not ported yet (ROADMAP A12)"
-        )
+    two_d = mesh_axes is not None and len(mesh_axes) == 2
+    if two_d and config.hierarchical:
+        raise ValueError("hierarchical sharded fusion runs on the 1D mesh; set "
+                         "hierarchical=False for the 2D voxel-block mesh")
+    if two_d != isinstance(group, Mesh2D):
+        raise ValueError(f"mesh_axes {mesh_axes} need a {'Mesh2D' if two_d else 'Group'}")
+    axes = (0, 1) if two_d else (0,)
     device = group.device
     block = _block_grid(config.grid, group)
-    n_local = block.shape[0]
     frame_iter = iter(frames)
     state = init_state(_tsdf(next(frame_iter), camera, config, device, block))
     warp = torch.zeros((*block.shape, block.dim), dtype=torch.float32, device=device)
     solver = config.solver
     reports: List[FrameReport] = []
+    loops: Dict[tuple, SolveLoop] = {}
     for t, depth in enumerate(frame_iter, start=1):
         live = _tsdf(depth, camera, config, device, block)
-        res = solve_single_level_sharded(
-            state.canonical, live, solver, group=group, live_halo=live_halo,
-            initial_warp=warp if config.warm_start else None)
-        warp = res.warp
+        init_warp = warp if config.warm_start else None
+        level_halos = None
+        if config.hierarchical:
+            hres = solve_hierarchical_sharded(
+                gather_field(state.canonical, group), gather_field(live, group),
+                HierarchicalParams(levels=config.levels, base=solver), group=group,
+                min_live_halo=live_halo, loops=loops,
+                initial_warp=None if init_warp is None else gather_field(init_warp, group))
+            warp, res, level_halos = shard_field(hres.warp, group), hres.level_results[-1], \
+                hres.level_halos
+        elif two_d:
+            res = solve_single_level_sharded2d(state.canonical, live, solver, mesh=group,
+                                               live_halo=live_halo, initial_warp=init_warp)
+            warp = res.warp
+        else:
+            res = solve_single_level_sharded(state.canonical, live, solver, group=group,
+                                             live_halo=live_halo, initial_warp=init_warp)
+            warp = res.warp
         energy = res.telemetry.data_energy[max(res.iterations - 1, 0)]
         energy, *md = torch.cat([energy.view(1), res.max_abs_displacement]).tolist()
-        halo = blend_halo(md[0], live_halo)
-        if halo > n_local:
+        halo = blend_halo(max(md[a] for a in axes), live_halo)
+        if halo > min(block.shape[a] for a in axes):
             # JAX's exact gather fallback: the whole volume on every rank.
-            start = group.rank * n_local
+            cuts = block_index(config.grid.shape, group)
             warped = warp_field_cm(
-                gather_field(live, group),
-                to_component_major(gather_field(warp, group)),
-            ).narrow(0, start, n_local)
+                gather_field(live, group), to_component_major(gather_field(warp, group)))
+            for a in axes:
+                warped = warped.narrow(a, cuts[a][0], block.shape[a])
+            warped = warped.contiguous()
+        elif two_d:
+            warped = warp_field_sharded2d(live, warp, group, halo)
         else:
             warped = warp_field_sharded(live, warp, group, halo)
         state = blend(state, warped)
         band = psum_axis(torch.count_nonzero(
             torch.abs(state.canonical) < 1.0 - TRUNCATION_EPS).view(1), group)
+        if level_halos is not None:
+            violations = [v for li, (lres, lh) in enumerate(zip(hres.level_results, level_halos))
+                          if lh is not None
+                          for v in check_displacement_contract(
+                              lres, live_halo=lh, name=f"sharded fusion frame {t} level {li}")]
+        else:
+            violations = check_displacement_contract(
+                res, live_halo=live_halo, sharded_axes=axes, name=f"sharded fusion frame {t}")
         reports.append(FrameReport(
             frame_index=t,
             solver_iterations=res.iterations,
             final_data_energy=energy,
             band_voxels=int(band),
             max_abs_displacement=tuple(md),
-            contract_violations=tuple(check_displacement_contract(
-                res, live_halo=live_halo, name=f"sharded fusion frame {t}")),
+            contract_violations=tuple(violations),
         ))
         if frame_callback is not None:
             _call_frame_callback(frame_callback, t, state, warp, reports[-1], solver)

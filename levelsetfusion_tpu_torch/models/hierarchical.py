@@ -29,6 +29,10 @@ from levelsetfusion_tpu_torch.ops.tsdf import (
 class HierarchicalResult(NamedTuple):
     warp: torch.Tensor  # finest-level warp
     level_results: List[SolveResult]  # [coarsest, ..., finest]
+    # Sharded solves only (parallel/hierarchical.py): each level's live halo,
+    # an int for a level that ran sharded, None for one that ran replicated
+    # (no halo contract). None on single-device solves.
+    level_halos: tuple | None = None
 
 
 def build_pyramid_from_depth(

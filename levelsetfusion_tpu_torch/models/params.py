@@ -80,12 +80,16 @@ class HierarchicalParams:
         return dataclasses.replace(self, **kw)
 
 
-def solver_params_from_jax(d: Dict[str, Any]) -> SolverParams:
-    """The port's ``SolverParams`` from a JAX ``SolverParams`` given as a dict
-    (``dataclasses.asdict`` or a run's ``config.json``); the TPU-only fields
-    are dropped and ``smoothing_mode`` may be the enum's string value."""
+def solver_params_from_jax(d) -> SolverParams:
+    """The port's ``SolverParams`` from a JAX ``SolverParams``, given as the
+    dataclass itself or as a dict (``dataclasses.asdict`` or a run's
+    ``config.json``); the TPU-only fields are dropped and
+    ``smoothing_mode`` may be the enum's string value."""
+    if dataclasses.is_dataclass(d):
+        d = {f.name: getattr(d, f.name) for f in dataclasses.fields(d)}
     s = {k: v for k, v in d.items() if k not in JAX_ONLY_FIELDS}
     mode = s.get("smoothing_mode")
     if mode is not None and not isinstance(mode, SmoothingMode):
         s["smoothing_mode"] = SmoothingMode(getattr(mode, "value", mode))
     return SolverParams(**s)
+

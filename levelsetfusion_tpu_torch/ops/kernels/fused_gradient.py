@@ -2,10 +2,10 @@
 Sobolev filter, warp update, energies and update statistics, in one call.
 
 Port of the TPU kernel ``levelsetfusion_tpu/ops/pallas/fused_gradient.py::
-fused_gradient_update``, with its x window (``x_offset``, ``x_global``,
-``x_lo``, ``x_len``: the 1D sharded solver's haloed blocks); its y window
-and ``conv_local_x`` (the 2D-mesh and Schur solvers) are not ported yet
-(ROADMAP B-2c). The CUDA version, ``csrc/fused_gradient.cu``,
+fused_gradient_update``, with its x and y windows (``x_offset``,
+``x_global``, ``x_lo``, ``x_len`` and their y twins: the sharded solvers'
+haloed blocks) and ``conv_local_x`` (the Schur solvers' block-local Sobolev
+x pass). The CUDA version, ``csrc/fused_gradient.cu``,
 is two kernels: the terms (to g) over tiles of x planes, then the Sobolev
 filter, the update and the statistics, whose last block folds every block's
 partial sums into the stats. ``fused_gradient_update`` launches them for
@@ -13,7 +13,7 @@ CUDA tensors and uses the plain version ``fused_gradient_update_reference``
 only for CPU tensors.
 
 Returns ``(new_warp_cm, stats)``: the updated component-major warp
-``(3, x_len, Y, Z)`` and a float32 tensor of 8 values in ``STATS_FIELDS`` order
+``(3, x_len, y_len, Z)`` and a float32 tensor of 8 values in ``STATS_FIELDS`` order
 (the order of the TPU module's ``FusedStats``). Energies are weighted, as the
 solver's telemetry records them. For the solve loop of
 ``models/single_level.py`` both versions take ``out=`` (the buffer the new
@@ -68,39 +68,61 @@ def sobolev_taps(size: int, strength: float) -> tuple:
     )
 
 
-class Window(NamedTuple):
-    """B2's x window on an input of X rows: input row q is global row
-    ``x_offset + q`` of ``x_global``; the call updates input rows ``[x_lo,
-    x_lo + x_len)``. ``q_lo``/``q_hi``: the input rows inside the volume."""
+class AxisWindow(NamedTuple):
+    """B2's window along one axis of an input of n slices: input slice q is
+    global slice ``offset + q`` of ``extent``; the call updates input slices
+    ``[lo, lo + length)``. ``q_lo``/``q_hi``: the input slices inside the
+    volume."""
 
-    x_offset: int
-    x_global: int
-    x_lo: int
-    x_len: int
+    offset: int
+    extent: int
+    lo: int
+    length: int
     q_lo: int
     q_hi: int
 
 
-def window(nx, ntaps=0, x_offset=0, x_global=None, x_lo=0, x_len=None) -> Window:
-    """The checked window of a call on ``nx`` input rows (the defaults: the
-    whole volume). The window must lie inside the input and the volume, and
-    the input must hold every row inside the volume within ``2 + R`` of it
-    (R = ntaps // 2; the solvers' ``stencil_halo``): the kernels' contract,
-    which ``csrc/fused_gradient.cu::args_ok`` checks too."""
-    x_global = nx if x_global is None else int(x_global)
-    x_len = nx - x_lo if x_len is None else int(x_len)
-    x_offset, x_lo = int(x_offset), int(x_lo)
-    h = 2 + ntaps // 2
-    q_lo, q_hi = max(0, -x_offset), min(nx, x_global - x_offset)
-    lo, hi = x_lo, x_lo + x_len
-    if not (x_global >= 1 and x_len >= 1 and 0 <= lo and hi <= nx and lo + x_offset >= 0
-            and hi + x_offset <= x_global and max(lo - h, -x_offset) >= 0
-            and min(hi + h, x_global - x_offset) <= nx):
+class Window(NamedTuple):
+    """B2's x and y windows (``y`` spans axis 1 whole for a 2D field)."""
+
+    x: AxisWindow
+    y: AxisWindow
+
+
+def _axis_window(name, n, h, offset, extent, lo, length) -> AxisWindow:
+    extent = n if extent is None else int(extent)
+    length = n - lo if length is None else int(length)
+    offset, lo = int(offset), int(lo)
+    q_lo, q_hi = max(0, -offset), min(n, extent - offset)
+    hi = lo + length
+    if not (extent >= 1 and length >= 1 and 0 <= lo and hi <= n and lo + offset >= 0
+            and hi + offset <= extent and max(lo - h, -offset) >= 0
+            and min(hi + h, extent - offset) <= n):
         raise ValueError(
-            f"bad x window: x_offset={x_offset} x_global={x_global} x_lo={x_lo} "
-            f"x_len={x_len} on {nx} input rows (halo {h} needed inside the volume)"
+            f"bad {name} window: {name}_offset={offset} {name}_global={extent} "
+            f"{name}_lo={lo} {name}_len={length} on {n} input slices (halo {h} needed "
+            "inside the volume)"
         )
-    return Window(x_offset, x_global, x_lo, x_len, q_lo, q_hi)
+    return AxisWindow(offset, extent, lo, length, q_lo, q_hi)
+
+
+def window(shape, ntaps=0, x_offset=0, x_global=None, x_lo=0, x_len=None, y_offset=0,
+           y_global=None, y_lo=0, y_len=None, conv_local_x=False) -> Window:
+    """The checked windows of a call on an input of ``shape`` (the defaults:
+    the whole volume). Each window must lie inside the input and the volume,
+    and the input must hold every slice inside the volume within ``h`` of
+    it: ``2 + R`` (R = ntaps // 2; the solvers' ``stencil_halo``), and along
+    x only 2 under ``conv_local_x``, whose x pass reads nothing beyond the
+    window. The kernels' contract, which ``csrc/fused_gradient.cu::args_ok``
+    checks too. A 2D field takes no y window."""
+    h = 2 + ntaps // 2
+    x = _axis_window("x", shape[0], 2 if conv_local_x else h, x_offset, x_global, x_lo,
+                     x_len)
+    if len(shape) == 2:
+        if (y_offset, y_global, y_lo, y_len) != (0, None, 0, None):
+            raise ValueError("a 2D field takes no y window")
+        return Window(x, AxisWindow(0, shape[1], 0, shape[1], 0, shape[1]))
+    return Window(x, _axis_window("y", shape[1], h, y_offset, y_global, y_lo, y_len))
 
 
 def _window_energies(warped, canonical, wg, jac, *, w_data, w_smooth, w_ls, killing,
@@ -124,30 +146,35 @@ def _window_energies(warped, canonical, wg, jac, *, w_data, w_smooth, w_ls, kill
 def fused_gradient_update_reference(
     warped, canonical, warp_cm, rate, *, w_data=1.0, w_smooth=0.2, w_ls=0.0,
     killing=False, gamma=0.1, band_union=True, taps=(), out=None, active=None,
-    x_offset=0, x_global=None, x_lo=0, x_len=None,
+    x_offset=0, x_global=None, x_lo=0, x_len=None, y_offset=0, y_global=None, y_lo=0,
+    y_len=None, conv_local_x=False,
 ):
     """Plain torch version: the golden term assembly of ``ops/terms.py`` and
     ``ops/sobolev.py`` on an already-warped field, then the update; 2D or 3D
     (``warp_cm`` ``(D, *spatial)``; the stats hold D per-axis maxes).
 
-    With an x window, the assembly runs on the input rows inside the volume
-    (``Window.q_lo``/``q_hi``): where they end at a global edge the golden
-    edge rules and the filter's zero padding are the volume's, and where they
-    end at a block's halo the rows that the edge rules spoil (2 of them, and
-    R more for the filter) lie in the halo, outside the window. The update,
-    the energies and the statistics are then the window's rows."""
-    win = window(warped.shape[0], len(taps), x_offset, x_global, x_lo, x_len)
+    With windows, the assembly runs on the input slices inside the volume
+    (``AxisWindow.q_lo``/``q_hi`` of each axis): where they end at a global
+    edge the golden edge rules and the filter's zero padding are the
+    volume's, and where they end at a block's halo the slices that the edge
+    rules spoil (2 of them, and R more for the filter) lie in the halo,
+    outside the window. Under ``conv_local_x`` the filter's x pass reads g
+    as zero outside the window's rows. The update, the energies and the
+    statistics are then the window's."""
+    win = window(warped.shape, len(taps), x_offset, x_global, x_lo, x_len, y_offset,
+                 y_global, y_lo, y_len, conv_local_x)
     d = warped.ndim
-    out_shape = (d, win.x_len, *warped.shape[1:])
+    out_shape = (d, win.x.length, *((win.y.length,) if d == 3 else ()), *warped.shape[d - 1:])
     if active is not None and not bool(active):
         new = out if out is not None else torch.full(
             out_shape, float("nan"), dtype=warp_cm.dtype, device=warp_cm.device)
         return new, torch.full((5 + d,), float("nan"), dtype=warp_cm.dtype,
                                device=warp_cm.device)
-    sub = slice(win.q_lo, win.q_hi)
-    rows = slice(win.x_lo - win.q_lo, win.x_lo - win.q_lo + win.x_len)
+    axes = (win.x, win.y)[:d - 1]
+    sub = tuple(slice(a.q_lo, a.q_hi) for a in axes)
+    part = tuple(slice(a.lo - a.q_lo, a.lo - a.q_lo + a.length) for a in axes)
     warped, canonical = warped[sub], canonical[sub]
-    warp = from_component_major(warp_cm[:, sub])
+    warp = from_component_major(warp_cm[(slice(None), *sub)])
     wg = derivatives.gradient(warped)
     g_data, _ = terms.data_term(warped, canonical, wg, band_union_only=band_union)
     total = w_data * g_data
@@ -158,14 +185,18 @@ def fused_gradient_update_reference(
         g_ls, _ = terms.level_set_term(warped, wg, canonical, band_union_only=band_union)
         total = total + w_ls * g_ls
     if taps:
+        if conv_local_x:
+            rows = torch.zeros(total.shape[0], dtype=torch.bool, device=total.device)
+            rows[part[0]] = True
+            total = torch.where(rows.view(-1, *(1,) * (d)), total, 0.0)
         kernel = torch.tensor(taps, dtype=warped.dtype, device=warped.device)
         total = sobolev.convolve_with_sobolev_kernel(total, kernel, num_spatial_dims=d)
-    jac = derivatives.vector_jacobian(warp)[rows] if w_smooth else None
+    jac = derivatives.vector_jacobian(warp)[part] if w_smooth else None
     energies = _window_energies(
-        warped[rows], canonical[rows], wg[rows], jac, w_data=w_data, w_smooth=w_smooth,
+        warped[part], canonical[part], wg[part], jac, w_data=w_data, w_smooth=w_smooth,
         w_ls=w_ls, killing=killing, gamma=gamma, band_union=band_union)
-    upd = -rate * total[rows]
-    new_warp = warp[rows] + upd
+    upd = -rate * total[part]
+    new_warp = warp[part] + upd
     ul = torch.sqrt(torch.sum(upd * upd, dim=-1))
     stats = torch.stack([
         *energies, torch.sum(ul), torch.max(ul),
@@ -179,14 +210,16 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # The prototypes of lsf_fused_partials_len and lsf_fused_gradient_update in
 # csrc/fused_gradient.cu, in order (tests/test_torch_fused_gradient.py holds
 # them together).
-# nx, ny, nz, ntaps, x_offset, x_global, x_lo, x_len
-PARTIALS_ARGTYPES = (_I, _I, _I, _I, _I, _I, _I, _I)
+# nx, ny, nz, ntaps, x_offset, x_global, x_lo, x_len, y_offset, y_global, y_lo,
+# y_len, conv_local_x
+PARTIALS_ARGTYPES = (_I,) * 13
 UPDATE_ARGTYPES = (
     _P, _P, _P, _P, _P, _P,  # warped, canonical, warp_cm, rate, new_warp, stats
     _P, _P, _P,  # scratch: g, partial, ticket
     _P,  # active flag (null: always on)
     _I, _I, _I,  # nx, ny, nz
     _I, _I, _I, _I,  # x_offset, x_global, x_lo, x_len
+    _I, _I, _I, _I, _I,  # y_offset, y_global, y_lo, y_len, conv_local_x
     _F, _F, _F, _I, _F, _I,  # w_data, w_smooth, w_ls, killing, gamma, band_union
     ctypes.POINTER(ctypes.c_float), _I,  # taps (host), ntaps
     _P,  # stream
@@ -220,10 +253,11 @@ def _ticket(device: torch.device, shape: tuple, stream: int) -> torch.Tensor:
 def fused_gradient_update(
     warped, canonical, warp_cm, rate, *, w_data=1.0, w_smooth=0.2, w_ls=0.0,
     killing=False, gamma=0.1, band_union=True, taps=(), out=None, active=None,
-    ticket=None, x_offset=0, x_global=None, x_lo=0, x_len=None,
+    ticket=None, x_offset=0, x_global=None, x_lo=0, x_len=None, y_offset=0, y_global=None,
+    y_lo=0, y_len=None, conv_local_x=False,
 ):
-    """One solver step after the resample, over the whole volume or an x
-    window of it.
+    """One solver step after the resample, over the whole volume or a window
+    of it.
 
     Args:
       warped: warped live field ``(X, Y, Z)`` (a block with its halo rows).
@@ -232,7 +266,7 @@ def fused_gradient_update(
       rate: learning rate, a 0-d tensor on the same device (read by the
         kernel from device memory, so an adaptive rate never syncs).
       taps: Sobolev kernel taps (odd count); empty = no filter.
-      out: optional ``(3, x_len, Y, Z)`` buffer for the new warp, not
+      out: optional ``(3, x_len, y_len, Z)`` buffer for the new warp, not
         ``warp_cm``'s (the solve loop ping-pongs two); else a new tensor.
       active: None, or a 0-d bool tensor on the same device; the kernels
         read it and return at once where it is false.
@@ -247,6 +281,13 @@ def fused_gradient_update(
         rows ``[x_lo, x_lo + x_len)`` (default all). The face rules fire at
         global rows 0 and ``x_global - 1`` only, and input rows beyond them
         are never read.
+      y_offset, y_global, y_lo, y_len: the y window, the same along axis 1
+        (columns): the new warp is ``(3, x_len, y_len, Z)``, the y face rules
+        fire at global columns 0 and ``y_global - 1`` only, and the filter's
+        y pass zero-pads beyond them.
+      conv_local_x: the filter's x pass reads g as zero outside the window's
+        rows (the Schur solvers' block-local filter), so the input needs only
+        2 halo rows inside the volume.
 
     All tensors float32, contiguous, one device. CUDA tensors run the
     kernels, CPU tensors the plain version. The scratch (``g``, the
@@ -266,8 +307,9 @@ def fused_gradient_update(
         raise TypeError("rate must be a 0-d tensor")
     if taps and (len(taps) % 2 == 0 or len(taps) > MAX_TAPS):
         raise ValueError(f"taps must be an odd count <= {MAX_TAPS}, got {len(taps)}")
-    win = window(warped.shape[0], len(taps), x_offset, x_global, x_lo, x_len)
-    out_shape = (3, win.x_len, *warped.shape[1:])
+    win = window(warped.shape, len(taps), x_offset, x_global, x_lo, x_len, y_offset,
+                 y_global, y_lo, y_len, conv_local_x)
+    out_shape = (3, win.x.length, win.y.length, warped.shape[2])
     device = warped.device
     for name, t in (("warped", warped), ("canonical", canonical),
                     ("warp_cm", warp_cm), ("rate", rate)):
@@ -283,7 +325,9 @@ def fused_gradient_update(
                          f"{tuple(ticket.shape)} on {ticket.device}")
     kw = dict(w_data=w_data, w_smooth=w_smooth, w_ls=w_ls, killing=killing,
               gamma=gamma, band_union=band_union, taps=taps, out=out, active=active,
-              x_offset=win.x_offset, x_global=win.x_global, x_lo=win.x_lo, x_len=win.x_len)
+              x_offset=win.x.offset, x_global=win.x.extent, x_lo=win.x.lo, x_len=win.x.length,
+              y_offset=win.y.offset, y_global=win.y.extent, y_lo=win.y.lo, y_len=win.y.length,
+              conv_local_x=conv_local_x)
     if device.type == "cpu":
         return fused_gradient_update_reference(warped, canonical, warp_cm, rate, **kw)
     if device.type != "cuda":
@@ -295,7 +339,7 @@ def fused_gradient_update(
                                                        device=device)
     stats = torch.empty(8, dtype=torch.float32, device=device)
     g = torch.empty((3, nx, ny, nz), dtype=torch.float32, device=device)
-    xw = (win.x_offset, win.x_global, win.x_lo, win.x_len)
+    xw = (*win.x[:4], *win.y[:4], int(bool(conv_local_x)))
     stream = _lib.stream_handle(device)
     if ticket is None:
         ticket = _ticket(device, (nx, ny, nz), stream)

@@ -10,7 +10,8 @@ its own block of the warp back.
   ``live_halo`` rows (+1 beyond the global edges; at most one block): the
   resample reads the haloed copy, so it is exact while every axis-0
   displacement stays within ``live_halo - 2`` rows of a block's face.
-- The **canonical** field is exchanged once with ``stencil_halo`` rows.
+- The **canonical** field is exchanged once with ``stencil_halo`` rows
+  (from two or more ranks away where a block is thinner than that).
 - An iteration is JAX's overlapped fused step: the warp's ``stencil_halo``
   ghost rows (3 components, replicated at the global edges) are sent first
   and waited for only before B2; B1 (``ops/kernels/resample.py``, with
@@ -99,30 +100,49 @@ def solve_single_level_sharded(
     volume's, the same on every rank.
     """
     n_local = canonical.shape[0]
-    nd = group.world
-    x_global = n_local * nd
+    x_global = n_local * group.world
     live_halo = min(live_halo, n_local)  # neighbour-only halos: one block at most
     hx = params.stencil_halo
-    if n_local < hx:
-        raise ValueError(f"local block of {n_local} rows too small for stencil halos of {hx}")
-    d = canonical.ndim
-    device = canonical.device
-    k = max(1, params.termination_check_interval)
-    n_iter = -(-params.max_iterations // k) * k
-    threshold = float(np.float32(params.convergence_threshold))
-    num_voxels = float(x_global * np.prod(canonical.shape[1:]))
+    if n_local < (3 if params.sobolev_smoothing else 2):
+        raise ValueError(f"local block of {n_local} rows too small for stencil halos")
     kw = fused_step_kwargs(params)
     window = dict(x_offset=group.rank * n_local - hx, x_global=x_global, x_lo=hx,
                   x_len=n_local)
-    step = fused_gradient_update if d == 3 else fused_gradient_update_reference
-
+    fused = fused_gradient_update if canonical.ndim == 3 else fused_gradient_update_reference
     live_ext = halo_exchange(live, live_halo, group, fill="truncation")
     canon_ext = halo_exchange(canonical, hx, group, fill="truncation")
+
+    def step(warp, rate):
+        # The warp's ghost rows first; nothing waits for them until B2.
+        pending = halo_exchange(warp, hx, group, fill="replicate", axis=1, wait=False)
+        warped = warp_field_cm(live_ext, warp, x_start=live_halo)
+        warped_ext = halo_exchange(warped, hx, group, fill="truncation")
+        return fused(warped_ext, canon_ext, pending.wait(), rate, **kw, **window)
+
+    return sync_rounds(step, initial_warp_cm(canonical, initial_warp), params, group,
+                       float(x_global * np.prod(canonical.shape[1:])))
+
+
+def initial_warp_cm(canonical: torch.Tensor, initial_warp: torch.Tensor | None):
+    """The component-major warm start (zeros without one)."""
     if initial_warp is None:
-        warp = torch.zeros((d, *canonical.shape), dtype=canonical.dtype, device=device)
-    else:
-        warp = to_component_major(initial_warp)
-    spatial = tuple(range(1, d + 1))
+        return torch.zeros((canonical.ndim, *canonical.shape), dtype=canonical.dtype,
+                           device=canonical.device)
+    return to_component_major(initial_warp)
+
+
+def sync_rounds(step, warp: torch.Tensor, params: SolverParams, group,
+                num_voxels: float) -> SolveResult:
+    """The sync solvers' loop (see the module docstring): ``step(warp,
+    rate)`` gives the next component-major warp block and its 5 + D stats
+    (B2's), in rounds of k iterations with one reduction of each kind over
+    ``group`` (a ``Group`` or a ``Mesh2D``'s both axes) and one host read a
+    round, the telemetry reduced once after the loop."""
+    device = warp.device
+    k = max(1, params.termination_check_interval)
+    n_iter = -(-params.max_iterations // k) * k
+    threshold = float(np.float32(params.convergence_threshold))
+    spatial = tuple(range(1, warp.ndim))
     max_disp = torch.amax(torch.abs(warp), dim=spatial)
     tel = torch.zeros((5, n_iter), dtype=torch.float32, device=device)
     rows = torch.tensor(_TEL_ROWS, device=device)
@@ -132,11 +152,7 @@ def solve_single_level_sharded(
 
     while it < n_iter and max_up >= threshold:
         for _ in range(k):
-            # The warp's ghost rows first; nothing waits for them until B2.
-            pending = halo_exchange(warp, hx, group, fill="replicate", axis=1, wait=False)
-            warped = warp_field_cm(live_ext, warp, x_start=live_halo)
-            warped_ext = halo_exchange(warped, hx, group, fill="truncation")
-            warp, stats = step(warped_ext, canon_ext, pending.wait(), rate, **kw, **window)
+            warp, stats = step(warp, rate)
             tel[:, it] = stats.index_select(0, rows)
             max_disp = torch.maximum(max_disp, stats[5:])
             it += 1

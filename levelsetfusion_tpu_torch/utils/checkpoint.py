@@ -8,7 +8,8 @@ package reads the other's: ``<root>/frame_XXXXXX/state.npz`` (arrays
 array's entry and the caller's extra keys), written to a temporary
 directory and renamed into place.
 
-Sharded arrays (the sharded fusion's blocks, ``group=`` given) are saved as
+Sharded arrays (the sharded fusion's blocks, ``group=`` given: a
+``Group``'s blocks of axis 0, or a ``Mesh2D``'s of axes 0 and 1) are saved as
 shards, as JAX saves a sharded ``jax.Array``: rank r writes its block into
 ``state.p<r>.npz`` under the key ``<name>.p<r>s0``, and rank 0 writes the
 meta, JAX's ``{"sharded": true, "shape", "dtype", "shards": [{"key",
@@ -30,7 +31,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from levelsetfusion_tpu_torch.parallel.mesh import Group, block_rows
+from levelsetfusion_tpu_torch.parallel.mesh import Group, Mesh2D, block_index, full_shape
 
 _FIELDS = ("canonical", "weights", "warp")
 
@@ -39,26 +40,23 @@ def _ckpt_dir(root: str, frame: int) -> str:
     return os.path.join(root, f"frame_{frame:06d}")
 
 
-def _barrier(group: Optional[Group]) -> None:
+def _barrier(group) -> None:
     if group is not None and group.world > 1:
         dist.barrier()
 
 
-def _shard_meta(name: str, block: np.ndarray, group: Group) -> Dict[str, Any]:
-    """The meta of a field whose rank blocks split axis 0."""
-    shape = (block.shape[0] * group.world, *block.shape[1:])
-    shards = []
-    for rank in range(group.world):
-        start, stop = block_rows(shape[0], rank, group.world)
-        shards.append({"key": f"{name}.p{rank}s0",
-                       "index": [[start, stop]] + [[0, s] for s in shape[1:]],
-                       "file": f"state.p{rank}.npz"})
+def _shard_meta(name: str, block: np.ndarray, group) -> Dict[str, Any]:
+    """The meta of a field split into the ranks' blocks."""
+    shape = full_shape(block.shape, group)
+    shards = [{"key": f"{name}.p{rank}s0",
+               "index": [list(cut) for cut in block_index(shape, group, rank)],
+               "file": f"state.p{rank}.npz"} for rank in range(group.world)]
     return {"sharded": True, "shape": list(shape), "dtype": str(block.dtype),
             "shards": shards}
 
 
 def save(root: str, frame: int, state, warp, extra: Optional[Dict[str, Any]] = None,
-         group: Optional[Group] = None) -> str:
+         group: Group | Mesh2D | None = None) -> str:
     """Snapshot a FusionState and warp after fusing frame ``frame``. With
     ``group``, the arrays are the rank's blocks and every rank of the group
     calls this: each writes its shards, rank 0 the meta."""
@@ -114,10 +112,10 @@ def _assemble(path: str, name: str, info: Dict[str, Any]) -> np.ndarray:
 
 
 def load(root: str, frame: Optional[int] = None, device="cpu",
-         group: Optional[Group] = None) -> Tuple[Any, torch.Tensor, Dict[str, Any]]:
+         group: Group | Mesh2D | None = None) -> Tuple[Any, torch.Tensor, Dict[str, Any]]:
     """Load ``(FusionState, warp, meta)`` for ``frame`` (default: the
     latest) onto ``device``: the full arrays, or with ``group`` this rank's
-    blocks along axis 0 (onto the group's device)."""
+    blocks (onto the group's device)."""
     from levelsetfusion_tpu_torch.models.fusion import FusionState
 
     if frame is None:
@@ -137,8 +135,7 @@ def load(root: str, frame: Optional[int] = None, device="cpu",
             with np.load(os.path.join(path, "state.npz")) as data:
                 full = data[name]
         if group is not None:
-            start, stop = block_rows(full.shape[0], group.rank, group.world)
-            full = full[start:stop]
+            full = full[tuple(slice(a, b) for a, b in block_index(full.shape, group))]
         loaded[name] = torch.from_numpy(np.ascontiguousarray(full)).to(
             group.device if group is not None else device)
     state = FusionState(canonical=loaded["canonical"], weights=loaded["weights"])

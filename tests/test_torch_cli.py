@@ -3,8 +3,9 @@ to (24, 24, 16) with 20 iterations through both ``run_experiment``s —
 summary numbers and telemetry.csv rows — config4 (``multi_frame_3d``)
 shrunk to JAX's own test size ((32, 32, 24), 4 frames, 25 iterations, a
 checkpoint every frame) with its resume, config1 and config2 (both
-pyramids) and the two rigid presets at full size, plus the config plumbing
-between the two packages and the CLI's refusals.
+pyramids) and the two rigid presets at full size, every sharded preset
+shrunk on one device, plus the config plumbing between the two packages
+and the CLI's refusals.
 
 Tolerances: iteration count and ``converged`` exactly; telemetry rows and
 energies rtol 2e-4 atol 1e-8 and max |u| rtol 3e-4 (tests/test_fused_gradient.py's solver
@@ -61,6 +62,7 @@ def test_summary_matches_jax(both_runs):
     np.testing.assert_allclose(tsum["final_data_energy"], jsum["final_data_energy"], rtol=2e-4)
     for key in ("residual_before", "residual_after", "residual_reduction"):
         np.testing.assert_allclose(tsum[key], jsum[key], rtol=1e-4)
+    assert tsum["residual_after"] < tsum["residual_before"]
     np.testing.assert_allclose(tsum["max_abs_displacement"], jsum["max_abs_displacement"],
                                rtol=3e-4)
     assert tsum["kernel_launches"] == {"resample": 0, "fused_gradient": 0}  # CPU run
@@ -107,20 +109,53 @@ RUNS = ("config1_2d_pair", "config2_2d_hierarchical", "config3_3d_full_energy",
         "rigid_2d", "rigid_3d")
 
 
-@pytest.mark.parametrize("name", sorted(set(PRESETS) - set(RUNS)))
+SHARDED = ("config5_2dmesh", "config5_512", "config5_hierarchical", "config5_schur2d",
+           "config5_sharded", "config5_sharded_schur")
+SHARDED_SMALL = dict(grid_shape=(32, 24, 16), num_devices=1)
+
+
+@pytest.mark.parametrize("name", sorted(set(PRESETS) - set(RUNS) - set(SHARDED)))
 def test_other_modes_raise(name, tmp_path):
-    """Each solver that is not ported (the 2D-mesh, Schur and hierarchical
-    sharded ones) raises naming its ROADMAP item. The 1D sync presets
-    (config5_sharded, config5_512) run (tests/test_torch_parallel.py), so
-    they are held to raise on a 2D mesh; config4's mode runs, but not from
-    depth PNGs (A9)."""
-    cfg = PRESETS[name]
-    if cfg.mode == "multi_frame_3d":
-        cfg = dataclasses.replace(cfg, dataset="depth_directory", dataset_kwargs={})
-    if cfg.mode == "sharded_3d" and cfg.mesh_shape is None and cfg.solver_kind == "sync":
-        cfg = dataclasses.replace(cfg, mesh_shape=(2, 4))
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
+    """config4's mode runs, but not from depth PNGs: it raises naming its
+    ROADMAP item (A9)."""
+    cfg = dataclasses.replace(PRESETS[name], dataset="depth_directory", dataset_kwargs={})
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         tcli.run_experiment(cfg, str(tmp_path), device="cpu")
+
+
+def _sharded_small(presets, name):
+    cfg = PRESETS[name]
+    # The grid starts 0.304 m from the camera, in the band of the blob pair.
+    kw = dict(SHARDED_SMALL, mesh_shape=(1, 1) if cfg.mesh_shape is not None else None,
+              grid_offset=(-16, -12, round(0.304 / cfg.voxel_size)))
+    cfg = dataclasses.replace(presets[name], **kw)
+    return dataclasses.replace(cfg, solver=cfg.solver.replace(max_iterations=16))
+
+
+@pytest.mark.parametrize("name", SHARDED)
+def test_sharded_presets_match_jax(name, tmp_path):
+    """Every sharded preset, shrunk to (32, 24, 16) and 16 iterations,
+    through both CLIs on one device: the port on a world of 1 (a
+    ``mesh_shape`` (1, 1) where the preset has a mesh), JAX on a mesh of
+    1. Iterations (outer steps, per-level iterations and halos) and
+    ``converged`` exactly, residuals rtol 1e-4, max |u| rtol 3e-4, JAX's
+    summary keys. tests/test_torch_parallel2d.py, test_torch_schur.py and
+    test_torch_hierarchical_sharded.py run them on JAX's meshes."""
+    jsum = jrun(_sharded_small(JPRESETS, name), str(tmp_path / "jax"))
+    tsum = tcli.run_experiment(_sharded_small(PRESETS, name), str(tmp_path / "torch"),
+                               device="cpu")
+    assert set(jsum) - {"fast_paths"} <= set(tsum)
+    assert tsum["devices"] == jsum["devices"] == 1
+    for key in ("iterations", "converged", "contract_violations", "solver_kind",
+                "outer_steps", "inner_per_outer", "iterations_per_level",
+                "level_live_halos"):
+        assert tsum.get(key) == jsum.get(key), key
+    for key in ("residual_before", "residual_after", "residual_reduction"):
+        np.testing.assert_allclose(tsum[key], jsum[key], rtol=1e-4)
+    assert tsum["residual_after"] < tsum["residual_before"]
+    np.testing.assert_allclose(tsum["max_abs_displacement"], jsum["max_abs_displacement"],
+                               rtol=3e-4)
+    assert tsum["kernel_launches"] == {"resample": 0, "fused_gradient": 0}  # CPU run
 
 
 def test_main_list_and_cpu_config_run(tmp_path, capsys):

@@ -18,8 +18,8 @@ CPU mesh and hands its inputs over as numpy arrays).
   rtol 1e-4, weights atol 1e-5, per-frame iterations exactly), a sharded
   checkpoint's round trip, and a checkpoint that JAX wrote sharded read by
   the port, whole and as each rank's block; the hierarchical and 2D-mesh
-  sharded fusion raise naming A12; the live-halo contract's messages are
-  JAX's.
+  sharded fusion on a world of 1 against JAX's on one device; the
+  live-halo contract's messages are JAX's.
 - ``sharded_3d`` through the CLI on a world of 1 against JAX's CLI on 4
   devices (iterations, ``converged``, residuals rtol 1e-4, max |u| rtol
   3e-4, telemetry rows rtol 2e-4 atol 1e-8, JAX's summary keys).
@@ -47,6 +47,7 @@ from levelsetfusion_tpu.models.params import SmoothingMode as JMode
 from levelsetfusion_tpu.models.params import SolverParams as JSolver
 from levelsetfusion_tpu.ops.tsdf import generate_tsdf_3d as jtsdf
 from levelsetfusion_tpu.parallel import make_mesh, solve_single_level_sharded
+from levelsetfusion_tpu.parallel.mesh import make_mesh_2d
 from levelsetfusion_tpu.utils import checkpoint as jcheckpoint
 from levelsetfusion_tpu.utils import debug as jdebug
 from levelsetfusion_tpu.utils.config import PRESETS as JPRESETS
@@ -58,6 +59,7 @@ from levelsetfusion_tpu_torch.models.params import solver_params_from_jax
 from levelsetfusion_tpu_torch.models.single_level import solve_single_level
 from levelsetfusion_tpu_torch.parallel import sharded as tsharded
 from levelsetfusion_tpu_torch.parallel.mesh import close_group, init_group
+from levelsetfusion_tpu_torch.parallel.mesh import make_mesh_2d as tmake_mesh_2d
 from levelsetfusion_tpu_torch.utils import checkpoint
 from levelsetfusion_tpu_torch.utils.config import PRESETS
 from levelsetfusion_tpu_torch.utils.debug import check_displacement_contract
@@ -292,17 +294,39 @@ def test_world_of_one_against_the_single_device_solve(live_halo):
 
 @pytest.mark.parametrize("kw", [dict(hierarchical=True), dict(mesh_axes=("x", "y"))],
                          ids=["hierarchical", "2d_mesh"])
-def test_sharded_fusion_not_ported_raises(kw):
-    """The hierarchical and the 2D-mesh sharded fusion raise naming their
-    ROADMAP item, before any frame is read."""
-    cfg = FusionPipelineConfig(grid=GridSpec(**GRID),
-                               hierarchical=kw.pop("hierarchical", False))
+def test_sharded_fusion_modes_on_a_world_of_one(kw):
+    """The hierarchical and the 2D-mesh sharded fusion on a world of 1 (a
+    (1, 1) mesh) against JAX's on one device: per-frame iterations exactly,
+    the canonical atol 5e-5 rtol 1e-4 (tests/test_fusion_sharded.py's);
+    the hierarchical fusion on the 2D mesh raises as JAX's does.
+    tests/test_torch_hierarchical_sharded.py runs both on JAX's meshes."""
+    kw = dict(kw)
+    hierarchical, two_d = kw.pop("hierarchical", False), "mesh_axes" in kw
+    seq = jsynthetic.snoopy_style_sequence_3d(3, **SEQ)
+    jcfg = jfusion.FusionPipelineConfig(grid=JGrid(**GRID), hierarchical=hierarchical,
+                                        levels=2, solver=JSolver(**FUSION_SOLVER))
+    jres = jfusion.fuse_sequence_sharded(
+        seq.frames, seq.camera, jcfg, live_halo=4, **kw,
+        mesh=make_mesh_2d((1, 1)) if two_d else make_mesh(1))
+    cfg = FusionPipelineConfig(grid=GridSpec(**GRID), hierarchical=hierarchical, levels=2,
+                               solver=solver_params_from_jax(jcfg.solver))
     group = init_group("cpu")
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-            fuse_sequence_sharded(iter(()), None, cfg, group=group, **kw)
+        mesh = tmake_mesh_2d(group, (1, 1)) if two_d else group
+        got = fuse_sequence_sharded(list(seq.frames), seq.camera, cfg, group=mesh,
+                                    live_halo=4, **kw)
+        if two_d:
+            with pytest.raises(ValueError, match="1D mesh"):
+                fuse_sequence_sharded(iter(()), None, dataclasses.replace(
+                    cfg, hierarchical=True), group=mesh, **kw)
     finally:
         close_group(group)
+    assert [r.solver_iterations for r in got.reports] == [
+        r.solver_iterations for r in jres.reports]
+    np.testing.assert_allclose(got.state.canonical, np.asarray(jres.state.canonical),
+                               atol=5e-5, rtol=1e-4)
+    np.testing.assert_allclose(got.final_warp, np.asarray(jres.final_warp), atol=2e-5,
+                               rtol=1e-4)
 
 
 @pytest.mark.parametrize("md0", [5.5, 6.0, 6.25, 11.0])

@@ -1,6 +1,7 @@
 """Runs a function on N gloo ranks, one spawned process each, for the
 parity tests of the port's sharded solvers (tests/test_torch_halo.py,
-tests/test_torch_parallel.py).
+tests/test_torch_parallel.py, tests/test_torch_parallel2d.py,
+tests/test_torch_schur.py, tests/test_torch_distributed_smoke.py).
 
 The ranks meet on a ``FileStore`` under the test's ``tmp_path`` (no TCP
 port, so xdist workers never collide). The test process computes the JAX
@@ -166,3 +167,123 @@ def fusion_cases(group, args):
         "cli": summary,
         "jax_blocks": [_np(t) for t in (*jax_blocks[0], jax_blocks[1])],
     }
+
+
+# --- the 2D-mesh, Schur and hierarchical sharded solvers ----------------------
+
+
+def _solve_case(mesh, payload):
+    """One of the sharded solvers (``payload["solver"]``: ``"sharded"``,
+    ``"sharded2d"``, ``"schur"`` or ``"schur2d"``) on this rank's blocks of
+    the full fields:
+    ``(gathered warp, iterations, converged, telemetry, max|u|)``."""
+    from levelsetfusion_tpu_torch import parallel
+    from levelsetfusion_tpu_torch.parallel.mesh import gather_field, shard_field
+
+    from levelsetfusion_tpu_torch.parallel.mesh import Mesh2D
+
+    solver = getattr(parallel, f"solve_single_level_{payload['solver']}")
+    where = {"mesh": mesh} if isinstance(mesh, Mesh2D) else {"group": mesh}
+    res = solver(shard_field(torch.from_numpy(payload["canonical"]), mesh),
+                 shard_field(torch.from_numpy(payload["live"]), mesh), payload["params"],
+                 **where, **payload.get("kw", {}))
+    return (_np(gather_field(res.warp.contiguous(), mesh)), res.iterations, res.converged,
+            [_np(t) for t in res.telemetry], _np(res.max_abs_displacement))
+
+
+def _warp2d_case(mesh, payload):
+    """``warp_field_sharded2d`` on this rank's blocks, gathered."""
+    from levelsetfusion_tpu_torch.parallel import warp_field_sharded2d
+    from levelsetfusion_tpu_torch.parallel.mesh import gather_field, shard_field
+
+    live, warp = (shard_field(torch.from_numpy(payload[k]), mesh) for k in ("live", "warp"))
+    return _np(gather_field(warp_field_sharded2d(live, warp, mesh, payload["live_halo"]),
+                            mesh))
+
+
+def _hierarchical_case(mesh, payload):
+    """``solve_hierarchical_sharded`` on the whole fields: ``(warp,
+    per-level iterations, level halos, per-level data energies)``."""
+    from levelsetfusion_tpu_torch.parallel import solve_hierarchical_sharded
+
+    warm = payload.get("initial_warp")
+    res = solve_hierarchical_sharded(
+        torch.from_numpy(payload["canonical"]), torch.from_numpy(payload["live"]),
+        payload["params"], group=mesh, **payload.get("kw", {}),
+        initial_warp=None if warm is None else torch.from_numpy(warm))
+    return (_np(res.warp), [r.iterations for r in res.level_results], res.level_halos,
+            [_np(r.telemetry.data_energy) for r in res.level_results])
+
+
+def _fusion_case(mesh, payload):
+    """The sharded fusion on the 1D group or the 2D mesh: its gathered
+    state and final warp, and its reports."""
+    from levelsetfusion_tpu_torch.models.fusion import fuse_sequence_sharded
+    from levelsetfusion_tpu_torch.parallel.mesh import Mesh2D, gather_field
+
+    frames, camera, config, live_halo = payload
+    res = fuse_sequence_sharded(frames, camera, config, group=mesh, live_halo=live_halo,
+                                mesh_axes=("x", "y") if isinstance(mesh, Mesh2D) else None)
+    return ([_np(gather_field(t.contiguous(), mesh)) for t in (*res.state, res.final_warp)],
+            [r._asdict() for r in res.reports])
+
+
+def _cli_case(mesh, payload):
+    """A CLI run on this process group (the config's ``mesh_shape``, if
+    any, the caller's): its summary."""
+    from levelsetfusion_tpu_torch.cli import run_experiment
+
+    cfg, out = payload
+    return run_experiment(cfg, out, device="cpu")
+
+
+def _checkpoint_case(mesh, payload):
+    """A checkpoint of this rank's blocks of ``payload``'s three arrays
+    written on the mesh, then read whole and as this rank's blocks."""
+    from levelsetfusion_tpu_torch.models.fusion import FusionState
+    from levelsetfusion_tpu_torch.parallel.mesh import shard_field
+    from levelsetfusion_tpu_torch.utils import checkpoint
+
+    root, arrays = payload
+    blocks = [shard_field(torch.from_numpy(a), mesh) for a in arrays]
+    checkpoint.save(root, 2, FusionState(*blocks[:2]), blocks[2], {"config": "mesh"},
+                    group=mesh)
+    full, mine = checkpoint.load(root, 2), checkpoint.load(root, 2, group=mesh)
+    return ([_np(t) for t in (*full[0], full[1])], [_np(t) for t in (*mine[0], mine[1])],
+            [_np(t) for t in blocks], full[2])
+
+
+def _reduce_case(mesh, payload):
+    """The reductions along each mesh axis and over both, of this rank's
+    global rank, and the two-axis exchange of a ramp's block."""
+    from levelsetfusion_tpu_torch.parallel import halo
+    from levelsetfusion_tpu_torch.parallel.mesh import shard_field
+
+    r = torch.tensor([float(mesh.rank)])
+    block = shard_field(torch.from_numpy(payload["field"]), mesh)
+    return ({name: [_np(fn(r, g)) for g in (*mesh.axes, mesh)]
+             for name, fn in (("sum", halo.psum_axis), ("max", halo.pmax_axis))},
+            _np(halo.exchange_2d(block, payload["width"], mesh, fill=payload["fill"])),
+            (mesh.axes[0].index, mesh.axes[1].index))
+
+
+def _psum_case(mesh, payload):
+    """A sum over the group of a block of ``payload`` times (rank + 1)."""
+    from levelsetfusion_tpu_torch.parallel.halo import psum_axis
+
+    return float(psum_axis(torch.full(payload, float(mesh.rank + 1)), mesh).sum())
+
+
+_CASES = {"solve": _solve_case, "psum": _psum_case, "warp2d": _warp2d_case,
+          "hierarchical": _hierarchical_case, "fusion": _fusion_case, "cli": _cli_case,
+          "checkpoint": _checkpoint_case, "reduce": _reduce_case}
+
+
+def mesh_cases(group, args):
+    """Each case ``(kind, payload)`` of ``args["cases"]`` on this rank, on
+    the 1D group, or on the 2D mesh of shape ``args["mesh"]`` when given:
+    the results in order."""
+    from levelsetfusion_tpu_torch.parallel.mesh import make_mesh_2d
+
+    mesh = make_mesh_2d(group, args["mesh"]) if args.get("mesh") else group
+    return [_CASES[kind](mesh, payload) for kind, payload in args["cases"]]
