@@ -58,11 +58,22 @@ config5_hierarchical through ``cli.run_experiment`` on a world of 1 (a
 (1, 1) mesh) against the single-device port, and config5_512's problem
 through the 2D-mesh solver, timed with a profiler breakdown beside phase
 23's (26); the hierarchical and the 2D-mesh sharded fusion at 128³ x 8
-frames against ``fuse_sequence`` (27). The kernels line's launches sum the
-main paths' (config3, config4, config1, config2, the hierarchical fusion,
-config5_sharded, config5_512, the sharded fusion and those of phases
-26–27), and B1's and B2's rows give their windowed times at the shard (B2
-also its y window's and conv_local_x's).
+frames against ``fuse_sequence`` (27). Then the last modules: config4
+read from a ``depth_directory`` of 16-bit PNGs through
+``cli.run_experiment`` at 128³ x 8 frames, the decoder that ran, equal to
+the in-memory fusion of the decoded frames, its launches, frames/s from disk
+and from memory in turns, the device's busy share and a stop-and-resume
+(28); the multi-device dry run (``dryrun.py``) on a world of 1, and on 2
+NCCL ranks where two devices are seen (29); config1 through ``cli.main``
+with ``--verbose``, ``--profile`` and ``--check-nans``, ``validate_solve``
+and ``nan_checks`` on a diverging rate against the CPU, and
+``advect_field`` against the CPU (30), each run with the launch counters
+reset just before where it launches kernels. The kernels line's launches
+sum the main paths' (config3, config4, config1, config2, the hierarchical
+fusion, config5_sharded, config5_512, the sharded fusion, those of phases
+26–27, config4 from disk and the dry run), and B1's and B2's rows give
+their windowed times at the shard (B2 also its y window's and
+conv_local_x's).
 Beside each kernel it times, where one exists, one PyTorch call that
 computes the same function (the kernel's yardstick; the port never calls
 it), and it computes each kernel's bound from the run's tensors. Every
@@ -74,6 +85,7 @@ result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -88,7 +100,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from levelsetfusion_tpu_torch import cli
+from levelsetfusion_tpu_torch import cli, dryrun
 from levelsetfusion_tpu_torch.cli import _grid, _pair_2d, _pair_3d, run_experiment
 from levelsetfusion_tpu_torch.core.grid import GridSpec
 from levelsetfusion_tpu_torch.experiments import (
@@ -104,7 +116,7 @@ from levelsetfusion_tpu_torch.experiments import (
     v10_xslab,
 )
 from levelsetfusion_tpu_torch.experiments._timing import SPIN_CYCLES, best_ms
-from levelsetfusion_tpu_torch.io import synthetic
+from levelsetfusion_tpu_torch.io import datasets, depth, native_loader, synthetic
 from levelsetfusion_tpu_torch.models import fusion, single_level
 from levelsetfusion_tpu_torch.models.hierarchical import solve_hierarchical
 from levelsetfusion_tpu_torch.models.params import HierarchicalParams, SmoothingMode, SolverParams
@@ -115,7 +127,7 @@ from levelsetfusion_tpu_torch.models.single_level import (
     solve_single_level,
 )
 from levelsetfusion_tpu_torch.ops import pyramid
-from levelsetfusion_tpu_torch.ops.interpolation import warp_field
+from levelsetfusion_tpu_torch.ops.interpolation import advect_field, warp_field
 from levelsetfusion_tpu_torch.ops.kernels import _lib, fused_gradient, resample
 from levelsetfusion_tpu_torch.ops.kernels.fused_gradient import (
     fused_gradient_update,
@@ -141,6 +153,7 @@ from levelsetfusion_tpu_torch.parallel import (
 )
 from levelsetfusion_tpu_torch.utils import checkpoint
 from levelsetfusion_tpu_torch.utils.config import PRESETS
+from levelsetfusion_tpu_torch.utils.debug import NonFiniteError, nan_checks, validate_solve
 
 PRESET = "config3_3d_full_energy"
 FULL = (128, 128, 128)
@@ -322,11 +335,14 @@ def phase0_card():
 
 def phase1_build():
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
+    with ThreadPoolExecutor(len(LIBRARIES) + 1) as pool:
+        native = pool.submit(native_loader.build)  # the depth-IO library (g++), beside nvcc
         list(pool.map(_lib.build, LIBRARIES))
+        native.result()
     seconds = time.perf_counter() - t0
     parts = [f"{name}: {', '.join(_ptxas(name))}" for name in ("resample", "fused_gradient")]
-    print(f"[1] build of {len(LIBRARIES)} libraries: {seconds:.1f} s; ptxas, registers r / "
+    print(f"[1] build of {len(LIBRARIES)} CUDA libraries and the depth-IO library: "
+          f"{seconds:.1f} s; ptxas, registers r / "
           f"spill bytes B / stack frame bytes B / static shared S: {'; '.join(parts)}")
 
 
@@ -714,6 +730,25 @@ def _frozen_us(canonical, live, params):
             f"a frozen one {frozen:.1f} us")
 
 
+def _device_busy_us(prof):
+    """(µs the device was busy: the union of a ``torch.profiler`` run's
+    device events, {kernel: device µs}); (0, {}) without device events."""
+    from torch.autograd import DeviceType
+
+    per_name, spans = {}, []
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        key = _short_kernel(e.name)
+        per_name[key] = per_name.get(key, 0.0) + e.time_range.elapsed_us()
+        spans.append((e.time_range.start, e.time_range.end))
+    busy, reach = 0.0, float("-inf")
+    for start, end in sorted(spans):
+        busy += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
+    return busy, per_name
+
+
 def _profile_solve(loop, canonical, live, wall_us, label, where=f"config3 solve at {FULL}"):
     """``torch.profiler`` over one solve of ``loop`` (after an unprofiled
     one): device µs per iteration by kernel name and device-busy µs per
@@ -721,7 +756,6 @@ def _profile_solve(loop, canonical, live, wall_us, label, where=f"config3 solve 
     µs per iteration of the rate cell's solve on the same kind of loop
     timed without the profiler (which slows the host); their difference is
     the host gap."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     iters = loop.params.max_iterations
@@ -732,19 +766,9 @@ def _profile_solve(loop, canonical, live, wall_us, label, where=f"config3 solve 
         loop.solve(canonical, live)
         torch.cuda.synchronize()
         profiled_us = (time.perf_counter() - t0) * 1e6
-    per_name, spans = {}, []
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        key = _short_kernel(e.name)
-        per_name[key] = per_name.get(key, 0.0) + e.time_range.elapsed_us()
-        spans.append((e.time_range.start, e.time_range.end))
-    if not spans:
+    busy, per_name = _device_busy_us(prof)
+    if not per_name:
         return f"profiler over a {iters}-iteration {label} solve: no device events (not measured)"
-    busy, reach = 0.0, float("-inf")
-    for start, end in sorted(spans):
-        busy += max(0.0, end - max(start, reach))
-        reach = max(reach, end)
     table = ", ".join(f"{k} {v / iters:.1f}" for k, v in
                       sorted(per_name.items(), key=lambda kv: -kv[1])[:10])
     return (f"profiler over a {iters}-iteration {label} {where}: device busy "
@@ -1425,14 +1449,15 @@ def _fusion_split(ds, pipeline_cfg):
     fusion.fuse_sequence(ds.frames, ds.camera, pipeline_cfg, device="cuda",
                          frame_callback=lambda t, s, w: times.append(time.perf_counter()))
     fps = (len(times) - 1) / (times[-1] - times[0])
-    loop_class, fusion.SolveLoop = fusion.SolveLoop, _TimedLoop
+    # loop_for makes the sequence's loop from single_level's namespace.
+    loop_class, single_level.SolveLoop = single_level.SolveLoop, _TimedLoop
     try:
         _TimedLoop.seconds = []
         stamps = []
         fusion.fuse_sequence(ds.frames, ds.camera, pipeline_cfg, device="cuda", pipelined=False,
                              frame_callback=lambda t, s, w: stamps.append(time.perf_counter()))
     finally:
-        fusion.SolveLoop = loop_class
+        single_level.SolveLoop = loop_class
     # Frame t's solve runs between the callbacks of frames t - 1 and t.
     return fps, stamps[-1] - stamps[0], sum(_TimedLoop.seconds[1:])
 
@@ -1713,11 +1738,12 @@ class _CountingLoop(SolveLoop):
         return res
 
 
-def _fps(ds, config):
-    """fuse_sequence alone: (result, frames/s from the second fused frame
-    on, as the CLI counts it)."""
+def _fps(frames, camera, config):
+    """fuse_sequence alone of ``frames`` (a list or a frame source) on the
+    card: (result, frames/s from the second fused frame on, as the CLI
+    counts it)."""
     stamps = []
-    result = fusion.fuse_sequence(ds.frames, ds.camera, config, device="cuda",
+    result = fusion.fuse_sequence(frames, camera, config, device="cuda",
                                   frame_callback=lambda t, s, w: stamps.append(time.perf_counter()))
     return result, (len(stamps) - 1) / (stamps[-1] - stamps[0])
 
@@ -1745,12 +1771,12 @@ def phase21_hierarchical_fusion():
     try:
         _CountingLoop.made = []
         _reset_launches()
-        result, fps = _fps(ds, hier_cfg)
+        result, fps = _fps(ds.frames, ds.camera, hier_cfg)
         launches = _read_launches()
     finally:
         single_level.SolveLoop = loop_class
-    _, flat_fps = _fps(ds, flat_cfg)
-    hier_again, hier_fps2 = _fps(ds, hier_cfg)
+    _, flat_fps = _fps(ds.frames, ds.camera, flat_cfg)
+    hier_again, hier_fps2 = _fps(ds.frames, ds.camera, hier_cfg)
     loops = _CountingLoop.made
     captures = sum(loop.graph_launches is not None for loop in loops)  # at most one a loop
     band0 = int(torch.count_nonzero(torch.abs(generate_tsdf_3d(
@@ -2206,7 +2232,7 @@ def _hold_sharded_frames(ds, pipeline_cfg, got, after, group, live_halo):
     near share, the free runs' warp max|Δ| by frame, iterations, the flat
     run's frames/s)."""
     flat_warps = {}
-    ref, flat_fps = _fps(ds, pipeline_cfg)
+    ref, flat_fps = _fps(ds.frames, ds.camera, pipeline_cfg)
     fusion.fuse_sequence(ds.frames, ds.camera, pipeline_cfg, device="cuda",
                          frame_callback=lambda t, s, w: flat_warps.__setitem__(t, w.clone()))
     its = [r.solver_iterations for r in got.reports]
@@ -2660,7 +2686,7 @@ def phase27_mesh_fusion():
             if not hierarchical and paths[label] != {"resample": sum(its) + len(its),
                                                      "fused_gradient": sum(its)}:
                 raise AssertionError(f"{label}: launches {paths[label]} for {its}")
-            ref, ref_fps = _fps(ds, pipeline_cfg)
+            ref, ref_fps = _fps(ds.frames, ds.camera, pipeline_cfg)
             share, err = _fusion_held(label, got, ref, its)
             lines.append(f"{label}: iterations {its}, as fuse_sequence's; the final "
                          f"canonical max|Δ| {err:.3e} (atol 2e-5 rtol 1e-4) away from "
@@ -2672,6 +2698,253 @@ def phase27_mesh_fusion():
         print(f"[27] {C4} at {cfg.grid_shape} x {len(ds.frames)} frames on a world of 1 "
               f"(NCCL): {line}")
     return paths
+
+
+def _write_depth_directory(root, ds):
+    """``ds``'s frames as 16-bit depth PNGs (the port's writer) and its
+    camera as ``intrinsics.json`` in ``root``: a ``depth_directory``."""
+    for t, frame in enumerate(ds.frames):
+        depth.save_depth_png(os.path.join(root, f"depth_{t:06d}.png"), frame)
+    cam = ds.camera
+    with open(os.path.join(root, "intrinsics.json"), "w") as f:
+        json.dump({"fx": cam.fx, "fy": cam.fy, "cx": cam.cx, "cy": cam.cy,
+                   "width": cam.image_width, "height": cam.image_height}, f)
+
+
+def phase28_config4_disk():
+    """config4 read from disk (A9): its 8 frames written as 16-bit PNGs with
+    ``intrinsics.json`` by the port's writer, then ``multi_frame_3d`` from
+    that ``depth_directory`` at 128³ through ``cli.run_experiment`` with the
+    launch counters reset. The frames come through the native prefetcher
+    (pinned tensors, copied ``non_blocking``) where the decoder was built,
+    and the phase fails if it was expected and did not load. The run must
+    equal ``fuse_sequence`` of the decoded frames held in memory exactly
+    (reports, state, warp), launch B1 and B2 as phase 17 does, and a run
+    stopped after frame C4_STOP's checkpoint and resumed from the same
+    directory must end in its state. Then ``fuse_sequence`` alone from four
+    frame sources in turns, 3 rounds (in memory, from disk, the prefetched
+    pinned frames held in memory, decoded on the main thread), frames/s
+    beside each other, and the device's busy share over a fusion from disk
+    (the profiler's device events against the same fusion unprofiled)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = PRESETS[C4]
+    mem_ds = cli._sequence_dataset(cfg)
+    decoder = "native" if native_loader.native_available() else "plain"
+    pipeline_cfg = fusion.FusionPipelineConfig(
+        grid=_grid(cfg), narrow_band_width_voxels=cfg.narrow_band_width_voxels,
+        hierarchical=False, solver=cfg.solver)
+    with tempfile.TemporaryDirectory() as root:
+        seq_dir = os.path.join(root, "seq")
+        os.makedirs(seq_dir)
+        _write_depth_directory(seq_dir, mem_ds)
+        disk_cfg = dataclasses.replace(cfg, dataset="depth_directory",
+                                       dataset_kwargs={"path": seq_dir})
+        ds = datasets.get("depth_directory", path=seq_dir)
+        decoded = [depth.load_depth_png(p, decoder="plain") for p in ds._paths]
+        quant = max(float(np.max(np.abs(a - b))) for a, b in zip(decoded, mem_ds.frames))
+        source = ds.frame_source()
+        source_kind = type(source).__name__
+        if decoder == "native" and not isinstance(source, native_loader.DepthPrefetcher):
+            raise AssertionError(f"the native decoder is built but the source is {source_kind}")
+        frames = list(source)
+        pinned = all(f.is_pinned() for f in frames)
+        if decoder == "native" and not pinned:
+            raise AssertionError("the prefetcher's frames are not in pinned memory")
+        for got, want in zip(frames, decoded):
+            if not np.array_equal(np.asarray(got), want):
+                raise AssertionError(f"the {decoder} decoder differs from the plain one")
+        out, stopped = os.path.join(root, "c4disk"), os.path.join(root, "stopped")
+        _reset_launches()
+        t0 = time.perf_counter()
+        summary = run_experiment(disk_cfg, out, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _read_launches()
+        final = len(ds) - 1
+        state, warp, _ = checkpoint.load(os.path.join(out, "checkpoints"), final, "cuda")
+        save, save_then_stop = _stop_after(C4_STOP)
+        checkpoint.save = save_then_stop
+        try:
+            run_experiment(disk_cfg, stopped, device="cuda")
+            raise AssertionError("the stopped run did not stop")
+        except _Stop:
+            pass
+        finally:
+            checkpoint.save = save
+        resumed = run_experiment(disk_cfg, stopped, device="cuda", resume=True)
+        got_state, got_warp, _ = checkpoint.load(os.path.join(stopped, "checkpoints"), final,
+                                                 "cuda")
+        mem = fusion.fuse_sequence(decoded, ds.camera, pipeline_cfg, device="cuda")
+        # Frame sources in turns, 3 rounds: in memory (numpy), from disk
+        # (the prefetcher), the prefetched pinned tensors held in memory (the
+        # copy alone), and decoded on the main thread (_LazyFrames).
+        sources = {"memory": lambda: decoded, "disk": ds.frame_source,
+                   "pinned_in_memory": lambda: frames,
+                   "main_thread_decode": lambda: datasets._LazyFrames(ds._paths)}
+        fps = {name: [] for name in sources}
+        names = list(sources)
+        for r in range(3):
+            for name in names[r:] + names[:r]:
+                fps[name].append(_fps(sources[name](), ds.camera, pipeline_cfg)[1])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fusion.fuse_sequence(ds.frame_source(), ds.camera, pipeline_cfg, device="cuda")
+        torch.cuda.synchronize()
+        plain_us = (time.perf_counter() - t0) * 1e6
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fusion.fuse_sequence(ds.frame_source(), ds.camera, pipeline_cfg, device="cuda")
+            torch.cuda.synchronize()
+            profiled_us = (time.perf_counter() - t0) * 1e6
+        busy_us, _ = _device_busy_us(prof)
+    reports = summary["reports"]
+    its = [r["solver_iterations"] for r in reports]
+    want = {"resample": _chunk_launches(its) + len(reports),
+            "fused_gradient": _chunk_launches(its)}
+    if json.loads(json.dumps(reports)) != json.loads(json.dumps(
+            [r._asdict() for r in mem.reports])):
+        raise AssertionError(f"from disk {reports} != in memory {mem.reports}")
+    for a, b in zip((*state, warp), (*mem.state, mem.final_warp)):
+        if not torch.equal(a, b):
+            raise AssertionError("the fusion from disk differs from the in-memory fusion")
+    for a, b in zip((*got_state, got_warp), (*state, warp)):
+        if not torch.equal(a, b):
+            raise AssertionError("the resumed run's final state differs from the uninterrupted run's")
+    if [r["frame_index"] for r in resumed["reports"]] != list(range(C4_STOP + 1, final + 1)):
+        raise AssertionError(f"resumed reports {resumed['reports']}")
+    if launches != want:
+        raise AssertionError(f"launch counts {launches} for iterations {its}, want {want}")
+    if quant > 0.0005 + 1e-6:
+        raise AssertionError(f"decoded frames {quant} m from the written ones (> 0.5 mm)")
+    if not np.isfinite([summary["frames_per_s"], *(v for f in fps.values() for v in f)]).all():
+        raise AssertionError(f"non-finite frames/s {summary['frames_per_s']} {fps}")
+    turns = "; ".join(f"{name} {np.median(f):.2f} ({', '.join(f'{v:.2f}' for v in f)})"
+                      for name, f in fps.items())
+    busy = (f"{busy_us / 1e3:.1f} ms, {busy_us / plain_us:.1%} of the {plain_us / 1e3:.1f} ms "
+            f"the same fusion takes unprofiled (idle {1 - busy_us / plain_us:.1%}; "
+            f"{busy_us / profiled_us:.1%} of the profiled {profiled_us / 1e3:.1f} ms)"
+            if busy_us else "not measured (no device events)")
+    print(f"[28] {C4} from a depth_directory of {len(ds)} PNGs "
+          f"({ds.camera.image_width}x{ds.camera.image_height}, max |decoded - written| "
+          f"{quant * 1e3:.3f} mm) at {cfg.grid_shape} on cuda through cli.run_experiment: "
+          f"decoder {decoder} ({source_kind}, pinned frames {pinned}); "
+          f"iterations {its}; equal to the in-memory fusion of the decoded frames (reports, "
+          f"state, warp); launches {launches}; CLI frames_per_s {summary['frames_per_s']} "
+          f"(checkpoints every {cfg.checkpoint_every} frames inside), wall {wall:.2f} s; "
+          f"fuse_sequence alone, frames/s by source in turns, median (runs): {turns}; "
+          f"profiler over a fusion from disk (8 frames, the "
+          f"first's TSDF included): device busy {busy}; resumed after frame "
+          f"{C4_STOP}: frames {[r['frame_index'] for r in resumed['reports']]}, final state "
+          "equal")
+    return launches
+
+
+def phase29_dryrun():
+    """``dryrun.dryrun_multichip`` (A12b) on a world of 1 (NCCL) with the
+    launch counters reset, B1 and B2 launched; on 2 NCCL ranks (torchrun's
+    environment, one device each) where the process sees two devices."""
+    group = init_group("cuda")
+    try:
+        _reset_launches()
+        line = dryrun.dryrun_multichip(group)
+        launches = _read_launches()
+    finally:
+        close_group(group)
+    if not (launches["resample"] and launches["fused_gradient"]):
+        raise AssertionError(f"the dry run launched {launches}")
+    print(f"[29] {line}; launches {launches}")
+    if torch.cuda.device_count() < 2:
+        print("[29] 2 NCCL ranks: not exercised (the process sees one device)")
+        return launches
+    port = _free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "levelsetfusion_tpu_torch.dryrun"],
+        env={**os.environ, "MASTER_ADDR": "localhost", "MASTER_PORT": str(port),
+             "RANK": str(r), "WORLD_SIZE": "2", "LOCAL_RANK": str(r)},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    if any(p.returncode for p in procs):
+        raise AssertionError(f"the 2-rank dry run failed: {[e[-2000:] for _, e in outs]}")
+    print(f"[29] 2 NCCL ranks: {outs[0][0].strip()}")
+    return launches
+
+
+def phase30_utilities():
+    """A10b on the card: config1 through ``cli.main`` with ``--verbose``,
+    ``--profile`` and ``--check-nans`` (a focus_voxel event, a trace with
+    device events, the iterations and residuals of the run without the
+    flags; the plots or their artifacts_skipped event); ``validate_solve``
+    and ``nan_checks`` on a diverging rate, naming the CPU solve's iteration;
+    ``advect_field`` on the card against the CPU."""
+    cfg = PRESETS[C1]
+    with tempfile.TemporaryDirectory() as root:
+        plain_out, flagged = os.path.join(root, "plain"), os.path.join(root, "flagged")
+        plain = run_experiment(cfg, plain_out, device="cuda")
+        with open(os.devnull, "w") as null, contextlib.redirect_stdout(null), \
+                contextlib.redirect_stderr(null):  # the summary and --verbose's echo
+            rc = cli.main(["--preset", C1, "--out", flagged, "--verbose", "--profile",
+                           "--check-nans"])
+        with open(os.path.join(flagged, "summary.json")) as f:
+            checked = json.load(f)
+        with open(os.path.join(flagged, "events.jsonl")) as f:
+            events = [json.loads(line) for line in f]
+        trace_path = os.path.join(flagged, "trace", "trace.json")
+        with open(trace_path) as f:
+            trace_events = json.load(f)["traceEvents"]
+        trace_mb = os.path.getsize(trace_path) / 2**20
+        pngs = sorted(f for f in os.listdir(flagged) if f.endswith(".png"))
+    kernels = sum(e.get("cat") == "kernel" for e in trace_events)
+    focus = [e for e in events if e["event"] == "focus_voxel"]
+    skipped = [e for e in events if e["event"] == "artifacts_skipped"]
+    if rc != 0 or checked["iterations"] != plain["iterations"] or not checked["converged"]:
+        raise AssertionError(f"--check-nans run {checked} against {plain}")
+    for key in ("residual_before", "residual_after"):
+        if checked[key] != plain[key]:
+            raise AssertionError(f"--check-nans {key} {checked[key]} != {plain[key]}")
+    if len(focus) != 1 or not kernels:
+        raise AssertionError(f"focus events {focus}, {kernels} kernel events in the trace")
+    if not pngs and not skipped:
+        raise AssertionError("no plots and no artifacts_skipped event")
+    rng = np.random.default_rng(30)
+    base = rng.standard_normal((24, 20, 16)).astype(np.float32)
+    pair = [torch.from_numpy(np.tanh(b * 0.3)) for b in (base, np.roll(base, 1, 0))]
+    diverging = SolverParams(max_iterations=40, learning_rate=1e6, convergence_threshold=0.0)
+    messages = {}
+    for device in ("cpu", "cuda"):
+        res = solve_single_level(*(t.to(device) for t in pair), diverging)
+        try:
+            validate_solve(res)
+            raise AssertionError(f"validate_solve passed a diverging solve on {device}")
+        except NonFiniteError as err:
+            messages[device] = str(err)
+    if messages["cuda"] != messages["cpu"]:
+        raise AssertionError(f"validate_solve on the card: {messages}")
+    try:
+        with nan_checks():
+            solve_single_level(*(t.cuda() for t in pair), diverging)
+        raise AssertionError("nan_checks passed a diverging solve")
+    except NonFiniteError as err:
+        nan_message = str(err)
+    field = torch.from_numpy(rng.uniform(-1, 1, (64, 64, 64)).astype(np.float32))
+    warp = torch.from_numpy(rng.uniform(-2.5, 2.5, (64, 64, 64, 3)).astype(np.float32))
+    advected = advect_field(field.cuda(), warp.cuda())
+    torch.cuda.synchronize()
+    advect_err = _close("advect_field", advected.cpu(), advect_field(field, warp), 0.0, 1e-5)
+    print(f"[30] {C1} through cli.main with --verbose --profile --check-nans on cuda: "
+          f"{checked['iterations']} iterations as without the flags (residual_after "
+          f"{checked['residual_after']:.6g} equal), focus voxel {focus[0]['coords']}, trace "
+          f"of {len(trace_events)} events ({kernels} kernels, {trace_mb:.1f} MB); plots "
+          f"{pngs or 'skipped: ' + str(skipped[0]['missing']) + ' ' + str(skipped[0]['files'])}; "
+          f"validate_solve on a diverging rate: {messages['cuda']!r} as on the cpu; "
+          f"nan_checks: {nan_message!r}; advect_field at (64, 64, 64) against the cpu: "
+          f"max|Δ| {advect_err:.2e} (atol 1e-5: scatter-adds in another order)")
+
 
 
 def _row(name, source, replaces, numbers, per_iter=0):
@@ -2712,6 +2985,9 @@ def main():
     window2d_err, window2d_by_split, shards2d = phase25_windows_2d()
     paths.update(phase26_mesh_solvers(sharded_1d))
     paths.update(phase27_mesh_fusion())
+    paths["config4_disk"] = phase28_config4_disk()
+    paths["dryrun"] = phase29_dryrun()
+    phase30_utilities()
     by_path = {name: {path: c[name] for path, c in paths.items()}
                for name in ("resample", "fused_gradient")}
     ms, plain_ms, bound = times["resample"]

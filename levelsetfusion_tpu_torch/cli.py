@@ -6,16 +6,30 @@ Usage:
     python -m levelsetfusion_tpu_torch.cli --preset config3_3d_full_energy --out runs/c3
     python -m levelsetfusion_tpu_torch.cli --preset config4_3d_fusion --out runs/c4 [--resume]
     python -m levelsetfusion_tpu_torch.cli --config my_config.json --out runs/x --device cuda
+    python -m levelsetfusion_tpu_torch.cli --preset config1_2d_pair --out runs/c1 --verbose \
+        --profile --check-nans
 
 A run writes config.json, telemetry.csv, events.jsonl and summary.json, with
 the JAX run's keys, less its TPU fast-path and clamp-contract entries and
-plus the device and the CUDA kernels' launch counts. The single-device
-modes run: ``single_pair_2d`` (config1) and ``single_pair_3d`` (config3),
-``hierarchical_2d`` (config2: coarse-to-fine over a block-mean or an EWA
-depth pyramid), ``rigid_2d`` and ``rigid_3d`` (SDF-2-SDF pose recovery
-against a known extrinsic), and ``multi_frame_3d`` (config4: the flat
-fusion of a depth sequence, with checkpoints every ``checkpoint_every``
-frames under ``<out>/checkpoints`` and ``--resume`` from the latest).
+plus the device and the CUDA kernels' launch counts, and JAX's plots
+(``utils/visualization.py``: energy, field and warp PNGs; a multi-frame
+run's ``canonical_evolution.mp4``). Where matplotlib (or, for the video,
+cv2) is missing, as on the H100's machine, an ``artifacts_skipped`` event
+names the module and the files not written, and the run is otherwise the
+same. ``--verbose`` echoes the telemetry and logs a ``focus_voxel`` event
+at the voxel of the largest band residual (reduced on the device);
+``--profile`` writes a ``torch.profiler`` trace to ``<out>/trace/``;
+``--check-nans`` runs every single-device solve serially, checked for NaN
+and Inf each iteration (``utils/debug.py::nan_checks``).
+
+The single-device modes run: ``single_pair_2d`` (config1) and
+``single_pair_3d`` (config3), ``hierarchical_2d`` (config2: coarse-to-fine
+over a block-mean or an EWA depth pyramid), ``rigid_2d`` and ``rigid_3d``
+(SDF-2-SDF pose recovery against a known extrinsic), and ``multi_frame_3d``
+(config4: the flat fusion of a depth sequence, synthetic or a
+``depth_directory`` of 16-bit PNGs decoded ahead by the native prefetcher,
+with checkpoints every ``checkpoint_every`` frames under
+``<out>/checkpoints`` and ``--resume`` from the latest).
 
 The sharded modes run on ``torch.distributed`` (``parallel/``):
 ``sharded_3d`` with the sync solver (config5_sharded, config5_512), the
@@ -34,10 +48,6 @@ writes the run's files; every rank writes its checkpoint shards:
     torchrun --nproc-per-node 2 -m levelsetfusion_tpu_torch.cli --preset config5_sharded --out c5
     torchrun --nproc-per-node 8 -m levelsetfusion_tpu_torch.cli --preset config5_2dmesh --out c5
     python -m levelsetfusion_tpu_torch.cli --config c5_2dmesh_1x1.json --out c5
-
-A ``depth_directory`` dataset raises ``NotImplementedError`` naming ROADMAP
-A9. Plots and the fusion video wait for the port of
-``utils/visualization.py`` (ROADMAP A10b).
 """
 
 from __future__ import annotations
@@ -87,17 +97,11 @@ from levelsetfusion_tpu_torch.parallel import (
     warp_field_sharded,
 )
 from levelsetfusion_tpu_torch.parallel.mesh import Mesh2D, gather_field, shard_field
-from levelsetfusion_tpu_torch.utils import checkpoint
-from levelsetfusion_tpu_torch.utils.debug import check_displacement_contract
+from levelsetfusion_tpu_torch.utils import checkpoint, visualization
 from levelsetfusion_tpu_torch.utils.config import PRESETS, ExperimentConfig
+from levelsetfusion_tpu_torch.utils.debug import check_displacement_contract, nan_checks
+from levelsetfusion_tpu_torch.utils.profiling import trace
 from levelsetfusion_tpu_torch.utils.telemetry import RunLogger, telemetry_to_rows
-
-
-def _not_ported(cfg: ExperimentConfig) -> str | None:
-    """The ROADMAP item of a config this package does not run yet: a fusion
-    of a sequence of depth PNGs (A9)."""
-    multi_frame = cfg.mode in ("multi_frame_3d", "multi_frame_sharded_3d")
-    return "A9" if multi_frame and cfg.dataset == "depth_directory" else None
 
 
 def _device(name) -> torch.device:
@@ -129,6 +133,48 @@ def _residual_metrics(canonical, live, warped) -> dict:
         "residual_after": r1,
         "residual_reduction": r0 / max(r1, 1e-12),
     }
+
+
+def _artifacts(logger: RunLogger, rows=(), **fields) -> None:
+    """JAX's plots of a run (``write_run_artifacts``) into the run's
+    directory, or, where matplotlib is missing, an ``artifacts_skipped``
+    event naming it and the files not written."""
+    missing = visualization.missing_modules(visualization.PLOT_MODULES)
+    if missing:
+        logger.event("artifacts_skipped", missing=missing,
+                     files=visualization.artifact_files(rows, **fields))
+        return
+    visualization.write_run_artifacts(logger.out_dir, list(rows), **fields)
+
+
+def _video(logger: RunLogger):
+    """The fusion's ``canonical_evolution.mp4`` writer, or None with an
+    ``artifacts_skipped`` event where matplotlib or cv2 is missing."""
+    missing = visualization.missing_modules(visualization.VIDEO_MODULES)
+    if missing:
+        logger.event("artifacts_skipped", missing=missing, files=["canonical_evolution.mp4"])
+        return None
+    return visualization.FieldEvolutionVideo(
+        os.path.join(logger.out_dir, "canonical_evolution.mp4"))
+
+
+def _log_focus(logger: RunLogger, canonical, live, warped, warp) -> None:
+    """The focus-coordinate deep dive of a ``--verbose`` run: every logged
+    field at the voxel with the largest post-solve band residual. The
+    argmax and the values there are taken on the device; the coordinates
+    and one scalar a field come back in one read."""
+    d = canonical.ndim
+    band = (torch.abs(canonical) < 1 - 1e-5) | (torch.abs(live) < 1 - 1e-5)
+    resid = torch.where(band, torch.abs(warped - canonical), 0.0)
+    coords = torch.unravel_index(torch.argmax(resid), canonical.shape)
+    vals = [canonical[coords], live[coords], warped[coords],
+            *(warp[..., a][coords] for a in range(d))]
+    packed = torch.stack([*(c.to(torch.float64) for c in coords),
+                          *(v.to(torch.float64) for v in vals)]).tolist()
+    fields = {"canonical": packed[d], "live": packed[d + 1], "warped_live": packed[d + 2]}
+    for ax in range(d):
+        fields[f"warp_u{ax}"] = packed[d + 3 + ax]
+    logger.focus_voxel("max_band_residual", [int(c) for c in packed[:d]], **fields)
 
 
 def _pair_2d(cfg: ExperimentConfig, grid: GridSpec, device: torch.device):
@@ -214,9 +260,12 @@ def _resume_fusion(state, warp, frames, camera, pipeline_cfg, on_frame, frame_of
 
 
 def _multi_frame_3d(cfg, out_dir, logger, device, resume) -> dict:
-    """config4: fuse a depth sequence, checkpointing every
+    """config4: fuse a depth sequence (synthetic, or a ``depth_directory``
+    read through its frame source), checkpointing every
     ``cfg.checkpoint_every`` frames; ``resume`` continues from the latest
-    checkpoint under ``<out_dir>/checkpoints``."""
+    checkpoint under ``<out_dir>/checkpoints``, reading the same source
+    from that frame. The video gets each fused frame's canonical (its
+    central y slice)."""
     before = _launches({})
     ds = _sequence_dataset(cfg)
     n_frames = len(ds)
@@ -233,27 +282,38 @@ def _multi_frame_3d(cfg, out_dir, logger, device, resume) -> dict:
         latest = checkpoint.latest_frame(ckpt_root)
         if latest is not None:
             if latest >= n_frames - 1:
+                # Nothing left to fuse: the final artifacts from the checkpoint.
                 logger.event("resume_noop", frame=latest)
+                state, warp, _ = checkpoint.load(ckpt_root, latest, device)
+                _artifacts(logger, canonical=state.canonical, warp=warp)
                 return logger.finish(frames=0, resumed_from=latest,
                                      note="checkpoint already covers the full sequence")
             start_frame = latest
             logger.event("resumed", frame=latest)
 
     frame_times = []
+    video = _video(logger)
 
     def on_frame(t, state, warp, report, solver):
         frame_times.append(time.perf_counter())
+        if video is not None:
+            video.add_frame(state.canonical[:, state.canonical.shape[1] // 2])
         logger.event("frame_fused", frame=t, band_voxels=report.band_voxels)
         if cfg.checkpoint_every and t % cfg.checkpoint_every == 0:
             checkpoint.save(ckpt_root, t, state, warp, {"config": cfg.name})
 
-    if start_frame > 0:
-        state, warp, _ = checkpoint.load(ckpt_root, start_frame, device)
-        result = _resume_fusion(state, warp, ds.frame_source(start_frame), ds.camera,
-                                pipeline_cfg, on_frame, start_frame)
-    else:
-        result = fuse_sequence(ds.frame_source(), ds.camera, pipeline_cfg, device=device,
-                               frame_callback=on_frame)
+    try:
+        if start_frame > 0:
+            state, warp, _ = checkpoint.load(ckpt_root, start_frame, device)
+            result = _resume_fusion(state, warp, ds.frame_source(start_frame), ds.camera,
+                                    pipeline_cfg, on_frame, start_frame)
+        else:
+            result = fuse_sequence(ds.frame_source(), ds.camera, pipeline_cfg, device=device,
+                                   frame_callback=on_frame)
+    finally:
+        if video is not None:
+            video.close()
+    _artifacts(logger, canonical=result.state.canonical, warp=result.final_warp)
     if cfg.checkpoint_every:
         checkpoint.save(ckpt_root, n_frames - 1, result.state, result.final_warp,
                         {"config": cfg.name, "final": True})
@@ -289,7 +349,10 @@ def _single_pair(cfg, logger, device) -> dict:
     res = solve_single_level(canonical, live, cfg.solver)
     logger.log_solve(res)
     warped = warp_field_cm(live, to_component_major(res.warp))
+    if logger.verbose:
+        _log_focus(logger, canonical, live, warped, res.warp)
     rows = telemetry_to_rows(res.telemetry, res.iterations)
+    _artifacts(logger, rows, canonical=canonical, live=live, warped=warped, warp=res.warp)
     return dict(
         iterations=int(res.iterations),
         converged=bool(res.converged),
@@ -314,9 +377,12 @@ def _hierarchical_2d(cfg, logger, device) -> dict:
         )
     else:
         res = solve_hierarchical(canonical, live, hp)
+    rows = []
     for level, lr in enumerate(res.level_results):
         logger.log_solve(lr, level=level)
+        rows += telemetry_to_rows(lr.telemetry, lr.iterations)
     warped = warp_field_cm(live, to_component_major(res.warp))
+    _artifacts(logger, rows, canonical=canonical, live=live, warped=warped, warp=res.warp)
     finest = res.level_results[-1]
     return dict(
         levels=cfg.levels,
@@ -364,6 +430,7 @@ def _rigid(cfg, logger, device) -> dict:
         canonical = generate_tsdf_3d(depth, cam, grid, extrinsic=true_ext,
                                      narrow_band_width_voxels=nb)
         res = solve_rigid_3d(canonical, depth, cam, grid, narrow_band_width_voxels=nb)
+    _artifacts(logger, canonical=canonical, live=res.final_live)
     true_np, est = true_ext.cpu().numpy(), res.extrinsic.cpu().numpy()
     e = res.energies.cpu().numpy()
     return dict(
@@ -400,6 +467,16 @@ def _sharded_3d(cfg, out_dir, logger, mesh) -> dict:
         warped = gather_field(warp_field_sharded(live_blk, res.warp, mesh, cfg.live_halo),
                               mesh)
     logger.log_solve(res)
+    # The warp's gather is collective (every rank takes the same branch);
+    # rank 0 logs and draws.
+    warp = res.warp
+    if logger.verbose or not visualization.missing_modules():
+        warp = gather_field(warp.contiguous(), mesh)
+    if mesh.rank == 0:
+        if logger.verbose:
+            _log_focus(logger, canonical, live, warped, warp)
+        _artifacts(logger, telemetry_to_rows(res.telemetry, res.iterations),
+                   canonical=canonical, live=live, warp=warp)
     extra = {}
     if hasattr(res, "outer_steps"):
         extra = dict(solver_kind=cfg.solver_kind, outer_steps=res.outer_steps,
@@ -437,9 +514,13 @@ def _hierarchical_sharded_3d(cfg, out_dir, logger, mesh) -> dict:
             cfg.narrow_band_width_voxels)[0] for depth in (cdepth, ldepth))
     res = solve_hierarchical_sharded(canonical, live, hp, group=mesh,
                                      min_live_halo=cfg.live_halo, pyramids=pyramids)
+    rows = []
     for level, lr in enumerate(res.level_results):
         logger.log_solve(lr, level=level)
+        rows += telemetry_to_rows(lr.telemetry, lr.iterations)
     warped = warp_field_cm(live, to_component_major(res.warp))
+    if mesh.rank == 0:
+        _artifacts(logger, rows, canonical=canonical, live=live, warped=warped, warp=res.warp)
     violations = []
     for li, (lr, lh) in enumerate(zip(res.level_results, res.level_halos)):
         if lh is not None:
@@ -483,6 +564,11 @@ def _multi_frame_sharded_3d(cfg, out_dir, logger, group) -> dict:
         ds.frame_source(), ds.camera, pipeline_cfg, group=group,
         mesh_axes=("x", "y") if isinstance(group, Mesh2D) else None,
         live_halo=cfg.live_halo, frame_callback=on_frame)
+    state, warp = result.state.canonical, result.final_warp
+    if not visualization.missing_modules():
+        state, warp = gather_field(state, group), gather_field(warp.contiguous(), group)
+    if group.rank == 0:
+        _artifacts(logger, canonical=state, warp=warp)
     processed = len(ds)
     if len(frame_times) >= 2:
         fps = (len(frame_times) - 1) / max(frame_times[-1] - frame_times[0], 1e-9)
@@ -505,7 +591,7 @@ _SHARDED = {"sharded_3d": _sharded_3d, "multi_frame_sharded_3d": _multi_frame_sh
             "hierarchical_sharded_3d": _hierarchical_sharded_3d}
 
 
-def _run_sharded(cfg, out_dir, device) -> dict:
+def _run_sharded(cfg, out_dir, device, verbose) -> dict:
     """A sharded mode on the default process group (``init_group``: made
     here for a world of 1 without a launcher, and taken down after), as a
     1D group or, with a ``mesh_shape``, a 2D mesh over it. Rank 0 writes the
@@ -517,7 +603,7 @@ def _run_sharded(cfg, out_dir, device) -> dict:
         with contextlib.ExitStack() as stack:
             log_dir = out_dir if group.rank == 0 else stack.enter_context(
                 tempfile.TemporaryDirectory())
-            logger = _logger(cfg, log_dir)
+            logger = _logger(cfg, log_dir, verbose)
             before = _launches({})
             summary = _SHARDED[cfg.mode](cfg, out_dir, logger, mesh)
             return logger.finish(**summary, device=str(group.device),
@@ -526,27 +612,25 @@ def _run_sharded(cfg, out_dir, device) -> dict:
         close_group(group)
 
 
-def _logger(cfg, out_dir) -> RunLogger:
+def _logger(cfg, out_dir, verbose=False) -> RunLogger:
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "config.json"), "w") as f:
         f.write(cfg.to_json())
-    return RunLogger(out_dir)
+    return RunLogger(out_dir, verbose=verbose)
 
 
 def run_experiment(cfg: ExperimentConfig, out_dir: str, device="cuda",
-                   resume: bool = False) -> dict:
+                   resume: bool = False, verbose: bool = False) -> dict:
     """Run one experiment into ``out_dir``; returns the summary. ``resume``
-    (multi_frame_3d) continues from the latest checkpoint there."""
-    item = _not_ported(cfg)
-    if item is not None or cfg.mode not in (*_MODES, *_SHARDED, "multi_frame_3d"):
-        raise NotImplementedError(
-            f"mode {cfg.mode!r} is not ported yet"
-            + (f" (ROADMAP {item}: dataset {cfg.dataset!r})" if item else "")
-        )
+    (multi_frame_3d) continues from the latest checkpoint there;
+    ``verbose`` echoes the telemetry and logs the focus voxel (the
+    single-pair modes and ``sharded_3d``, as JAX's)."""
+    if cfg.mode not in (*_MODES, *_SHARDED, "multi_frame_3d"):
+        raise ValueError(f"unknown mode {cfg.mode!r}")
     device = _device(device)
     if cfg.mode in _SHARDED:
-        return _run_sharded(cfg, out_dir, device)
-    logger = _logger(cfg, out_dir)
+        return _run_sharded(cfg, out_dir, device, verbose)
+    logger = _logger(cfg, out_dir, verbose)
     if cfg.mode == "multi_frame_3d":
         return _multi_frame_3d(cfg, out_dir, logger, device, resume)
     before = _launches({})
@@ -555,17 +639,25 @@ def run_experiment(cfg: ExperimentConfig, out_dir: str, device="cuda",
 
 
 def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__)
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--preset", choices=sorted(PRESETS), help="named config")
     ap.add_argument("--config", help="path to an ExperimentConfig JSON file")
     ap.add_argument("--out", default=None, help="output run directory")
     ap.add_argument("--resume", action="store_true",
                     help="multi_frame_3d: continue from the latest checkpoint in --out")
+    ap.add_argument("--verbose", action="store_true",
+                    help="echo the telemetry and log the focus voxel")
     ap.add_argument("--list", action="store_true", help="list presets and exit")
     ap.add_argument(
         "--device", default="cuda",
         help="torch device to run on (default cuda; fails if CUDA is absent)",
     )
+    ap.add_argument("--profile", action="store_true",
+                    help="write a torch.profiler trace of the run under <out>/trace/")
+    ap.add_argument("--check-nans", action="store_true",
+                    help="run each single-device solve serially, checked for NaN/Inf every "
+                    "iteration (slow; for debugging diverging solves)")
     args = ap.parse_args(argv)
 
     if args.list:
@@ -581,7 +673,13 @@ def main(argv=None):
     else:
         ap.error("need --preset or --config")
     out = args.out or os.path.join("runs", cfg.name)
-    summary = run_experiment(cfg, out, device=args.device, resume=args.resume)
+    with contextlib.ExitStack() as stack:
+        if args.check_nans:
+            stack.enter_context(nan_checks())
+        if args.profile:
+            stack.enter_context(trace(os.path.join(out, "trace")))
+        summary = run_experiment(cfg, out, device=args.device, resume=args.resume,
+                                 verbose=args.verbose)
     print(f"run complete -> {out}")
     for k, v in summary.items():
         print(f"  {k}: {v}")

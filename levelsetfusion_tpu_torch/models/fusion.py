@@ -165,12 +165,22 @@ def _pack_stats(res: SolveResult, state: FusionState) -> torch.Tensor:
                       res.max_abs_displacement.double()])
 
 
+def _depth_on(depth, device: torch.device) -> torch.Tensor:
+    """A depth image (numpy, or a float32 CPU tensor such as the native
+    prefetcher's pinned frames) on ``device``. A pinned tensor is copied
+    with ``non_blocking``: the copy is queued on the current stream behind
+    the previous frame's work and the host goes on."""
+    if isinstance(depth, torch.Tensor):
+        return depth.to(device, torch.float32, non_blocking=depth.is_pinned())
+    return torch.as_tensor(np.asarray(depth, dtype=np.float32)).to(device)
+
+
 def _tsdf(depth, camera: PinholeCamera, config: FusionPipelineConfig,
           device: torch.device, grid: GridSpec | None = None) -> torch.Tensor:
-    """A depth image (numpy, meters) as a TSDF on ``device``, over
-    ``config.grid`` or over ``grid`` (a rank's block of it)."""
+    """A depth image (see ``_depth_on``; meters) as a TSDF on ``device``,
+    over ``config.grid`` or over ``grid`` (a rank's block of it)."""
     return generate_tsdf_3d(
-        torch.as_tensor(np.asarray(depth, dtype=np.float32)).to(device), camera,
+        _depth_on(depth, device), camera,
         config.grid if grid is None else grid,
         narrow_band_width_voxels=config.narrow_band_width_voxels,
         method=config.generation_method,
@@ -243,10 +253,13 @@ def fuse_sequence(
 ) -> FusionResult:
     """Fuse a depth sequence into a canonical TSDF on ``device``.
 
-    ``frames`` is any iterable of depth images (numpy, meters), consumed in
-    order, once. ``frame_callback(t, state, warp)`` runs after each frame's
-    stats are read; callbacks that accept ``report``/``solver`` keywords
-    also receive the frame's FrameReport and the solver.
+    ``frames`` is any iterable of depth images (numpy or float32 CPU
+    tensors, meters), consumed in order, once: a list, or a frame source
+    (``SequenceDataset.frame_source``), whose native prefetcher decodes
+    frame t + 1 while frame t solves. ``frame_callback(t, state, warp)``
+    runs after each frame's stats are read; callbacks that accept
+    ``report``/``solver`` keywords also receive the frame's FrameReport and
+    the solver.
 
     Pipelined (the default, JAX's flat loop): frame t + 1 is dispatched from
     frame t's device outputs before frame t's packed stats are read, so the

@@ -44,7 +44,9 @@ On CUDA the chunk is captured once as a CUDA graph and replayed: the
 Python work of ~20 ops an iteration, more than the kernels take at 128³,
 and the host's enqueue of the 2D iteration's ~110 small kernels leave the
 loop. On the CPU, or with ``SolveLoop(..., graph=False)``, the same chunk
-runs eagerly. A capture or replay that fails raises.
+runs eagerly. A capture or replay that fails raises. Under
+``utils.debug.nan_checks`` every solve runs serially instead, checked for
+NaN and Inf each iteration.
 """
 
 from __future__ import annotations
@@ -248,6 +250,23 @@ class SolveLoop:
         for j in range(first, first + self.check_every):
             self._iteration(j % 2, self.active)
 
+    def _checked_iterations(self, error) -> None:
+        """``utils.debug.nan_checks``' loop: the serial loop, one iteration
+        and one host read at a time, raising NonFiniteError at the first
+        iteration whose telemetry or new warp holds a NaN or Inf."""
+        j = 0
+        while bool(self.active):
+            self._iteration(j % 2, self.active)
+            column = self.telemetry[:, j]
+            finite = torch.cat([torch.isfinite(column),
+                                torch.isfinite(self.warps[(j + 1) % 2]).all().view(1)])
+            if not bool(finite.all()):
+                names = [*SolveTelemetry._fields, "warp"]
+                bad = [n for n, ok in zip(names, finite.tolist()) if not ok]
+                raise error(
+                    f"solve: iteration {j}: non-finite {', '.join(bad)} (nan_checks)")
+            j += 1
+
     def _capture(self) -> None:
         stream = torch.cuda.Stream(self.device)
         stream.wait_stream(torch.cuda.current_stream(self.device))
@@ -291,6 +310,10 @@ class SolveLoop:
         self.iteration.zero_()
         torch.amax(torch.abs(self.warps[0]), dim=self._spatial, out=self.max_disp)
         self._update_flag()
+        from levelsetfusion_tpu_torch.utils import debug  # utils imports the solvers
+
+        if debug.nan_checks_enabled():
+            self._checked_iterations(debug.NonFiniteError)
         chunks = 0
         while bool(self.active):  # the host's one read a chunk
             if not self.graphed:

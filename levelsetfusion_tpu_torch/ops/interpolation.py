@@ -9,11 +9,13 @@
 
 These are the plain versions. The solve loop's resample goes through the
 CUDA kernel in ``ops/kernels/resample.py``, which computes exactly this.
+``advect_field`` (the forward splat) runs in no kernel, in JAX as here.
 """
 
 from __future__ import annotations
 
 import itertools
+import math
 
 import torch
 
@@ -92,3 +94,45 @@ def warp_field_with_gradient(
     field."""
     warped = warp_field(field, warp, fill_value=fill_value)
     return warped, gradient(warped)
+
+
+def advect_field(
+    field: torch.Tensor,
+    warp: torch.Tensor,
+    fill_value: float = TRUNCATION_FILL,
+    eps: float = 1e-8,
+) -> torch.Tensor:
+    """Forward-warp: push each voxel's value to ``x + u(x)``, splatting with
+    multilinear weights and normalising by the accumulated weight; target
+    voxels no source reaches get ``fill_value``.
+
+    The backward flavour (``warp_field``) asks what was at the place a voxel
+    came from; this one asks where a voxel's value goes. Corners go in JAX's
+    order (bit k of the corner number is the offset along axis k), each a
+    scatter-add (``index_add_``) on flat indices; the sums' order on the card
+    is not fixed, so values agree to rounding."""
+    d = field.ndim
+    if tuple(warp.shape) != (*field.shape, d):
+        raise ValueError(f"warp {tuple(warp.shape)} for a field {tuple(field.shape)}")
+    pos = identity_positions(field.shape, field.device, warp.dtype) + warp
+    base = torch.floor(pos)
+    frac = pos - base
+    base_i = base.to(torch.int64)
+    strides = [math.prod(field.shape[k + 1:]) for k in range(d)]
+    values = torch.zeros(field.numel(), dtype=field.dtype, device=field.device)
+    weights = torch.zeros_like(values)
+    for corner in range(2**d):
+        flat = torch.zeros(field.shape, dtype=torch.int64, device=field.device)
+        w = torch.ones_like(field)
+        inb = torch.ones(field.shape, dtype=torch.bool, device=field.device)
+        for k in range(d):
+            off = (corner >> k) & 1
+            idx = base_i[..., k] + off
+            w = w * (frac[..., k] if off else 1.0 - frac[..., k])
+            inb &= (idx >= 0) & (idx < field.shape[k])
+            flat += torch.clamp(idx, 0, field.shape[k] - 1) * strides[k]
+        w = torch.where(inb, w, 0.0)
+        values.index_add_(0, flat.view(-1), (w * field).view(-1))
+        weights.index_add_(0, flat.view(-1), w.view(-1))
+    values, weights = values.view(field.shape), weights.view(field.shape)
+    return torch.where(weights > eps, values / torch.clamp(weights, min=eps), fill_value)

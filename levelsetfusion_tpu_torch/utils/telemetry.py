@@ -99,6 +99,20 @@ class RunLogger:
         self._events.write(json.dumps({"event": kind, **kw}) + "\n")
         self._events.flush()
 
+    def focus_voxel(self, name: str, coords, **fields) -> None:
+        """The focus-coordinate deep dive: every logged quantity at one
+        voxel, as an event (and echoed when verbose). A field is a scalar
+        (the CLI reads the values on the device and passes scalars) or a
+        whole field, indexed here."""
+        def _at(v):
+            a = _host(v)
+            return float(a) if a.ndim == 0 else float(a[tuple(coords)])
+
+        vals = {k: _at(v) for k, v in fields.items()}
+        self.event("focus_voxel", name=name, coords=list(coords), **vals)
+        if self.verbose:
+            print(f"[focus {name} @{coords}] {vals}", file=sys.stderr)
+
     def elapsed(self) -> float:
         return time.perf_counter() - self._start
 

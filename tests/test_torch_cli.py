@@ -116,10 +116,11 @@ SHARDED_SMALL = dict(grid_shape=(32, 24, 16), num_devices=1)
 
 @pytest.mark.parametrize("name", sorted(set(PRESETS) - set(RUNS) - set(SHARDED)))
 def test_other_modes_raise(name, tmp_path):
-    """config4's mode runs, but not from depth PNGs: it raises naming its
-    ROADMAP item (A9)."""
+    """config4's mode runs from depth PNGs (tests/test_torch_datasets.py);
+    a ``depth_directory`` without a path has no calibration file, and the
+    run raises naming what it looked for, as JAX's does."""
     cfg = dataclasses.replace(PRESETS[name], dataset="depth_directory", dataset_kwargs={})
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    with pytest.raises(FileNotFoundError, match="no calibration file"):
         tcli.run_experiment(cfg, str(tmp_path), device="cpu")
 
 

@@ -133,3 +133,44 @@ def test_warp_energy_gradient(shape, mode, w_smooth, w_ls, sobolev, band_union):
     for a, b in zip(got.energies, want.energies):
         assert_close(a, b, rtol=1e-5, atol=1e-7)
     assert_close(got.energies.total, want.energies.total, rtol=1e-5)
+
+
+# advect_field (the forward splat) on tests/test_interpolation.py's cases and
+# seeded random warps: atol 1e-6 (the same f32 products, scatter-adds summed in
+# another order).
+def _advect_cases():
+    rng = np.random.default_rng(0)
+    x, y, z = np.meshgrid(*[np.arange(8.0)] * 3, indexing="ij")
+    bump = np.zeros((5, 5), np.float32)
+    bump[1, 1] = -0.5
+    return {
+        "zero_warp": (rng.uniform(-1, 1, (6, 5)).astype(np.float32),
+                      np.zeros((6, 5, 2), np.float32)),
+        "integer_shift": (bump, np.full((5, 5, 2), 2.0, np.float32)),
+        "constant_shift_3d": ((0.05 * x + 0.03 * y - 0.02 * z).astype(np.float32),
+                              np.full((8, 8, 8, 3), 1.5, np.float32)),
+        "random_2d": (rng.uniform(-1, 1, (9, 7)).astype(np.float32),
+                      rng.uniform(-2.5, 2.5, (9, 7, 2)).astype(np.float32)),
+        "random_3d": (rng.uniform(-1, 1, (7, 6, 5)).astype(np.float32),
+                      rng.uniform(-2.5, 2.5, (7, 6, 5, 3)).astype(np.float32)),
+    }
+
+
+@pytest.mark.parametrize("case", ["zero_warp", "integer_shift", "constant_shift_3d",
+                                  "random_2d", "random_3d"])
+def test_advect_field_matches_jax(case):
+    from levelsetfusion_tpu.ops.interpolation import advect_field as jadvect
+    from levelsetfusion_tpu_torch.ops.interpolation import advect_field
+
+    field, warp = _advect_cases()[case]
+    got = advect_field(t(field), t(warp))
+    assert_close(got, jadvect(jnp.asarray(field), jnp.asarray(warp)), rtol=0.0, atol=1e-6)
+    if case == "integer_shift":
+        assert float(got[3, 3]) == -0.5 and bool((got[0] == 1.0).all())
+
+
+def test_advect_field_checks_shapes():
+    from levelsetfusion_tpu_torch.ops.interpolation import advect_field
+
+    with pytest.raises(ValueError, match="warp"):
+        advect_field(t(np.zeros((4, 4), np.float32)), t(np.zeros((4, 4, 3), np.float32)))

@@ -52,7 +52,7 @@ def test_registry_names_and_refusals():
     assert set(datasets.names()) == set(jdatasets.names())
     with pytest.raises(KeyError, match="unknown dataset"):
         datasets.get("nope")
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(FileNotFoundError, match="no calibration file"):
         datasets.get("depth_directory", path="/nonexistent")
-    with pytest.raises(NotImplementedError, match="A9"):
-        datasets.load_snoopy_calib("calib.txt")
+    with pytest.raises(FileNotFoundError):
+        datasets.load_snoopy_calib("/nonexistent/calib.txt")

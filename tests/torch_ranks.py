@@ -274,7 +274,34 @@ def _psum_case(mesh, payload):
     return float(psum_axis(torch.full(payload, float(mesh.rank + 1)), mesh).sum())
 
 
-_CASES = {"solve": _solve_case, "psum": _psum_case, "warp2d": _warp2d_case,
+def _comm_case(mesh, payload):
+    """``_solve_case`` with ``dist.batch_isend_irecv`` and ``dist.all_reduce``
+    wrapped to count what this rank sends: ``({"bytes": isend bytes,
+    "rounds": batches, "reductions": all_reduce calls}, iterations)``."""
+    import torch.distributed as dist
+
+    counts = {"bytes": 0, "rounds": 0, "reductions": 0}
+    batch, all_reduce = dist.batch_isend_irecv, dist.all_reduce
+
+    def counting_batch(ops):
+        counts["rounds"] += 1
+        counts["bytes"] += sum(op.tensor.numel() * op.tensor.element_size()
+                               for op in ops if op.op is dist.isend)
+        return batch(ops)
+
+    def counting_reduce(tensor, *args, **kw):
+        counts["reductions"] += 1
+        return all_reduce(tensor, *args, **kw)
+
+    dist.batch_isend_irecv, dist.all_reduce = counting_batch, counting_reduce
+    try:
+        iterations = _solve_case(mesh, payload)[1]
+    finally:
+        dist.batch_isend_irecv, dist.all_reduce = batch, all_reduce
+    return counts, iterations
+
+
+_CASES = {"solve": _solve_case, "comm": _comm_case, "psum": _psum_case, "warp2d": _warp2d_case,
           "hierarchical": _hierarchical_case, "fusion": _fusion_case, "cli": _cli_case,
           "checkpoint": _checkpoint_case, "reduce": _reduce_case}
 
@@ -287,3 +314,11 @@ def mesh_cases(group, args):
 
     mesh = make_mesh_2d(group, args["mesh"]) if args.get("mesh") else group
     return [_CASES[kind](mesh, payload) for kind, payload in args["cases"]]
+
+
+def dryrun_case(group, args):
+    """``levelsetfusion_tpu_torch.dryrun.dryrun_multichip`` on this rank:
+    rank 0's summary line, None elsewhere."""
+    from levelsetfusion_tpu_torch.dryrun import dryrun_multichip
+
+    return dryrun_multichip(group)
