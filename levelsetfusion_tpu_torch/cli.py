@@ -18,7 +18,23 @@ cv2) is missing, as on the H100's machine, an ``artifacts_skipped`` event
 names the module and the files not written, and the run is otherwise the
 same. ``--verbose`` echoes the telemetry and logs a ``focus_voxel`` event
 at the voxel of the largest band residual (reduced on the device);
-``--profile`` writes a ``torch.profiler`` trace to ``<out>/trace/``;
+``--profile`` writes a ``torch.profiler`` trace to ``<out>/trace/``, with
+the program's spans in it (``utils/profiling.py::span``), and its counters
+into the summary (``counters``: ``halo.bytes_sent``, the bytes the halo
+exchanges handed to ``isend``). The spans:
+
+- ``lsf.tsdf``: one TSDF generation;
+- ``lsf.solve``: one solve; inside it ``lsf.solve.capture`` (the CUDA
+  graph's warm-up, capture and instantiation), ``lsf.solve.flag_read`` (a
+  host read of the done flag) and ``lsf.solve.result_read``;
+- ``lsf.solve.build``: a solve loop's state buffers; ``lsf.solve.release``:
+  ``solve_single_level``'s loop and graph freed after its solve;
+- ``lsf.frame.next``: waiting for a frame; ``lsf.frame.blend``: a frame's
+  resample, blend and stats pack; ``lsf.frame.report_read``: its stats read;
+- ``lsf.io.prefetch_wait``: blocked on the native decode queue;
+- ``lsf.halo.exchange``, ``lsf.halo.wait``, ``lsf.reduce``: the sharded
+  solvers' halo exchanges, their waits and ``all_reduce`` calls.
+
 ``--check-nans`` runs every single-device solve serially, checked for NaN
 and Inf each iteration (``utils/debug.py::nan_checks``).
 
@@ -100,7 +116,7 @@ from levelsetfusion_tpu_torch.parallel.mesh import Mesh2D, gather_field, shard_f
 from levelsetfusion_tpu_torch.utils import checkpoint, visualization
 from levelsetfusion_tpu_torch.utils.config import PRESETS, ExperimentConfig
 from levelsetfusion_tpu_torch.utils.debug import check_displacement_contract, nan_checks
-from levelsetfusion_tpu_torch.utils.profiling import trace
+from levelsetfusion_tpu_torch.utils.profiling import counters, trace
 from levelsetfusion_tpu_torch.utils.telemetry import RunLogger, telemetry_to_rows
 
 
@@ -240,6 +256,13 @@ def _launches(before: dict) -> dict:
     return {k: v - before.get(k, 0) for k, v in now.items()}
 
 
+def _counters() -> dict:
+    """Under ``--profile`` (a profiler running): the program's counters."""
+    if not torch._C._autograd._profiler_enabled():
+        return {}
+    return {"counters": counters()}
+
+
 def _resume_fusion(state, warp, frames, camera, pipeline_cfg, on_frame, frame_offset):
     """Continue a fusion run from checkpointed state over the remaining
     frames. ``frames`` starts AT the checkpointed frame (whose TSDF is
@@ -287,7 +310,8 @@ def _multi_frame_3d(cfg, out_dir, logger, device, resume) -> dict:
                 state, warp, _ = checkpoint.load(ckpt_root, latest, device)
                 _artifacts(logger, canonical=state.canonical, warp=warp)
                 return logger.finish(frames=0, resumed_from=latest,
-                                     note="checkpoint already covers the full sequence")
+                                     note="checkpoint already covers the full sequence",
+                                     **_counters())
             start_frame = latest
             logger.event("resumed", frame=latest)
 
@@ -336,6 +360,7 @@ def _multi_frame_3d(cfg, out_dir, logger, device, resume) -> dict:
         max_abs_displacement=[float(v) for v in np.max(mds, axis=0)] if mds else None,
         device=str(device),
         kernel_launches=_launches(before),
+        **_counters(),
     )
 
 
@@ -607,7 +632,7 @@ def _run_sharded(cfg, out_dir, device, verbose) -> dict:
             before = _launches({})
             summary = _SHARDED[cfg.mode](cfg, out_dir, logger, mesh)
             return logger.finish(**summary, device=str(group.device),
-                                 kernel_launches=_launches(before))
+                                 kernel_launches=_launches(before), **_counters())
     finally:
         close_group(group)
 
@@ -635,7 +660,8 @@ def run_experiment(cfg: ExperimentConfig, out_dir: str, device="cuda",
         return _multi_frame_3d(cfg, out_dir, logger, device, resume)
     before = _launches({})
     summary = _MODES[cfg.mode](cfg, logger, device)
-    return logger.finish(**summary, device=str(device), kernel_launches=_launches(before))
+    return logger.finish(**summary, device=str(device), kernel_launches=_launches(before),
+                         **_counters())
 
 
 def main(argv=None):

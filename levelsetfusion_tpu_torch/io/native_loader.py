@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from levelsetfusion_tpu_torch.io.depth import DEPTH_UNIT_M
+from levelsetfusion_tpu_torch.utils.profiling import span
 
 _PACKAGE = Path(__file__).resolve().parents[1]
 SOURCE = _PACKAGE / "native" / "depth_io.cpp"
@@ -163,8 +164,9 @@ class DepthPrefetcher:
         if self._handle is None or self._consumed >= self._n:
             self.close()
             raise StopIteration
-        rc = self._lib.lsf_prefetcher_next(
-            self._handle, self._raw.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)))
+        with span("lsf.io.prefetch_wait"):
+            rc = self._lib.lsf_prefetcher_next(
+                self._handle, self._raw.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)))
         if rc == END:
             self.close()
             raise StopIteration

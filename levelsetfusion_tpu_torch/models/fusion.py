@@ -66,8 +66,10 @@ from levelsetfusion_tpu_torch.parallel.sharded2d import (
     warp_field_sharded2d,
 )
 from levelsetfusion_tpu_torch.utils.debug import check_displacement_contract
+from levelsetfusion_tpu_torch.utils.profiling import span
 
 TRUNCATION_EPS = 1e-5
+_END = object()  # a frame source's end
 
 
 class FusionState(NamedTuple):
@@ -201,13 +203,15 @@ def _dispatch(t, live, prev_state, init_warp, loops, config, solver) -> _Frame:
         loop = loop_for(loops, tuple(live.shape), solver, live.device)
         res = loop.solve(prev_state.canonical, live, init_warp)
         warp = res.warp
-    state = blend(prev_state, warp_field_cm(live, to_component_major(warp)))
-    return _Frame(t, state, warp, res.iterations, _pack_stats(res, state))
+    with span("lsf.frame.blend"):
+        state = blend(prev_state, warp_field_cm(live, to_component_major(warp)))
+        return _Frame(t, state, warp, res.iterations, _pack_stats(res, state))
 
 
 def _report(frame: _Frame) -> FrameReport:
     """Read the frame's packed statistics (its one host read)."""
-    band, energy, *md = frame.packed.tolist()
+    with span("lsf.frame.report_read"):
+        band, energy, *md = frame.packed.tolist()
     return FrameReport(
         frame_index=frame.index,
         solver_iterations=frame.iterations,
@@ -271,7 +275,13 @@ def fuse_sequence(
     device = torch.device(device)
     grid = config.grid
     frame_iter = iter(frames)
-    state = init_state(_tsdf(next(frame_iter), camera, config, device))
+
+    def next_frame(*end):
+        """The next depth image (else ``end``, where given)."""
+        with span("lsf.frame.next"):
+            return next(frame_iter, *end)
+
+    state = init_state(_tsdf(next_frame(), camera, config, device))
     warp = torch.zeros((*grid.shape, grid.dim), dtype=torch.float32, device=device)
     loops: Dict[tuple, SolveLoop] = {}
     pipelined = pipelined and not config.hierarchical
@@ -284,7 +294,9 @@ def fuse_sequence(
                                  reports[-1], config.solver)
 
     pending = None
-    for t, depth in enumerate(frame_iter, start=1):
+    t = 0
+    while (depth := next_frame(_END)) is not _END:
+        t += 1
         cur = _dispatch(t, _tsdf(depth, camera, config, device), state,
                         warp if config.warm_start else None, loops, config, config.solver)
         state, warp = cur.state, cur.warp

@@ -67,6 +67,7 @@ from levelsetfusion_tpu_torch.ops.kernels.fused_gradient import (
     to_component_major,
 )
 from levelsetfusion_tpu_torch.ops.kernels.resample import warp_field_cm
+from levelsetfusion_tpu_torch.utils.profiling import span
 
 # Iterations between two host reads of the done flag (one chunk, one graph
 # replay). Even, so that every replay starts from the same warp buffer.
@@ -167,6 +168,12 @@ class SolveLoop:
         self.replays = 0
         self._graph = None
         self.graph_launches = None  # {kernel module: calls its capture recorded}
+        with span("lsf.solve.build"):
+            self._build()
+
+    def _build(self) -> None:
+        """The state buffers and the kernels' fixed arguments."""
+        params = self.params
         f32 = dict(dtype=torch.float32, device=self.device)
         self.canonical = torch.zeros(self.shape, **f32)
         self.live = torch.zeros(self.shape, **f32)
@@ -268,19 +275,20 @@ class SolveLoop:
             j += 1
 
     def _capture(self) -> None:
-        stream = torch.cuda.Stream(self.device)
-        stream.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(stream):
-            # The frozen warm-up iteration: it changes no state.
-            self._iteration(0, torch.zeros((), dtype=torch.bool, device=self.device))
-        torch.cuda.current_stream(self.device).wait_stream(stream)
-        graph = torch.cuda.CUDAGraph()
-        kernels = (resample, fused_gradient)
-        before = [m.captured_count for m in kernels]
-        with torch.cuda.graph(graph, stream=stream):
-            self._chunk(0)
-        self.graph_launches = {m: m.captured_count - b for m, b in zip(kernels, before)}
-        self._graph = graph
+        with span("lsf.solve.capture"):
+            stream = torch.cuda.Stream(self.device)
+            stream.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(stream):
+                # The frozen warm-up iteration: it changes no state.
+                self._iteration(0, torch.zeros((), dtype=torch.bool, device=self.device))
+            torch.cuda.current_stream(self.device).wait_stream(stream)
+            graph = torch.cuda.CUDAGraph()
+            kernels = (resample, fused_gradient)
+            before = [m.captured_count for m in kernels]
+            with torch.cuda.graph(graph, stream=stream):
+                self._chunk(0)
+            self.graph_launches = {m: m.captured_count - b for m, b in zip(kernels, before)}
+            self._graph = graph
 
     def _replay(self) -> None:
         self._graph.replay()
@@ -293,6 +301,10 @@ class SolveLoop:
         """Optimize the warp aligning ``live`` to ``canonical`` (both
         ``self.shape``, float32, on ``self.device``) from ``initial_warp``
         (``(*self.shape, D)``, else zeros)."""
+        with span("lsf.solve"):
+            return self._solve(canonical, live, initial_warp)
+
+    def _solve(self, canonical, live, initial_warp) -> SolveResult:
         for name, t in (("canonical", canonical), ("live", live)):
             if tuple(t.shape) != self.shape or t.device != self.device:
                 raise ValueError(f"{name} {tuple(t.shape)} on {t.device}: this loop takes "
@@ -315,7 +327,7 @@ class SolveLoop:
         if debug.nan_checks_enabled():
             self._checked_iterations(debug.NonFiniteError)
         chunks = 0
-        while bool(self.active):  # the host's one read a chunk
+        while self._flag():  # the host's one read a chunk
             if not self.graphed:
                 self._chunk(chunks * self.check_every)
             else:
@@ -323,18 +335,24 @@ class SolveLoop:
                     self._capture()
                 self._replay()
             chunks += 1
-        iterations, converged = torch.stack(
-            [self.iteration, (self.max_update < self.threshold).long()]).tolist()
-        final = self.warps[iterations % 2]
-        return SolveResult(
-            warp=from_component_major(final.clone()),
-            iterations=iterations,
-            converged=bool(converged),
-            telemetry=SolveTelemetry(*self.telemetry[:, :self.n].clone()),
-            max_abs_displacement=torch.maximum(
-                self.max_disp, torch.amax(torch.abs(final), dim=self._spatial)
-            ),
-        )
+        with span("lsf.solve.result_read"):
+            iterations, converged = torch.stack(
+                [self.iteration, (self.max_update < self.threshold).long()]).tolist()
+            final = self.warps[iterations % 2]
+            return SolveResult(
+                warp=from_component_major(final.clone()),
+                iterations=iterations,
+                converged=bool(converged),
+                telemetry=SolveTelemetry(*self.telemetry[:, :self.n].clone()),
+                max_abs_displacement=torch.maximum(
+                    self.max_disp, torch.amax(torch.abs(final), dim=self._spatial)
+                ),
+            )
+
+    def _flag(self) -> bool:
+        """The host's read of the done flag."""
+        with span("lsf.solve.flag_read"):
+            return bool(self.active)
 
 
 def loop_for(loops, shape, params: SolverParams, device) -> SolveLoop:
@@ -364,7 +382,11 @@ def solve_single_level(
       params: solver parameters.
       initial_warp: optional warm start ``(*spatial, D)``, else zeros.
 
-    Runs on ``canonical``'s device: on CUDA through the captured graph.
+    Runs on ``canonical``'s device: on CUDA through the captured graph,
+    made for this call and freed at its end.
     """
-    return SolveLoop(canonical.shape, params, canonical.device).solve(
-        canonical, live, initial_warp)
+    loop = SolveLoop(canonical.shape, params, canonical.device)
+    result = loop.solve(canonical, live, initial_warp)
+    with span("lsf.solve.release"):
+        del loop
+    return result

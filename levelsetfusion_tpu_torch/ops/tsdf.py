@@ -35,6 +35,7 @@ import torch
 
 from levelsetfusion_tpu_torch.core.camera import Camera2d, PinholeCamera, transform_points
 from levelsetfusion_tpu_torch.core.grid import GridSpec, voxel_center_coordinates
+from levelsetfusion_tpu_torch.utils.profiling import span
 
 
 class GenerationMethod(enum.Enum):
@@ -155,6 +156,12 @@ def generate_tsdf_3d(
       grid: 3D grid spec (axes = x, y, z; z is the camera depth axis for the
         identity extrinsic).
     """
+    with span("lsf.tsdf"):
+        return _tsdf_3d(depth_image, camera, grid, extrinsic, narrow_band_width_voxels,
+                        method)
+
+
+def _tsdf_3d(depth_image, camera, grid, extrinsic, narrow_band_width_voxels, method):
     if grid.dim != 3:
         raise ValueError(f"generate_tsdf_3d needs a 3D grid, got {grid.shape}")
     band = 0.5 * narrow_band_width_voxels * grid.voxel_size

@@ -39,6 +39,7 @@ import torch
 import torch.distributed as dist
 
 from levelsetfusion_tpu_torch.parallel.mesh import Group, Mesh2D, MeshAxis, line
+from levelsetfusion_tpu_torch.utils.profiling import count, span
 
 FILLS = ("replicate", "zero", "truncation")
 
@@ -63,6 +64,10 @@ class PendingHalo:
         self._width, self._fill, self._axis = width, fill, axis
 
     def wait(self) -> torch.Tensor:
+        with span("lsf.halo.wait"):
+            return self._wait()
+
+    def _wait(self) -> torch.Tensor:
         for work in self._works:
             work.wait()
         self._works, self._ops = [], []
@@ -91,11 +96,18 @@ def halo_exchange(x: torch.Tensor, width: int, group: Group | MeshAxis,
     (every rank's block has ``x``'s extent)."""
     if fill not in FILLS:
         raise ValueError(f"unknown fill {fill!r}")
+    with span("lsf.halo.exchange"):
+        pending = _post(x, width, group, fill, axis)
+        return pending.wait() if wait else pending
+
+
+def _post(x, width, group, fill, axis) -> PendingHalo:
+    """``halo_exchange``'s sends and receives, posted."""
     n = x.shape[axis]
     ax = line(group)
     if width > n * ax.size:
         raise ValueError(f"halo of {width} slices exceeds the axis's {n * ax.size}")
-    works, ops, lefts, rights = [], [], [], []
+    works, ops, lefts, rights, sent = [], [], [], [], 0
     hops = -(-width // n) if ax.size > 1 else 0
     for k in range(1, hops + 1):
         w = min(n, width - (k - 1) * n)  # what the rank k steps away holds of the halo
@@ -110,10 +122,11 @@ def halo_exchange(x: torch.Tensor, width: int, group: Group | MeshAxis,
                                            memory_format=torch.contiguous_format))
             ops += [dist.P2POp(dist.isend, x.narrow(axis, n - w, w).contiguous(), hi),
                     dist.P2POp(dist.irecv, rights[-1], hi)]
+        sent += ((lo is not None) + (hi is not None)) * w * (x.numel() // n) * x.element_size()
     if ops:
+        count("halo.bytes_sent", sent)
         works = dist.batch_isend_irecv(ops)
-    pending = PendingHalo(works, ops, lefts, x, rights, width, fill, axis)
-    return pending.wait() if wait else pending
+    return PendingHalo(works, ops, lefts, x, rights, width, fill, axis)
 
 
 def exchange_2d(x: torch.Tensor, width: int, mesh: Mesh2D, fill: str = "replicate",
@@ -178,9 +191,10 @@ def _all_reduce(x: torch.Tensor, group, op) -> torch.Tensor:
         size, pg = group.world, None
     if size == 1:
         return x
-    x = x.clone()
-    dist.all_reduce(x, op=op, group=pg)
-    return x
+    with span("lsf.reduce"):
+        x = x.clone()
+        dist.all_reduce(x, op=op, group=pg)
+        return x
 
 
 def psum_axis(x: torch.Tensor, group) -> torch.Tensor:

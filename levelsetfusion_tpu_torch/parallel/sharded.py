@@ -60,6 +60,7 @@ from levelsetfusion_tpu_torch.ops.kernels.fused_gradient import (
 from levelsetfusion_tpu_torch.ops.kernels.resample import warp_field_cm
 from levelsetfusion_tpu_torch.parallel.halo import halo_exchange, pmax_axis, psum_axis
 from levelsetfusion_tpu_torch.parallel.mesh import Group
+from levelsetfusion_tpu_torch.utils.profiling import span
 
 # Telemetry rows from B2's stats (data, smoothing and level-set energies,
 # sum and max of ‖δu‖): data, smoothing, level set, max, sum (the mean
@@ -138,6 +139,11 @@ def sync_rounds(step, warp: torch.Tensor, params: SolverParams, group,
     (B2's), in rounds of k iterations with one reduction of each kind over
     ``group`` (a ``Group`` or a ``Mesh2D``'s both axes) and one host read a
     round, the telemetry reduced once after the loop."""
+    with span("lsf.solve"):
+        return _rounds(step, warp, params, group, num_voxels)
+
+
+def _rounds(step, warp, params, group, num_voxels) -> SolveResult:
     device = warp.device
     k = max(1, params.termination_check_interval)
     n_iter = -(-params.max_iterations // k) * k
@@ -162,7 +168,8 @@ def sync_rounds(step, warp: torch.Tensor, params: SolverParams, group,
             energy = psum_axis(stats[0] + stats[1] + stats[2], group)
             rate = torch.where(energy > prev_energy, rate * 0.5, rate)
             prev_energy = energy
-        max_up = float(max_up_dev)
+        with span("lsf.solve.flag_read"):
+            max_up = float(max_up_dev)
 
     max_disp = pmax_axis(torch.maximum(max_disp, torch.amax(torch.abs(warp), dim=spatial)),
                          group)

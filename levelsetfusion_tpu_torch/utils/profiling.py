@@ -2,10 +2,20 @@
 
 - ``sync``: ``torch.cuda.synchronize`` (JAX's fetched a scalar, since
   ``block_until_ready`` did nothing on its remote TPU).
-- ``device_time``: CUDA events around a call, a warm-up first, the minimum
-  of ``repeats``. It measures the card or raises: no host-clock fallback.
 - ``trace``: a ``torch.profiler`` trace (CUDA activity where CUDA is up)
   written as a Chrome trace into a directory (the CLI's ``--profile``).
+- ``span`` and ``count``: the program's own spans and counters, recorded
+  only while a ``torch.profiler`` runs (``trace``, or any other profiler of
+  the process). A span is a profiler range (``RecordFunctionFast``: a
+  host event on the profiler's own clock, beside the device events it
+  launched, kept in memory until the profiler stops, with no device-side
+  copy of itself); it also adds its call and its host seconds to
+  ``spans()``. With no profiler running a span is one
+  ``_profiler_enabled()`` check and a shared no-op context, and a count
+  adds nothing. ``counters()`` and ``spans()`` give what was recorded;
+  ``trace`` clears both on entry. Spans sit at request, chunk and exchange
+  boundaries, never inside a solver iteration or a captured chunk; their
+  names start with ``lsf.`` (the CLI's docstring lists them).
 - ``solver_roofline``: one solver iteration's time against the least time
   the card could take for its bytes, priced for the H100 (NVIDIA H100
   80GB HBM3 at a 700 W power limit: 3.35 TB/s).
@@ -15,7 +25,8 @@ from __future__ import annotations
 
 import contextlib
 import os
-from typing import Callable, Dict
+import time
+from typing import Dict, List
 
 import torch
 
@@ -28,33 +39,70 @@ def sync(device=None) -> None:
     torch.cuda.synchronize(device)
 
 
-def device_time(fn: Callable, *args, repeats: int = 5) -> float:
-    """Seconds of ``fn(*args)`` on the card: CUDA events around each call
-    after one warm-up call, the minimum of ``repeats``."""
-    if not torch.cuda.is_available():
-        raise RuntimeError("device_time measures the card: CUDA is not available")
-    fn(*args)
-    sync()
-    best = float("inf")
-    for _ in range(repeats):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn(*args)
-        end.record()
-        end.synchronize()
-        best = min(best, start.elapsed_time(end) / 1e3)
-    return best
+_NO_SPAN = contextlib.nullcontext()
+_COUNTS: Dict[str, int] = {}
+_SPANS: Dict[str, List[float]] = {}  # name -> [calls, host seconds]
+
+
+class _Span:
+    """A profiler range ``name`` that adds its call and host time to
+    ``spans()``."""
+
+    __slots__ = ("_name", "_range", "_t0")
+
+    def __init__(self, name: str):
+        self._name = name
+        self._range = torch._C._profiler._RecordFunctionFast(name)
+
+    def __enter__(self):
+        self._range.__enter__()
+        self._t0 = time.perf_counter()
+
+    def __exit__(self, *exc):
+        seconds = time.perf_counter() - self._t0
+        self._range.__exit__(*exc)
+        total = _SPANS.setdefault(self._name, [0, 0.0])
+        total[0] += 1
+        total[1] += seconds
+
+
+def span(name: str):
+    """A profiler range ``name`` while a profiler runs, else a shared no-op
+    context."""
+    if not torch._C._autograd._profiler_enabled():
+        return _NO_SPAN
+    return _Span(name)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to counter ``name`` while a profiler runs."""
+    if torch._C._autograd._profiler_enabled():
+        _COUNTS[name] = _COUNTS.get(name, 0) + n
+
+
+def counters() -> Dict[str, int]:
+    """The counts made while a profiler ran (since ``trace`` last began)."""
+    return dict(_COUNTS)
+
+
+def spans() -> Dict[str, Dict[str, float]]:
+    """Each span name's ``calls`` and ``host_s`` while a profiler ran (since
+    ``trace`` last began)."""
+    return {name: {"calls": int(c), "host_s": s} for name, (c, s) in _SPANS.items()}
 
 
 @contextlib.contextmanager
 def trace(log_dir: str):
     """``torch.profiler`` over the scope, CPU and (where CUDA is up) CUDA
     activity; on exit the Chrome trace is written to
-    ``<log_dir>/trace.json``."""
+    ``<log_dir>/trace.json``. The program's counters and span totals start
+    from zero."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
+    _COUNTS.clear()
+    _SPANS.clear()
     with torch.profiler.profile(activities=activities) as prof:
         yield prof
     if torch.cuda.is_available():

@@ -1,0 +1,199 @@
+"""The port's own spans and counters (``utils/profiling.py``): with no
+profiler running a span is one check and a shared no-op context and a count
+adds nothing; under ``torch.profiler`` each span appears where the program
+says it does (the solve loop, the fusion frame, the native prefetcher, the
+halo exchange), ``spans()`` totals them, ``halo.bytes_sent`` counts the
+bytes handed to ``isend``, and the CLI's ``--profile`` writes the counters
+into its summary."""
+
+import collections
+import dataclasses
+import json
+import math
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from levelsetfusion_tpu_torch import cli
+from levelsetfusion_tpu_torch.core.grid import GridSpec
+from levelsetfusion_tpu_torch.io import depth, native_loader, synthetic
+from levelsetfusion_tpu_torch.models import fusion
+from levelsetfusion_tpu_torch.models.params import SmoothingMode, SolverParams
+from levelsetfusion_tpu_torch.models.single_level import (
+    CHECK_EVERY,
+    SolveLoop,
+    solve_single_level,
+)
+from levelsetfusion_tpu_torch.utils import profiling
+from levelsetfusion_tpu_torch.utils.config import PRESETS
+from tests.torch_ranks import run_ranks
+
+
+def _profiled(fn, tmp_path):
+    """``fn()``'s result and the ``lsf.`` spans the profiler recorded while
+    it ran, by name; ``spans()`` counts the same calls."""
+    with profiling.trace(str(tmp_path)) as prof:
+        out = fn()
+    spans = _spans(prof)
+    assert {n: s["calls"] for n, s in profiling.spans().items()} == spans
+    return out, spans
+
+
+def _spans(prof):
+    """A stopped profiler's ``lsf.`` spans, by name."""
+    names = (e.name() for e in prof.profiler.kineto_results.events())
+    return collections.Counter(n for n in names if n.startswith("lsf."))
+
+
+def _pair(shape=(10, 8, 6), seed=0):
+    base = np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+    return (torch.from_numpy(np.tanh(base * 0.3)),
+            torch.from_numpy(np.tanh(np.roll(base, 1, 0) * 0.3)))
+
+
+def test_span_without_a_profiler_is_one_check(monkeypatch):
+    calls = []
+    real = torch._C._autograd._profiler_enabled
+
+    def enabled():
+        calls.append(1)
+        return real()
+
+    def refused(name):
+        raise AssertionError("a profiler range made with no profiler running")
+
+    monkeypatch.setattr(torch._C._autograd, "_profiler_enabled", enabled)
+    monkeypatch.setattr(torch._C._profiler, "_RecordFunctionFast", refused)
+    monkeypatch.setattr(torch.profiler, "record_function", refused)
+    before = profiling.counters(), profiling.spans()
+    ctx = profiling.span("lsf.test")
+    assert calls == [1]
+    assert ctx is profiling.span("lsf.other")
+    with ctx:
+        pass
+    profiling.count("test.count", 5)
+    assert (profiling.counters(), profiling.spans()) == before
+
+
+def test_count_and_spans_only_under_a_profiler(tmp_path):
+    profiling.count("test.count", 3)
+    with profiling.span("lsf.test"):
+        pass
+    assert "test.count" not in profiling.counters() and "lsf.test" not in profiling.spans()
+    with profiling.trace(str(tmp_path)):
+        profiling.count("test.count", 3)
+        profiling.count("test.count")
+        for _ in range(3):
+            with profiling.span("lsf.test"):
+                pass
+    assert profiling.counters()["test.count"] == 4
+    assert profiling.spans()["lsf.test"]["calls"] == 3
+    assert 0 < profiling.spans()["lsf.test"]["host_s"] < 1
+    with profiling.trace(str(tmp_path)):  # a trace starts from zero
+        assert profiling.counters() == {} and profiling.spans() == {}
+
+
+@pytest.mark.parametrize("iterations,threshold", [(40, 0.0), (16, 0.0), (60, 2e-2)])
+def test_solve_spans(iterations, threshold, tmp_path):
+    """solve_single_level (its loop eager on the CPU): the loop's build, the
+    solve, one flag read before the first chunk and one after each, the
+    result read and the release."""
+    c, l = _pair()
+    params = SolverParams(max_iterations=iterations, learning_rate=0.3,
+                          convergence_threshold=threshold)
+    res, spans = _profiled(lambda: solve_single_level(c, l, params), tmp_path)
+    chunks = math.ceil(res.iterations / CHECK_EVERY)
+    assert threshold > 0 or res.iterations == iterations
+    assert spans == {"lsf.solve.build": 1, "lsf.solve": 1, "lsf.solve.flag_read": chunks + 1,
+                     "lsf.solve.result_read": 1, "lsf.solve.release": 1}
+    loop = SolveLoop(c.shape, params, c.device, graph=False)
+    again, spans = _profiled(lambda: loop.solve(c, l), tmp_path)
+    assert again.iterations == res.iterations and torch.equal(again.warp, res.warp)
+    assert spans == {"lsf.solve": 1, "lsf.solve.flag_read": chunks + 1,
+                     "lsf.solve.result_read": 1}
+
+
+SEQ = dict(num_frames=4, width=48, height=48, blob_radius_px=10.0, blob_height=0.05,
+           drift_px_per_frame=(1.5, 0.0), pulse_amplitude=0.1)
+
+
+def _fusion_config():
+    return fusion.FusionPipelineConfig(
+        grid=GridSpec(shape=(24, 24, 16), voxel_size=0.008, offset=(-12, -12, 46)),
+        hierarchical=False,
+        solver=SolverParams(smoothing_mode=SmoothingMode.KILLING, max_iterations=18,
+                            learning_rate=0.5, smoothing_term_weight=0.1,
+                            convergence_threshold=0.0))
+
+
+@pytest.mark.parametrize("pipelined", [True, False])
+def test_fusion_frame_spans(pipelined, tmp_path):
+    """fuse_sequence over 4 frames: a TSDF and a frame read each (and the
+    read that finds the end), and for frames 1-3 a solve, a blend and a
+    report read; one loop build for the sequence."""
+    seq = synthetic.snoopy_style_sequence_3d(**SEQ)
+    cfg = _fusion_config()
+    res, spans = _profiled(lambda: fusion.fuse_sequence(
+        seq.frames, seq.camera, cfg, device="cpu", pipelined=pipelined), tmp_path)
+    n = len(seq.frames)
+    assert len(res.reports) == n - 1
+    reads = sum(math.ceil(r.solver_iterations / CHECK_EVERY) + 1 for r in res.reports)
+    assert spans == {"lsf.frame.next": n + 1, "lsf.tsdf": n, "lsf.solve.build": 1,
+                     "lsf.solve": n - 1, "lsf.solve.flag_read": reads,
+                     "lsf.solve.result_read": n - 1, "lsf.frame.blend": n - 1,
+                     "lsf.frame.report_read": n - 1}
+
+
+def test_prefetch_wait_once_a_frame(tmp_path):
+    if not native_loader.native_available():
+        pytest.skip("the native depth loader needs a C++ compiler")
+    frames = synthetic.snoopy_style_sequence_3d(**SEQ).frames
+    paths = []
+    for t, frame in enumerate(frames):
+        paths.append(str(tmp_path / f"depth_{t:06d}.png"))
+        depth.save_depth_png(paths[-1], np.asarray(frame))
+    pf = native_loader.DepthPrefetcher(paths, width=48, height=48)
+    got, spans = _profiled(lambda: list(pf), tmp_path)
+    assert len(got) == len(paths)
+    assert spans == {"lsf.io.prefetch_wait": len(paths)}
+
+
+HALO_CASES = [((6, 5, 4), 2, 0, True), ((6, 5, 4), 8, 0, False), ((4, 7, 3), 3, 1, True)]
+
+
+@pytest.fixture(scope="module")
+def halo_ranks(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("halo_bytes")
+    return run_ranks("tests.torch_ranks.halo_bytes_cases", 2, tmp,
+                     {"cases": HALO_CASES, "log_dir": str(tmp / "traces")})
+
+
+@pytest.mark.parametrize("case", range(len(HALO_CASES)))
+def test_halo_bytes_sent(halo_ranks, case):
+    """On 2 gloo ranks each rank has one neighbour: the count equals the
+    bytes handed to isend, width slices of the block (both blocks' when the
+    halo is wider than one), with one exchange, one wait and one reduction
+    span."""
+    shape, width, axis, _ = HALO_CASES[case]
+    plane = np.prod(shape) // shape[axis] * 4
+    for counted, handed, spans in (rank[case] for rank in halo_ranks):
+        assert counted == handed == min(width, shape[axis]) * plane
+        assert spans == {"lsf.halo.exchange": 1, "lsf.halo.wait": 1, "lsf.reduce": 1}
+
+
+def test_cli_profile_writes_counters(tmp_path):
+    cfg = PRESETS["config1_2d_pair"]
+    cfg = dataclasses.replace(cfg, solver=cfg.solver.replace(max_iterations=25))
+    path = tmp_path / "c1.json"
+    path.write_text(cfg.to_json())
+    out = tmp_path / "run"
+    assert cli.main(["--config", str(path), "--out", str(out), "--device", "cpu",
+                     "--profile"]) == 0
+    with open(out / "summary.json") as f:
+        assert json.load(f)["counters"] == {}  # one device: no halo exchange
+    with open(os.path.join(out, "trace", "trace.json")) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"lsf.solve.build", "lsf.solve", "lsf.solve.flag_read",
+            "lsf.solve.result_read", "lsf.solve.release"} <= names

@@ -322,3 +322,44 @@ def dryrun_case(group, args):
     from levelsetfusion_tpu_torch.dryrun import dryrun_multichip
 
     return dryrun_multichip(group)
+
+
+def halo_bytes_cases(group, args):
+    """Each exchange of ``args["cases"]`` (``(shape, width, axis, wait)``)
+    on a seeded block under ``torch.profiler``: the program's
+    ``halo.bytes_sent`` count, the bytes of every tensor the exchange handed
+    to ``isend`` (read at ``dist.batch_isend_irecv``) and the ``lsf.``
+    spans recorded, by name."""
+    import collections
+
+    import torch.distributed as dist
+
+    from levelsetfusion_tpu_torch.parallel import halo
+    from levelsetfusion_tpu_torch.utils import profiling
+
+    handed = []
+    real = dist.batch_isend_irecv
+
+    def spy(ops):
+        handed.append(sum(op.tensor.nbytes for op in ops if op.op is dist.isend))
+        return real(ops)
+
+    dist.batch_isend_irecv = spy
+    out = []
+    try:
+        for shape, width, axis, wait in args["cases"]:
+            x = torch.randn(shape, generator=torch.Generator().manual_seed(group.rank))
+            handed.clear()
+            with profiling.trace(args["log_dir"] + f"/rank{group.rank}") as prof:
+                got = halo.halo_exchange(x, width, group, axis=axis, wait=wait)
+                if not wait:
+                    got.wait()
+                halo.psum_axis(x.sum().view(1), group)
+            names = collections.Counter(
+                n for n in (e.name() for e in prof.profiler.kineto_results.events())
+                if n.startswith("lsf."))
+            out.append((profiling.counters().get("halo.bytes_sent", 0), sum(handed),
+                        dict(names)))
+    finally:
+        dist.batch_isend_irecv = real
+    return out
