@@ -21,14 +21,18 @@ at the voxel of the largest band residual (reduced on the device);
 ``--profile`` writes a ``torch.profiler`` trace to ``<out>/trace/``, with
 the program's spans in it (``utils/profiling.py::span``), and its counters
 into the summary (``counters``: ``halo.bytes_sent``, the bytes the halo
-exchanges handed to ``isend``). The spans:
+exchanges handed to ``isend``; ``solve.loop_kept`` and ``solve.loop_built``,
+the ``solve_single_level`` calls that reused the kept solve loop and those
+that built one). The spans:
 
 - ``lsf.tsdf``: one TSDF generation;
 - ``lsf.solve``: one solve; inside it ``lsf.solve.capture`` (the CUDA
   graph's warm-up, capture and instantiation), ``lsf.solve.flag_read`` (a
   host read of the done flag) and ``lsf.solve.result_read``;
-- ``lsf.solve.build``: a solve loop's state buffers; ``lsf.solve.release``:
-  ``solve_single_level``'s loop and graph freed after its solve;
+- ``lsf.solve.build``: ``solve_single_level``'s look-up of its kept loop,
+  one a call (where it misses: the old loop's release and the new loop's
+  state buffers), or a new loop's state buffers in ``loop_for``;
+  ``lsf.solve.release``: ``release_kept_loops``;
 - ``lsf.frame.next``: waiting for a frame; ``lsf.frame.blend``: a frame's
   resample, blend and stats pack; ``lsf.frame.report_read``: its stats read;
 - ``lsf.io.prefetch_wait``: blocked on the native decode queue;

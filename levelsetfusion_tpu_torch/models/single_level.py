@@ -47,10 +47,19 @@ loop. On the CPU, or with ``SolveLoop(..., graph=False)``, the same chunk
 runs eagerly. A capture or replay that fails raises. Under
 ``utils.debug.nan_checks`` every solve runs serially instead, checked for
 NaN and Inf each iteration.
+
+``solve_single_level`` keeps its loop: each thread holds at most one loop a
+device, and a call of the kept loop's shape and ``SolverParams`` reuses it
+(no build, no capture), while any other call releases it and builds its
+own. So the last loop, its state buffers and on CUDA its graph and graph
+pool, stays on the device after the call returns, until a call of another
+key or ``release_kept_loops``. ``solve`` resets every state buffer and
+returns copies, so a reused loop gives a new loop's results exactly.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -67,7 +76,7 @@ from levelsetfusion_tpu_torch.ops.kernels.fused_gradient import (
     to_component_major,
 )
 from levelsetfusion_tpu_torch.ops.kernels.resample import warp_field_cm
-from levelsetfusion_tpu_torch.utils.profiling import span
+from levelsetfusion_tpu_torch.utils.profiling import count, span
 
 # Iterations between two host reads of the done flag (one chunk, one graph
 # replay). Even, so that every replay starts from the same warp buffer.
@@ -168,8 +177,7 @@ class SolveLoop:
         self.replays = 0
         self._graph = None
         self.graph_launches = None  # {kernel module: calls its capture recorded}
-        with span("lsf.solve.build"):
-            self._build()
+        self._build()
 
     def _build(self) -> None:
         """The state buffers and the kernels' fixed arguments."""
@@ -361,11 +369,53 @@ def loop_for(loops, shape, params: SolverParams, device) -> SolveLoop:
     of other parameters or on another device is refused."""
     loop = loops.get(shape)
     if loop is None:
-        loop = loops[shape] = SolveLoop(shape, params, device)
+        with span("lsf.solve.build"):
+            loop = loops[shape] = SolveLoop(shape, params, device)
     elif loop.params != params or loop.device != device:
         raise ValueError(f"the loop for {shape} runs {loop.params} on {loop.device}, "
                          f"not {params} on {device}")
     return loop
+
+
+_kept = threading.local()  # .loops: {device: (SolveLoop, the stream of its last call)}
+
+
+def _kept_loops() -> dict:
+    """The calling thread's kept loops, by device."""
+    if not hasattr(_kept, "loops"):
+        _kept.loops = {}
+    return _kept.loops
+
+
+def _kept_loop(shape, params: SolverParams, device) -> SolveLoop:
+    """The calling thread's kept loop on ``device`` if it solves ``shape``
+    with ``params``, else a new loop kept in its place, the old one released
+    first (one loop a device at a time). A reused loop's last call may have
+    run on another CUDA stream, still reading its buffers: this call's
+    stream waits for it."""
+    loops = _kept_loops()
+    stream = torch.cuda.current_stream(device) if device.type == "cuda" else None
+    with span("lsf.solve.build"):
+        loop, last = loops.get(device, (None, None))
+        if loop is not None and loop.shape == shape and loop.params == params:
+            if last != stream:
+                stream.wait_stream(last)
+            loops[device] = (loop, stream)
+            count("solve.loop_kept")
+            return loop
+        loops.pop(device, None)
+        del loop, last  # freed before the new loop allocates
+        loop = SolveLoop(shape, params, device)
+        loops[device] = (loop, stream)
+        count("solve.loop_built")
+        return loop
+
+
+def release_kept_loops() -> None:
+    """Release the calling thread's kept loops: their state buffers and, on
+    CUDA, their graphs and graph pools."""
+    with span("lsf.solve.release"):
+        _kept_loops().clear()
 
 
 def solve_single_level(
@@ -382,11 +432,9 @@ def solve_single_level(
       params: solver parameters.
       initial_warp: optional warm start ``(*spatial, D)``, else zeros.
 
-    Runs on ``canonical``'s device: on CUDA through the captured graph,
-    made for this call and freed at its end.
+    Runs on ``canonical``'s device, in the calling thread's kept loop there
+    (on CUDA through its captured graph), built here where the kept loop
+    solves another shape or other ``params``.
     """
-    loop = SolveLoop(canonical.shape, params, canonical.device)
-    result = loop.solve(canonical, live, initial_warp)
-    with span("lsf.solve.release"):
-        del loop
-    return result
+    loop = _kept_loop(tuple(canonical.shape), params, canonical.device)
+    return loop.solve(canonical, live, initial_warp)

@@ -25,6 +25,10 @@ import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 
 
+def pytest_configure(config):
+    config.addinivalue_line("markers", "card: needs an NVIDIA GPU (skips without one)")
+
+
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)

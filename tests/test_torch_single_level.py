@@ -10,6 +10,7 @@ rtol 3e-4 atol 3e-6, telemetry rtol 2e-4 atol 1e-8; iteration counts and
 same plain versions run the same float operations in the same order."""
 
 import dataclasses
+import threading
 
 import jax.numpy as jnp
 import numpy as np
@@ -20,10 +21,12 @@ from levelsetfusion_tpu.models import params as jparams
 from levelsetfusion_tpu.models.single_level import solve_single_level as jsolve
 from levelsetfusion_tpu.utils.config import PRESETS as JPRESETS
 from levelsetfusion_tpu_torch.models import params as tparams
-from levelsetfusion_tpu_torch.models.single_level import SolveLoop
+from levelsetfusion_tpu_torch.models import single_level
+from levelsetfusion_tpu_torch.models.single_level import SolveLoop, release_kept_loops
 from levelsetfusion_tpu_torch.models.single_level import solve_single_level as tsolve
 from levelsetfusion_tpu_torch.ops import sobolev
 from levelsetfusion_tpu_torch.ops.gradient import energy_gradient
+from levelsetfusion_tpu_torch.ops.kernels import fused_gradient, resample
 from levelsetfusion_tpu_torch.ops.kernels.fused_gradient import (
     fused_gradient_update,
     fused_gradient_update_reference,
@@ -222,6 +225,122 @@ def test_loop_serves_a_sequence_of_solves():
         np.testing.assert_array_equal(n(got.warp), n(want.warp))
         for a, b in zip(got.telemetry, want.telemetry):
             np.testing.assert_array_equal(n(a), n(b))
+
+
+def _kept_pairs(shape, seeds):
+    pairs = [tuple(t(a) for a in tsdf_like(shape, seed, warp_scale=0.3)) for seed in seeds]
+    return [(c, l, w if i % 2 == 0 else None) for i, (c, l, w) in enumerate(pairs)]
+
+
+def _assert_same(got, want):
+    assert (got.iterations, got.converged) == (want.iterations, want.converged)
+    for a, b in zip((got.warp, got.max_abs_displacement, *got.telemetry),
+                    (want.warp, want.max_abs_displacement, *want.telemetry)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("shape", [(12, 10, 8), (14, 10)])
+def test_kept_loop_gives_a_new_loops_results(shape):
+    """Three solves in a row with one key, a warm start and then none, each
+    equal to a new loop's exactly: nothing of one call leaks into the next,
+    and a result returned earlier does not change after later calls."""
+    release_kept_loops()
+    tp = _params(max_iterations=20, convergence_threshold=0.02)[1]
+    pairs = _kept_pairs(shape, (70, 71, 72))
+    got, copies = [], []
+    for c, l, w in pairs:
+        got.append(tsolve(c, l, tp, w))
+        copies.append([x.clone() for x in (got[-1].warp, got[-1].max_abs_displacement,
+                                           *got[-1].telemetry)])
+    for res, (c, l, w), copy in zip(got, pairs, copies):
+        _assert_same(res, SolveLoop(shape, tp, "cpu", graph=False).solve(c, l, w))
+        assert all(torch.equal(a, b) for a, b in zip(
+            (res.warp, res.max_abs_displacement, *res.telemetry), copy))
+
+
+def _counted(fn, tmp_path):
+    """``fn()``'s result, the counters and the span names recorded while it ran."""
+    from levelsetfusion_tpu_torch.utils import profiling
+
+    with profiling.trace(str(tmp_path)):
+        out = fn()
+    return out, profiling.counters(), set(profiling.spans())
+
+
+def test_kept_loop_is_reused_and_replaced(tmp_path):
+    """A call with the kept loop's key builds nothing (counted as kept, no
+    capture); one of another shape or other params releases it and builds
+    its own; ``release_kept_loops`` empties the slot."""
+    release_kept_loops()
+    assert single_level._kept_loops() == {}
+    tp = _params(max_iterations=8, convergence_threshold=0.0)[1]
+    (c, l, _), = _kept_pairs((12, 10, 8), (80,))
+    (c2, l2, _), = _kept_pairs((10, 10, 8), (81,))
+    cpu = torch.device("cpu")
+
+    def kept():
+        return single_level._kept_loops()[cpu][0]
+
+    _, counts, _ = _counted(lambda: tsolve(c, l, tp), tmp_path)
+    first = kept()
+    assert counts == {"solve.loop_built": 1} and first.shape == (12, 10, 8)
+    _, counts, spans = _counted(lambda: tsolve(c, l, tp), tmp_path)
+    assert counts == {"solve.loop_kept": 1} and kept() is first
+    assert "lsf.solve.capture" not in spans
+    for args in ((c2, l2, tp), (c, l, tp.replace(learning_rate=0.2))):
+        _, counts, _ = _counted(lambda: tsolve(*args), tmp_path)
+        assert counts == {"solve.loop_built": 1} and kept() is not first
+        assert len(single_level._kept_loops()) == 1
+        first = kept()
+    assert first.params == tp.replace(learning_rate=0.2)
+    release_kept_loops()
+    assert single_level._kept_loops() == {}
+
+
+def test_each_thread_keeps_its_own_loop():
+    """Two threads solving with one key at once each build and keep a loop
+    of their own, and give the answers of solving one after the other."""
+    tp = _params(max_iterations=12, convergence_threshold=0.0)[1]
+    pairs = _kept_pairs((12, 10, 8), (90, 91))
+    serial = [SolveLoop((12, 10, 8), tp, "cpu").solve(c, l, w) for c, l, w in pairs]
+    barrier, got, loops = threading.Barrier(2), [None, None], [None, None]
+
+    def solve(i):
+        barrier.wait(timeout=60)
+        got[i] = tsolve(*pairs[i][:2], tp, pairs[i][2])
+        loops[i] = single_level._kept_loops()[torch.device("cpu")][0]
+
+    threads = [threading.Thread(target=solve, args=(i,)) for i in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=120)
+        assert not th.is_alive()
+    assert loops[0] is not None and loops[0] is not loops[1]
+    for res, want in zip(got, serial):
+        _assert_same(res, want)
+
+
+@pytest.mark.card
+def test_kept_loop_captures_once_on_the_card(tmp_path):
+    """On the card the second call of one key replays the kept graph:
+    no capture, ``captured_count`` unchanged, the first call's answer, also
+    from another stream than the first call's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA is not available here")
+    release_kept_loops()
+    tp = _params(max_iterations=40, convergence_threshold=0.0)[1]
+    (c, l, w), = _kept_pairs((32, 32, 24), (95,))
+    c, l, w = c.cuda(), l.cuda(), w.cuda()
+    first = tsolve(c, l, tp, w)
+    captured = (fused_gradient.captured_count, resample.captured_count)
+    with torch.cuda.stream(torch.cuda.Stream()):
+        again, counts, spans = _counted(lambda: tsolve(c, l, tp, w), tmp_path)
+        torch.cuda.current_stream().synchronize()
+    assert (fused_gradient.captured_count, resample.captured_count) == captured
+    assert counts == {"solve.loop_kept": 1} and "lsf.solve.capture" not in spans
+    _assert_same(again, first)
+    release_kept_loops()
 
 
 def test_flag_off_leaves_outputs_unwritten():

@@ -24,6 +24,7 @@ from levelsetfusion_tpu_torch.models.params import SmoothingMode, SolverParams
 from levelsetfusion_tpu_torch.models.single_level import (
     CHECK_EVERY,
     SolveLoop,
+    release_kept_loops,
     solve_single_level,
 )
 from levelsetfusion_tpu_torch.utils import profiling
@@ -97,22 +98,38 @@ def test_count_and_spans_only_under_a_profiler(tmp_path):
 
 @pytest.mark.parametrize("iterations,threshold", [(40, 0.0), (16, 0.0), (60, 2e-2)])
 def test_solve_spans(iterations, threshold, tmp_path):
-    """solve_single_level (its loop eager on the CPU): the loop's build, the
-    solve, one flag read before the first chunk and one after each, the
-    result read and the release."""
+    """solve_single_level (its loop eager on the CPU): one look-up of the
+    kept loop, which builds it on a miss and nothing on a hit, the solve,
+    one flag read before the first chunk and one after each and the result
+    read; a call of other params misses again. A loop of the caller's own
+    records no look-up; ``release_kept_loops`` records the release."""
     c, l = _pair()
     params = SolverParams(max_iterations=iterations, learning_rate=0.3,
                           convergence_threshold=threshold)
-    res, spans = _profiled(lambda: solve_single_level(c, l, params), tmp_path)
+    release_kept_loops()
+
+    def profiled(fn):
+        out, spans = _profiled(fn, tmp_path)
+        return out, spans, profiling.counters()
+
+    res, spans, counts = profiled(lambda: solve_single_level(c, l, params))
     chunks = math.ceil(res.iterations / CHECK_EVERY)
     assert threshold > 0 or res.iterations == iterations
-    assert spans == {"lsf.solve.build": 1, "lsf.solve": 1, "lsf.solve.flag_read": chunks + 1,
-                     "lsf.solve.result_read": 1, "lsf.solve.release": 1}
-    loop = SolveLoop(c.shape, params, c.device, graph=False)
-    again, spans = _profiled(lambda: loop.solve(c, l), tmp_path)
+    solve = {"lsf.solve": 1, "lsf.solve.flag_read": chunks + 1, "lsf.solve.result_read": 1}
+    assert (spans, counts) == ({"lsf.solve.build": 1, **solve}, {"solve.loop_built": 1})
+    again, spans, counts = profiled(lambda: solve_single_level(c, l, params))
     assert again.iterations == res.iterations and torch.equal(again.warp, res.warp)
-    assert spans == {"lsf.solve": 1, "lsf.solve.flag_read": chunks + 1,
-                     "lsf.solve.result_read": 1}
+    assert (spans, counts) == ({"lsf.solve.build": 1, **solve}, {"solve.loop_kept": 1})
+    other = params.replace(learning_rate=0.2)
+    _, spans, counts = profiled(lambda: solve_single_level(c, l, other))
+    assert spans["lsf.solve.build"] == 1 and "lsf.solve.release" not in spans
+    assert counts == {"solve.loop_built": 1}
+    loop = SolveLoop(c.shape, params, c.device, graph=False)
+    again, spans, counts = profiled(lambda: loop.solve(c, l))
+    assert again.iterations == res.iterations and torch.equal(again.warp, res.warp)
+    assert (spans, counts) == (solve, {})
+    _, spans, counts = profiled(release_kept_loops)
+    assert (spans, counts) == ({"lsf.solve.release": 1}, {})
 
 
 SEQ = dict(num_frames=4, width=48, height=48, blob_radius_px=10.0, blob_height=0.05,
@@ -189,11 +206,12 @@ def test_cli_profile_writes_counters(tmp_path):
     path = tmp_path / "c1.json"
     path.write_text(cfg.to_json())
     out = tmp_path / "run"
+    release_kept_loops()
     assert cli.main(["--config", str(path), "--out", str(out), "--device", "cpu",
                      "--profile"]) == 0
-    with open(out / "summary.json") as f:
-        assert json.load(f)["counters"] == {}  # one device: no halo exchange
+    with open(out / "summary.json") as f:  # one device: no halo exchange
+        assert json.load(f)["counters"] == {"solve.loop_built": 1}
     with open(os.path.join(out, "trace", "trace.json")) as f:
         names = {e.get("name") for e in json.load(f)["traceEvents"]}
     assert {"lsf.solve.build", "lsf.solve", "lsf.solve.flag_read",
-            "lsf.solve.result_read", "lsf.solve.release"} <= names
+            "lsf.solve.result_read"} <= names
