@@ -23,9 +23,10 @@ the program's spans in it (``utils/profiling.py::span``), and its counters
 into the summary (``counters``: ``halo.bytes_sent``, the bytes the halo
 exchanges handed to ``isend``; ``solve.loop_kept`` and ``solve.loop_built``,
 the ``solve_single_level`` calls that reused the kept solve loop and those
-that built one). The spans:
+that built one; on CUDA ``solve.graph_kernels`` and ``solve.graph_iterations``,
+the kernels and the iterations of the captured chunks replayed). The spans:
 
-- ``lsf.tsdf``: one TSDF generation;
+- ``lsf.tsdf``: one TSDF generation, 2D or 3D;
 - ``lsf.solve``: one solve; inside it ``lsf.solve.capture`` (the CUDA
   graph's warm-up, capture and instantiation), ``lsf.solve.flag_read`` (a
   host read of the done flag) and ``lsf.solve.result_read``;

@@ -42,7 +42,7 @@ iterations it lies in buffer ``iterations % 2``.
 
 On CUDA the chunk is captured once as a CUDA graph and replayed: the
 Python work of ~20 ops an iteration, more than the kernels take at 128³,
-and the host's enqueue of the 2D iteration's ~110 small kernels leave the
+and the host's enqueue of the 2D iteration's 96 small kernels leave the
 loop. On the CPU, or with ``SolveLoop(..., graph=False)``, the same chunk
 runs eagerly. A capture or replay that fails raises. Under
 ``utils.debug.nan_checks`` every solve runs serially instead, checked for
@@ -76,7 +76,7 @@ from levelsetfusion_tpu_torch.ops.kernels.fused_gradient import (
     to_component_major,
 )
 from levelsetfusion_tpu_torch.ops.kernels.resample import warp_field_cm
-from levelsetfusion_tpu_torch.utils.profiling import count, span
+from levelsetfusion_tpu_torch.utils.profiling import count, graph_kernel_nodes, span
 
 # Iterations between two host reads of the done flag (one chunk, one graph
 # replay). Even, so that every replay starts from the same warp buffer.
@@ -148,6 +148,12 @@ class SolveLoop:
       its ``launch_count``; ``_capture`` keeps what each kernel's count rose
       by (``graph_launches``), and ``_replay`` adds that to its
       ``launch_count`` each replay.
+    - ``_capture`` also keeps the kernel nodes of the captured graph, every
+      kernel a chunk replays and not only the wrappers' (``chunk_kernels``:
+      the graph is kept until they are counted, then instantiated);
+      ``_replay`` adds them to counter ``solve.graph_kernels`` and the
+      chunk's iterations to ``solve.graph_iterations`` while a profiler
+      runs.
     """
 
     def __init__(self, shape, params: SolverParams, device, *,
@@ -177,6 +183,7 @@ class SolveLoop:
         self.replays = 0
         self._graph = None
         self.graph_launches = None  # {kernel module: calls its capture recorded}
+        self.chunk_kernels = None  # kernel nodes of the captured chunk
         self._build()
 
     def _build(self) -> None:
@@ -290,18 +297,22 @@ class SolveLoop:
                 # The frozen warm-up iteration: it changes no state.
                 self._iteration(0, torch.zeros((), dtype=torch.bool, device=self.device))
             torch.cuda.current_stream(self.device).wait_stream(stream)
-            graph = torch.cuda.CUDAGraph()
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
             kernels = (resample, fused_gradient)
             before = [m.captured_count for m in kernels]
             with torch.cuda.graph(graph, stream=stream):
                 self._chunk(0)
             self.graph_launches = {m: m.captured_count - b for m, b in zip(kernels, before)}
+            self.chunk_kernels = graph_kernel_nodes(graph)
+            graph.instantiate()
             self._graph = graph
 
     def _replay(self) -> None:
         self._graph.replay()
         for module, calls in self.graph_launches.items():
             module.launch_count += calls
+        count("solve.graph_kernels", self.chunk_kernels)
+        count("solve.graph_iterations", self.check_every)
         self.replays += 1
 
     def solve(self, canonical: torch.Tensor, live: torch.Tensor,

@@ -108,6 +108,11 @@ def generate_tsdf_2d(
       grid: 2D grid spec (axis 0 = x, axis 1 = z).
       extrinsic: optional 3x3 homogeneous camera-from-world transform.
     """
+    with span("lsf.tsdf"):
+        return _tsdf_2d(depth_row, camera, grid, extrinsic, narrow_band_width_voxels, method)
+
+
+def _tsdf_2d(depth_row, camera, grid, extrinsic, narrow_band_width_voxels, method):
     if grid.dim != 2:
         raise ValueError(f"generate_tsdf_2d needs a 2D grid, got {grid.shape}")
     band = 0.5 * narrow_band_width_voxels * grid.voxel_size

@@ -15,7 +15,11 @@
   adds nothing. ``counters()`` and ``spans()`` give what was recorded;
   ``trace`` clears both on entry. Spans sit at request, chunk and exchange
   boundaries, never inside a solver iteration or a captured chunk; their
-  names start with ``lsf.`` (the CLI's docstring lists them).
+  names start with ``lsf.`` (the CLI's docstring lists them and the
+  counters).
+- ``graph_kernel_nodes``: the kernel nodes of a captured CUDA graph, read
+  through ``libcuda.so.1`` (the solve loop counts its chunk's once, at
+  capture).
 - ``solver_roofline``: one solver iteration's time against the least time
   the card could take for its bytes, priced for the H100 (NVIDIA H100
   80GB HBM3 at a 700 W power limit: 3.35 TB/s).
@@ -108,6 +112,38 @@ def trace(log_dir: str):
     if torch.cuda.is_available():
         sync()
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+# CUgraphNodeType's kernel node (the runtime's cudaGraphNodeTypeKernel).
+CU_GRAPH_NODE_TYPE_KERNEL = 0
+
+
+def graph_kernel_nodes(graph: torch.cuda.CUDAGraph) -> int:
+    """The kernel nodes of ``graph``, captured with ``keep_graph=True`` and
+    not yet instantiated or reset: ``cuGraphGetNodes`` and
+    ``cuGraphNodeGetType`` of ``libcuda.so.1`` on its ``raw_cuda_graph()``,
+    which is a ``CUgraph``. Memory copies, memsets and event nodes are not
+    counted."""
+    import ctypes
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    ptr, size = ctypes.c_void_p, ctypes.c_size_t
+    cu.cuGraphGetNodes.argtypes = [ptr, ctypes.POINTER(ptr), ctypes.POINTER(size)]
+    cu.cuGraphNodeGetType.argtypes = [ptr, ctypes.POINTER(ctypes.c_int)]
+
+    def check(err, what):
+        if err != 0:
+            raise RuntimeError(f"{what} failed: CUresult {err}")
+
+    raw, n = ptr(graph.raw_cuda_graph()), size(0)
+    check(cu.cuGraphGetNodes(raw, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ptr * n.value)()
+    check(cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    kind, kernels = ctypes.c_int(), 0
+    for node in nodes[:n.value]:
+        check(cu.cuGraphNodeGetType(node, ctypes.byref(kind)), "cuGraphNodeGetType")
+        kernels += kind.value == CU_GRAPH_NODE_TYPE_KERNEL
+    return kernels
 
 
 def solver_roofline(shape, seconds_per_iter: float, dim: int = 3) -> Dict[str, float]:

@@ -2,15 +2,17 @@
 profiler running a span is one check and a shared no-op context and a count
 adds nothing; under ``torch.profiler`` each span appears where the program
 says it does (the solve loop, the fusion frame, the native prefetcher, the
-halo exchange), ``spans()`` totals them, ``halo.bytes_sent`` counts the
-bytes handed to ``isend``, and the CLI's ``--profile`` writes the counters
-into its summary."""
+halo exchange, the 2D and 3D TSDF), ``spans()`` totals them,
+``halo.bytes_sent`` counts the bytes handed to ``isend``, each graph replay
+adds its chunk's kernels and iterations, and the CLI's ``--profile`` writes
+the counters into its summary."""
 
 import collections
 import dataclasses
 import json
 import math
 import os
+import types
 
 import numpy as np
 import pytest
@@ -27,6 +29,7 @@ from levelsetfusion_tpu_torch.models.single_level import (
     release_kept_loops,
     solve_single_level,
 )
+from levelsetfusion_tpu_torch.ops.tsdf import generate_tsdf_2d
 from levelsetfusion_tpu_torch.utils import profiling
 from levelsetfusion_tpu_torch.utils.config import PRESETS
 from tests.torch_ranks import run_ranks
@@ -130,6 +133,50 @@ def test_solve_spans(iterations, threshold, tmp_path):
     assert (spans, counts) == (solve, {})
     _, spans, counts = profiled(release_kept_loops)
     assert (spans, counts) == ({"lsf.solve.release": 1}, {})
+
+
+class _StubGraph:
+    def __init__(self):
+        self.replays = 0
+
+    def replay(self):
+        self.replays += 1
+
+
+def _stub_loop(check_every):
+    """The state ``SolveLoop._replay`` reads, with a graph that only counts
+    its replays."""
+    return types.SimpleNamespace(_graph=_StubGraph(), graph_launches={}, chunk_kernels=107,
+                                 check_every=check_every, replays=0)
+
+
+@pytest.mark.parametrize("check_every,replays", [(16, 3), (2, 1)])
+def test_replay_counts_kernels_and_iterations_under_a_profiler(check_every, replays,
+                                                               tmp_path):
+    """Each replay adds the chunk's kernel nodes to ``solve.graph_kernels``
+    and its iterations to ``solve.graph_iterations`` while a profiler runs,
+    and nothing without one."""
+    loop = _stub_loop(check_every)
+    before = profiling.counters()
+    SolveLoop._replay(loop)
+    assert profiling.counters() == before and loop._graph.replays == loop.replays == 1
+    with profiling.trace(str(tmp_path)):
+        for _ in range(replays):
+            SolveLoop._replay(loop)
+        counts = profiling.counters()
+    assert counts == {"solve.graph_kernels": 107 * replays,
+                      "solve.graph_iterations": check_every * replays}
+    assert loop._graph.replays == loop.replays == 1 + replays
+
+
+def test_tsdf_2d_span(tmp_path):
+    """A 2D TSDF under the profiler adds one ``lsf.tsdf`` call, as a 3D one
+    does."""
+    pair = synthetic.bump_wall_pair_2d(width=32)
+    grid = GridSpec(shape=(12, 8), voxel_size=0.004, offset=(-6, 96))
+    _, spans = _profiled(lambda: generate_tsdf_2d(torch.from_numpy(pair.live_depth),
+                                                  pair.camera, grid), tmp_path)
+    assert spans == {"lsf.tsdf": 1}
 
 
 SEQ = dict(num_frames=4, width=48, height=48, blob_radius_px=10.0, blob_height=0.05,
