@@ -4,7 +4,8 @@
 
 Builds every CUDA kernel of the port from ``levelsetfusion_tpu_torch/csrc``
 (one nvcc per source, all at once; phase 1), holds B1 and B2 against their
-plain torch versions on the card (2, 3), checks a small kernel solve against
+plain torch versions on the card (2, 3) and the 2D step at every 2D shape of
+the main path, timed (3b), checks a small kernel solve against
 the plain solve on the CPU (4), holds the solve's graph loop (16 iterations
 a CUDA graph replay, the done flag on the device) to the eager loop that
 reads the flag every iteration at 128³, exactly, and prints the graph's
@@ -29,7 +30,8 @@ stop after frame 4's checkpoint resumed to the uninterrupted run's state,
 and the host seconds of its checkpoint saves beside its wall time (17).
 Then the slice of configs 1-2, rigid and the hierarchical fusion, each run
 with the launch counters reset just before and read just after: config1
-(2D) through the CLI against the CPU run, its B1 launches, and its 2D
+(2D) through the CLI against the CPU run, its 2D step launches (also as
+``summary.json`` reports them), and its 2D
 graph loop against the eager loop, exactly, both timed with a profiler
 breakdown (18); config2 through the CLI with its EWA depth pyramid and its
 block-mean one against the CPU (19); rigid_2d and rigid_3d through the CLI
@@ -128,7 +130,7 @@ from levelsetfusion_tpu_torch.models.single_level import (
 )
 from levelsetfusion_tpu_torch.ops import pyramid
 from levelsetfusion_tpu_torch.ops.interpolation import advect_field, warp_field
-from levelsetfusion_tpu_torch.ops.kernels import _lib, fused_gradient, resample
+from levelsetfusion_tpu_torch.ops.kernels import _lib, fused_gradient, resample, step2d
 from levelsetfusion_tpu_torch.ops.kernels.fused_gradient import (
     fused_gradient_update,
     fused_gradient_update_reference,
@@ -200,7 +202,8 @@ CASES = [
     (0.0, 0.0, False, False, True),
 ]
 BENCH_ITERS = 300  # bench.py's N_ITER
-LIBRARIES = ("resample", "fused_gradient", "conv_yz", "fused_io_probe", "dma_probe",
+MAIN_LIBRARIES = ("resample", "fused_gradient", "step2d")  # the main paths' kernels
+LIBRARIES = (*MAIN_LIBRARIES, "conv_yz", "fused_io_probe", "dma_probe",
              "resample_variants", "v10_xslab", "stack_bodies")
 RAGGED_X = (20, 64, 128)  # a ragged x for the resample variants (their Z is 128)
 RAGGED_B3 = (5, 6, 128)  # a Y off the 8-row tiles of B3-B5 (yb = Y): their runtime geometry
@@ -340,7 +343,7 @@ def phase1_build():
         list(pool.map(_lib.build, LIBRARIES))
         native.result()
     seconds = time.perf_counter() - t0
-    parts = [f"{name}: {', '.join(_ptxas(name))}" for name in ("resample", "fused_gradient")]
+    parts = [f"{name}: {', '.join(_ptxas(name))}" for name in MAIN_LIBRARIES]
     print(f"[1] build of {len(LIBRARIES)} CUDA libraries and the depth-IO library: "
           f"{seconds:.1f} s; ptxas, registers r / "
           f"spill bytes B / stack frame bytes B / static shared S: {'; '.join(parts)}")
@@ -458,6 +461,135 @@ def _second_device():
           f"max|Δ| {err:.3e}, resample {b1}, v10 {v10:.3e}")
 
 
+# The 2D step's shapes: config1's grid, config2's three levels (Sobolev on in
+# the preset) and a ragged one (8 x 16 tiles with ragged last tiles).
+STEP2D_SHAPES = (CONFIG1, *CONFIG2_LEVELS, (37, 23))
+STEP2D_WARP_TOL = 4.768e-7  # B2's standard, for the new warp and the per-voxel maxes
+STEP2D_SUM_RTOL = 1e-5  # the kernel sums in double, the plain version in f32 in another order
+# Float operations per voxel of the 2D step, rounded: bilinear at v + u 17
+# (2 adds, 2 floors, 2 subs; 4 corners x (2 muls, 1 add) - 1), the terms
+# ~100, the 7-tap Sobolev 2 x 2 x 7 x 2, the update and its stats ~10.
+OPS_STEP2D = 180
+
+
+def _step2d_inputs(shape, seed):
+    """(live, canonical, warp_cm, rate) on the card: TSDF-like fields
+    truncated to exactly ±1 on a share of voxels (so that the band-union
+    mask bites), and a warp that reaches out of the grid at its faces."""
+    rng = np.random.default_rng(seed)
+    base = rng.standard_normal(shape).astype(np.float32)
+    canonical = np.clip(base * 0.8, -1.0, 1.0)
+    live = np.clip(np.roll(base, 2, axis=0) * 0.8, -1.0, 1.0)
+    warp = rng.standard_normal((2, *shape)).astype(np.float32)
+    return (*(torch.from_numpy(a).cuda() for a in (live, canonical, warp)),
+            torch.tensor(0.5, device="cuda"))
+
+
+def _graph_us(fn, calls=16, reps=50):
+    """µs a call of ``fn`` replayed in a CUDA graph of ``calls`` calls, as
+    the solve loop runs the 2D step: the best of two runs of ``reps``
+    replays by CUDA events."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream):
+        fn()
+        stream.synchronize()
+        with torch.cuda.graph(graph, stream=stream):
+            for _ in range(calls):
+                fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    best = None
+    for _ in range(2):
+        ms = _time_ms(graph.replay, reps)
+        best = ms if best is None else min(best, ms)
+    return best * 1e3 / calls
+
+
+def phase3b_step2d():
+    """The 2D step (``step2d``, one launch a 2D iteration) against its plain
+    version on the card at every 2D shape of the main path, over phase 3's
+    five term sets (data only, Tikhonov, Killing with the level set, with
+    and without Sobolev and the band-union mask): the new warp and the
+    per-voxel maxes within 4.768e-7, the energies and Σ‖δu‖ within rtol
+    1e-5; a call with the flag off writes nothing and leaves the ticket at
+    0. Then config1's and config2's finest step timed by CUDA events, alone
+    after a spin, in a CUDA graph as the loop replays it, and its plain
+    version. Returns (max|Δ|, launches, ms, plain ms, bound) at config1."""
+    worst = {"warp": 0.0, "maxes": 0.0, "sums": 0.0}
+    step2d.launch_count = 0
+    calls = 0
+    for seed, shape in enumerate(STEP2D_SHAPES, 21):
+        live, canonical, warp, rate = _step2d_inputs(shape, seed)
+        flag = torch.tensor(True, device="cuda")
+        ticket = torch.zeros(1, dtype=torch.int32, device="cuda")
+        for case in CASES:
+            kw = _case_kw(*case)
+            out = torch.full_like(warp, 7.0)
+            got, stats = step2d.step2d(live, canonical, warp, rate, out=out, active=flag,
+                                       ticket=ticket, **kw)
+            calls += 1
+            torch.cuda.synchronize()
+            want, want_stats = step2d.step2d_reference(*(a.cpu() for a in (live, canonical,
+                                                                           warp, rate)), **kw)
+            name = f"step2d {shape} case {case}"
+            if got is not out or int(ticket) != 0:
+                raise AssertionError(f"{name}: out not written in place or ticket {int(ticket)}")
+            worst["warp"] = max(worst["warp"],
+                                _close(name + " warp", got.cpu(), want, 0.0, STEP2D_WARP_TOL))
+            worst["maxes"] = max(worst["maxes"], _close(name + " maxes", stats[4:].cpu(),
+                                                        want_stats[4:], 0.0, STEP2D_WARP_TOL))
+            _close(name + " sums", stats[:4].cpu(), want_stats[:4], STEP2D_SUM_RTOL, 1e-7)
+            worst["sums"] = max(worst["sums"], float(torch.max(
+                torch.abs(stats[:4].cpu().double() - want_stats[:4].double())
+                / torch.clamp(torch.abs(want_stats[:4].double()), min=1e-30))))
+        out, stats = torch.full_like(warp, 7.0), torch.full((7,), 3.0, device="cuda")
+        step2d.step2d(live, canonical, warp, rate, out=out, stats=stats, ticket=ticket,
+                      active=torch.tensor(False, device="cuda"), **_case_kw(*CASES[2]))
+        calls += 1
+        torch.cuda.synchronize()
+        if not (bool((out == 7.0).all()) and bool((stats == 3.0).all()) and int(ticket) == 0):
+            raise AssertionError(f"step2d {shape}: a call with the flag off wrote its buffers")
+    if step2d.launch_count != calls:
+        raise AssertionError(f"step2d: {step2d.launch_count} launches counted for {calls} calls")
+    lines, row = [], None
+    for preset, shape in ((C1, CONFIG1), (C2, PRESETS[C2].grid_shape)):
+        kw = single_level.fused_step_kwargs(PRESETS[preset].solver)
+        live, canonical, warp, rate = _step2d_inputs(shape, 1)
+        flag = torch.tensor(True, device="cuda")
+        ticket = torch.zeros(1, dtype=torch.int32, device="cuda")
+        partial = torch.zeros(max(step2d.partial_len(shape, len(kw["taps"]), "cuda"), 1),
+                              dtype=torch.float64, device="cuda")
+        out, stats = torch.empty_like(warp), torch.empty(7, device="cuda")
+
+        def call():
+            step2d.step2d(live, canonical, warp, rate, out=out, stats=stats, active=flag,
+                          ticket=ticket, partial=partial, **kw)
+
+        def plain():
+            step2d.step2d_reference(live, canonical, warp, rate, out=out, stats=stats, **kw)
+
+        # Plain, kernel, kernel, plain: in turns within one call.
+        p_ms = [_time_ms(plain, 10)]
+        k_ms = [_time_ms(call, 200) for _ in range(2)]
+        p_ms.append(_time_ms(plain, 10))
+        graph_us = _graph_us(call)
+        vox = live.numel()
+        bound = _bound(4 * 6 * vox, OPS_STEP2D * vox)  # live, canonical, u in and u' out
+        if row is None:
+            row = (min(k_ms), min(p_ms), bound)
+        lines.append(f"{preset} {shape} (taps {len(kw['taps'])}): {min(k_ms) * 1e3:.2f} us a "
+                     f"call after a spin (runs {[round(t * 1e3, 2) for t in k_ms]}), "
+                     f"{graph_us:.2f} us a call in a CUDA graph of 16, plain "
+                     f"{min(p_ms) * 1e3:.1f} us (runs {[round(t * 1e3, 1) for t in p_ms]}), "
+                     f"bound {bound[0] * 1e3:.4f} us ({bound[1]})")
+    print(f"[3b] 2D step vs plain at {STEP2D_SHAPES}, 5 term sets each: warp max|Δ| "
+          f"{worst['warp']:.3e}, maxes {worst['maxes']:.3e} (atol {STEP2D_WARP_TOL}), sums "
+          f"max rel {worst['sums']:.3e} (rtol {STEP2D_SUM_RTOL}); flag off writes nothing; "
+          f"{calls} launches counted; {'; '.join(lines)}")
+    return (max(worst["warp"], worst["maxes"]), *row)
+
+
 def phase4_solve_parity():
     cfg = PRESETS[PRESET]
     small = dataclasses.replace(cfg, grid_shape=(32, 32, 64), grid_offset=(-16, -16, 70))
@@ -481,10 +613,12 @@ def _max_diff(a, b):
 
 def _check_capture(loop, k):
     """The calls of each kernel that ``loop``'s capture recorded (what a
-    replay adds to its launch counter) must be the chunk's ``k`` (B2's 0 in
-    2D, where the update is plain torch)."""
+    replay adds to its launch counter) must be the chunk's ``k``: B1's and
+    B2's in 3D, the 2D step's in 2D."""
     recorded = {m.__name__.rsplit(".", 1)[-1]: c for m, c in loop.graph_launches.items()}
-    if recorded != {"resample": k, "fused_gradient": k if loop.dim == 3 else 0}:
+    three = loop.dim == 3
+    if recorded != {"resample": k if three else 0, "fused_gradient": k if three else 0,
+                    "step2d": 0 if three else k}:
         raise AssertionError(f"the capture of a {k}-iteration chunk recorded {recorded}")
 
 
@@ -816,7 +950,7 @@ def phase7_ptxas():
     """Registers, spills and stack frames of every experiment kernel
     instantiation (built in phase 1), from each library's ``nvcc -Xptxas
     -v`` log, and the SASS a voxel of the pair-loop kernels."""
-    parts = [f"{name}: {', '.join(_ptxas(name))}" for name in LIBRARIES[2:]]
+    parts = [f"{name}: {', '.join(_ptxas(name))}" for name in LIBRARIES[len(MAIN_LIBRARIES):]]
     # B12's banded kernels, B5's ring kernels (ring_kernel<loop, 1>), B10's
     # ring and B9's loop_kernel must not touch local memory.
     for library, redesigned in (("conv_yz", "banded"),
@@ -1549,6 +1683,7 @@ def phase17_config4():
 def _reset_launches():
     resample.launch_count = 0
     fused_gradient.launch_count = 0
+    step2d.launch_count = 0
     torch.cuda.synchronize()
 
 
@@ -1570,7 +1705,7 @@ def _cli_run(cfg, device):
 
 
 def _level_launches(iterations):
-    """B1's and B2's launches of solves that each ran on their own new
+    """A kernel's launches of solves that each ran on their own new
     SolveLoop (a warm-up and a capture each): ``_chunk_launches`` a solve."""
     return sum(_chunk_launches([it]) for it in iterations)
 
@@ -1578,9 +1713,9 @@ def _level_launches(iterations):
 def phase18_config1():
     """config1 (2D, 96 x 48) through ``cli.run_experiment`` on the card with
     the launch counters reset: the iterations of the port's plain run on the
-    CPU, converged, the warp within rtol 3e-4 / atol 3e-6 of the CPU's, B1
-    launched 16 a replay + a warm-up + the final resample (B2 never: the 2D
-    update is plain torch). Then the 2D graph loop against the eager loop
+    CPU, converged, the warp within rtol 3e-4 / atol 3e-6 of the CPU's, the
+    2D step launched 16 a replay + a warm-up, B1 once (the final resample)
+    and B2 never. Then the 2D graph loop against the eager loop
     reading the flag every iteration on the card (exact), both timed in
     turns on the converged solve, and a profiler breakdown of each."""
     cfg = PRESETS[C1]
@@ -1605,9 +1740,11 @@ def phase18_config1():
         raise AssertionError(f"config1: {it} iterations, converged {summary['converged']}; "
                              f"the CPU run {ref.iterations}")
     err = _close("config1 warp", solves[0].warp.cpu(), ref.warp, 3e-4, 3e-6)
-    want = {"resample": _chunk_launches([it]) + 1, "fused_gradient": 0}
-    if launches != want:
-        raise AssertionError(f"config1 launches {launches} for {it} iterations, want {want}")
+    launches["step2d"] = step2d.launch_count
+    want = {"resample": 1, "fused_gradient": 0, "step2d": _chunk_launches([it])}
+    if launches != want or summary["kernel_launches"] != want:
+        raise AssertionError(f"config1 launches {launches} (summary.json: "
+                             f"{summary['kernel_launches']}) for {it} iterations, want {want}")
     numbers = [summary["residual_before"], summary["residual_after"], *summary["max_abs_displacement"]]
     if not all(np.isfinite(numbers)) or not summary["residual_reduction"] >= 2.0:
         raise AssertionError(f"config1 summary {summary}")
@@ -1652,15 +1789,15 @@ def phase19_config2():
     """config2 (2D, 96 x 64, 3 levels, Sobolev) through the CLI with its
     EWA depth pyramid, and once with the block-mean pyramid: per-level
     iterations equal to the CPU run's, residuals within rtol 1e-3 of it,
-    B1 launched by each level's new loop (a warm-up, 16 a replay) and the
-    final resample."""
-    lines, total = [], {"resample": 0, "fused_gradient": 0}
+    the 2D step launched by each level's new loop (a warm-up, 16 a replay)
+    and B1 by the final resample."""
+    lines, total = [], {"resample": 0, "fused_gradient": 0, "step2d": 0}
     for method in ("ewa_depth", "block_mean"):
         cfg = dataclasses.replace(PRESETS[C2], pyramid_method=method)
         cpu, _ = _cli_run(cfg, "cpu")
         _reset_launches()
         summary, wall = _cli_run(cfg, "cuda")
-        launches = _read_launches()
+        launches = {**_read_launches(), "step2d": step2d.launch_count}
         its = summary["iterations_per_level"]
         if its != cpu["iterations_per_level"]:
             raise AssertionError(f"config2 {method}: iterations {its}, cpu "
@@ -1668,9 +1805,10 @@ def phase19_config2():
         for key in ("residual_before", "residual_after"):
             _close(f"config2 {method} {key}", torch.tensor(summary[key]), torch.tensor(cpu[key]),
                    1e-3, 0.0)
-        want = {"resample": _level_launches(its) + 1, "fused_gradient": 0}
-        if launches != want:
-            raise AssertionError(f"config2 {method} launches {launches}, want {want}")
+        want = {"resample": 1, "fused_gradient": 0, "step2d": _level_launches(its)}
+        if launches != want or summary["kernel_launches"] != want:
+            raise AssertionError(f"config2 {method} launches {launches} (summary.json: "
+                                 f"{summary['kernel_launches']}), want {want}")
         total = {k: total[k] + launches[k] for k in total}
         lines.append(f"{method}: iterations per level {its} (cpu equal), converged "
                      f"{summary['converged']}, residual {summary['residual_before']:.6f} -> "
@@ -1772,7 +1910,7 @@ def phase21_hierarchical_fusion():
         _CountingLoop.made = []
         _reset_launches()
         result, fps = _fps(ds.frames, ds.camera, hier_cfg)
-        launches = _read_launches()
+        launches = {**_read_launches(), "step2d": step2d.launch_count}
     finally:
         single_level.SolveLoop = loop_class
     _, flat_fps = _fps(ds.frames, ds.camera, flat_cfg)
@@ -1785,7 +1923,7 @@ def phase21_hierarchical_fusion():
     bands = [r.band_voxels for r in result.reports]
     per_level = {tuple(loop.shape): loop.solved for loop in loops}
     b2 = sum(_chunk_launches(loop.solved) for loop in loops)
-    want = {"resample": b2 + len(result.reports), "fused_gradient": b2}
+    want = {"resample": b2 + len(result.reports), "fused_gradient": b2, "step2d": 0}
     state = result.state
     for name, t in (("canonical", state.canonical), ("weights", state.weights),
                     ("warp", result.final_warp)):
@@ -2960,6 +3098,7 @@ def main():
     phase1_build()
     err_resample = phase2_resample()
     err_fused = phase3_fused()
+    err_step2d, *times_step2d = phase3b_step2d()
     phase4_solve_parity()
     serial_it = phase4b_device_loop()
     main_launches = phase5_main_path(serial_it)
@@ -3000,6 +3139,12 @@ def main():
                          max(err_fused, window_err["fused"], window2d_err["fused"]), ms,
                          plain_ms, bound, None)
     fused_row["launches_by_path"] = by_path["fused_gradient"]
+    # The 2D step's launches: config1 and config2 (18, 19); the hierarchical
+    # fusion (21) holds that a 3D path launches none.
+    step2d_by_path = {path: c["step2d"] for path, c in paths.items() if "step2d" in c}
+    step2d_row = _numbers(sum(step2d_by_path.values()), err_step2d, *times_step2d, None)
+    step2d_row["launches_by_path"] = step2d_by_path
+    step2d_row["main_path_launches_per_2d_iter"] = 1
     for row, name, err in ((resample_row, "resample", "resample"),
                            (fused_row, "fused_gradient", "fused")):
         w_ms, w_plain, w_bound, w_shape, w_lib = shard[name]
@@ -3020,6 +3165,7 @@ def main():
              "levelsetfusion_tpu/ops/pallas/resample.py:427", resample_row, 1),
         _row("fused_gradient_update", "fused_gradient.cu",
              "levelsetfusion_tpu/ops/pallas/fused_gradient.py:1267", fused_row, 1),
+        _row("step2d", "step2d.cu", None, step2d_row),
         _row("conv_yz_stencil", "conv_yz.cu", "experiments/mxu_conv.py:117",
              conv["stencil"]),
         _row("conv_yz_banded_f32", "conv_yz.cu", "experiments/mxu_conv.py:122",

@@ -5,14 +5,14 @@ Gradient descent on the warp aligning ``live`` to ``canonical``, 2D or 3D.
 The warp is carried component-major ``(D, *spatial)``, the layout the
 kernels take. A 3D iteration is one resample (B1,
 ``ops/kernels/resample.py``) and one fused gradient/update (B2,
-``ops/kernels/fused_gradient.py``). A 2D iteration is B1 (on an (X, 1, Z)
-view) and then, as the JAX twin's unfused ``_solver_step``, the plain
-assembly of ``ops/gradient.py::energy_gradient`` (the gradient of the warped
-field, the terms, the optional Sobolev filter) and u' = u − rate·g with its
-statistics: B2 does not take 2D, since its zero-padded Sobolev pass along a
-y axis of length 1 would scale g by the centre tap. The same loop runs on
-every device: the kernel wrappers launch the CUDA kernels for CUDA tensors
-and their plain versions for CPU tensors.
+``ops/kernels/fused_gradient.py``). A 2D iteration is one call of the 2D
+step (``ops/kernels/step2d.py``): the resample, the JAX twin's unfused
+``_solver_step`` (the gradient of the warped field, the terms, the optional
+Sobolev filter) and u' = u − rate·g with its statistics; B2 does not take
+2D, since its zero-padded Sobolev pass along a y axis of length 1 would
+scale g by the centre tap. The same loop runs on every device: the kernel
+wrappers launch the CUDA kernels for CUDA tensors and their plain versions
+for CPU tensors.
 
 Semantics kept from the JAX twin:
 
@@ -30,9 +30,8 @@ Semantics kept from the JAX twin:
 The loop lives on the device, as JAX's ``lax.while_loop`` does. The done
 test is a device flag, ``active = (iteration < n) & (max_update >=
 threshold)``, that every iteration recomputes; once it is false the state
-stays frozen: the kernels read the flag and return at once, the 2D update
-writes its warp buffer only where the flag is true, and the scalar state and
-the telemetry column take their new values only where it is true
+stays frozen: the kernels read the flag and return at once, and the scalar
+state and the telemetry column take their new values only where it is true
 (``torch.where``; a frozen iteration writes the spare telemetry column
 ``n``). The host reads the flag once every ``check_every``
 iterations (a chunk), so a solve runs as many iterations as the serial loop
@@ -42,9 +41,8 @@ iterations it lies in buffer ``iterations % 2``.
 
 On CUDA the chunk is captured once as a CUDA graph and replayed: the
 Python work of ~20 ops an iteration, more than the kernels take at 128³,
-and the host's enqueue of the 2D iteration's 96 small kernels leave the
-loop. On the CPU, or with ``SolveLoop(..., graph=False)``, the same chunk
-runs eagerly. A capture or replay that fails raises. Under
+leaves the loop. On the CPU, or with ``SolveLoop(..., graph=False)``, the
+same chunk runs eagerly. A capture or replay that fails raises. Under
 ``utils.debug.nan_checks`` every solve runs serially instead, checked for
 NaN and Inf each iteration.
 
@@ -66,9 +64,7 @@ import numpy as np
 import torch
 
 from levelsetfusion_tpu_torch.models.params import SmoothingMode, SolverParams
-from levelsetfusion_tpu_torch.ops import sobolev
-from levelsetfusion_tpu_torch.ops.gradient import energy_gradient
-from levelsetfusion_tpu_torch.ops.kernels import fused_gradient, resample
+from levelsetfusion_tpu_torch.ops.kernels import fused_gradient, resample, step2d
 from levelsetfusion_tpu_torch.ops.kernels.fused_gradient import (
     from_component_major,
     fused_gradient_update,
@@ -84,8 +80,8 @@ CHECK_EVERY = 16
 
 
 def fused_step_kwargs(params: SolverParams) -> dict:
-    """B2's (``fused_gradient_update``'s) energy and filter arguments for a
-    solve with ``params``."""
+    """B2's (``fused_gradient_update``'s) and the 2D step's (``step2d``'s)
+    energy and filter arguments for a solve with ``params``."""
     return dict(
         w_data=params.data_term_weight,
         w_smooth=params.smoothing_term_weight,
@@ -126,24 +122,24 @@ class SolveLoop:
     sequence of solves (the fusion frames) with one capture.
 
     Capture hazards, each handled here:
-    - B2's completion ticket is this loop's own (``self.ticket``): the
-      graph replays on whatever stream is current, so a ticket kept per
-      stream handle could be shared with another loop's graph or a direct
-      call on that stream.
+    - B2's and the tiled 2D step's completion ticket is this loop's own
+      (``self.ticket``): the graph replays on whatever stream is current,
+      so a ticket kept per stream handle could be shared with another
+      loop's graph or a direct call on that stream.
     - The kernels' shared memory opt-in and occupancy are cached per device
       (``csrc/occupancy.cuh``): one frozen iteration on the capture stream
       before the capture creates both outside it, and loads every kernel
       the chunk launches.
-    - The kernels' scratch (the warped field, g, the partial rows, the stats)
-      is allocated per call; inside the capture it comes from the graph's
-      pool, where each iteration reuses the last one's, so the graph holds
-      one iteration's scratch whatever ``check_every``; the two warps are
-      this object's.
+    - B1's and B2's scratch (the warped field, g, the partial rows, the
+      stats) is allocated per call; inside the capture it comes from the
+      graph's pool, where each iteration reuses the last one's, so the graph
+      holds one iteration's scratch whatever ``check_every``; the two warps
+      and the 2D step's stats and partial rows are this object's, so that a
+      2D chunk allocates nothing.
     - The wrappers launch on ``torch.cuda.current_stream``, which is the
       capture stream inside ``torch.cuda.graph``.
-    - B2's taps go by value in a struct, and the 2D step's Sobolev kernel
-      is a device tensor made here; nothing in the chunk reads a value back
-      to the host.
+    - The Sobolev taps go by value in a struct; nothing in the chunk reads
+      a value back to the host.
     - A wrapper called while capturing adds to its ``captured_count``, not
       its ``launch_count``; ``_capture`` keeps what each kernel's count rose
       by (``graph_launches``), and ``_replay`` adds that to its
@@ -151,9 +147,10 @@ class SolveLoop:
     - ``_capture`` also keeps the kernel nodes of the captured graph, every
       kernel a chunk replays and not only the wrappers' (``chunk_kernels``:
       the graph is kept until they are counted, then instantiated);
-      ``_replay`` adds them to counter ``solve.graph_kernels`` and the
-      chunk's iterations to ``solve.graph_iterations`` while a profiler
-      runs.
+      ``_replay`` adds them to counter ``solve.graph_kernels``, the
+      chunk's iterations to ``solve.graph_iterations`` and the 2D step's
+      launches its capture recorded, if any, to ``solve.step2d_iterations``
+      while a profiler runs.
     """
 
     def __init__(self, shape, params: SolverParams, device, *,
@@ -208,21 +205,12 @@ class SolveLoop:
         # the voxel count).
         self._rows = torch.tensor([0, 1, 2, 4, 3], device=self.device)
         self._divisor = torch.tensor([1.0, 1.0, 1.0, 1.0, float(np.prod(self.shape))], **f32)
-        if self.dim == 3:  # B2's arguments
-            self._kw = dict(fused_step_kwargs(params), ticket=self.ticket)
-        else:  # the 2D step's gradient assembly
-            self._grad_kw = dict(
-                data_term_weight=params.data_term_weight,
-                smoothing_term_weight=params.smoothing_term_weight,
-                level_set_term_weight=params.level_set_term_weight,
-                smoothing_mode=params.smoothing_mode,
-                rigidity_enforcement_factor=params.rigidity_enforcement_factor,
-                band_union_only=params.band_union_only,
-                sobolev_kernel=torch.as_tensor(
-                    sobolev.generate_1d_sobolev_kernel(params.sobolev_kernel_size,
-                                                       params.sobolev_strength),
-                    device=self.device) if params.sobolev_smoothing else None,
-            )
+        self._kw = dict(fused_step_kwargs(params), ticket=self.ticket)
+        if self.dim == 2:  # the 2D step's outputs and scratch
+            self._stats = torch.zeros(len(step2d.STATS_FIELDS), **f32)
+            self._partial = torch.zeros(
+                step2d.partial_len(self.shape, len(self._kw["taps"]), self.device),
+                dtype=torch.float64, device=self.device)
 
     def _update_flag(self) -> None:
         torch.logical_and(self.iteration < self.n, self.max_update >= self.threshold,
@@ -232,12 +220,14 @@ class SolveLoop:
         """One iteration from warp buffer ``parity`` into the other, gated
         by ``flag``; then the flag of the next iteration."""
         src, dst = self.warps[parity], self.warps[1 - parity]
-        warped = warp_field_cm(self.live, src, active=flag)
         if self.dim == 3:
+            warped = warp_field_cm(self.live, src, active=flag)
             _, stats = fused_gradient_update(warped, self.canonical, src, self.rate,
                                              out=dst, active=flag, **self._kw)
         else:
-            stats = self._update_2d(warped, src, dst, flag)
+            _, stats = step2d.step2d(self.live, self.canonical, src, self.rate, out=dst,
+                                     stats=self._stats, partial=self._partial, active=flag,
+                                     **self._kw)
         energy = stats[0] + stats[1] + stats[2]
         if self.params.adaptive_learning_rate:
             torch.where(flag & (energy > self.prev_energy), self.rate * 0.5, self.rate,
@@ -252,21 +242,6 @@ class SolveLoop:
         torch.where(flag, stats[4], self.max_update, out=self.max_update)
         self.iteration += flag
         self._update_flag()
-
-    def _update_2d(self, warped, src, dst, flag) -> torch.Tensor:
-        """The 2D gradient and update, u' = u − rate·g into ``dst`` where
-        ``flag`` is true, as the JAX twin's unfused step computes them;
-        returns the statistics in B2's layout."""
-        res = energy_gradient(self.canonical, warped, src.movedim(0, -1), **self._grad_kw)
-        update = -self.rate * res.gradient
-        torch.where(flag, src + update.movedim(-1, 0), dst, out=dst)
-        update_len = torch.sqrt(torch.sum(update * update, dim=-1))
-        e = res.energies
-        return torch.cat([
-            torch.stack([e.data, e.smoothing, e.level_set, torch.sum(update_len),
-                         torch.amax(update_len)]),
-            torch.amax(torch.abs(dst), dim=self._spatial),
-        ])
 
     def _chunk(self, first: int) -> None:
         for j in range(first, first + self.check_every):
@@ -298,7 +273,7 @@ class SolveLoop:
                 self._iteration(0, torch.zeros((), dtype=torch.bool, device=self.device))
             torch.cuda.current_stream(self.device).wait_stream(stream)
             graph = torch.cuda.CUDAGraph(keep_graph=True)
-            kernels = (resample, fused_gradient)
+            kernels = (resample, fused_gradient, step2d)
             before = [m.captured_count for m in kernels]
             with torch.cuda.graph(graph, stream=stream):
                 self._chunk(0)
@@ -313,6 +288,8 @@ class SolveLoop:
             module.launch_count += calls
         count("solve.graph_kernels", self.chunk_kernels)
         count("solve.graph_iterations", self.check_every)
+        if self.graph_launches.get(step2d):
+            count("solve.step2d_iterations", self.graph_launches[step2d])
         self.replays += 1
 
     def solve(self, canonical: torch.Tensor, live: torch.Tensor,

@@ -7,10 +7,11 @@ One function computes the combined descent direction
 
 and the weighted term energies, from ``(canonical, live, warp)``
 (``warp_energy_gradient``) or, where the warped live field is already
-resampled, from ``(canonical, warped, warp)`` (``energy_gradient``: the 2D
-solve loop resamples with the B1 kernel). This is the plain-torch assembly;
-the 3D solve loop runs the same math through the CUDA kernel of
-``ops/kernels/fused_gradient.py``.
+resampled, from ``(canonical, warped, warp)`` (``energy_gradient``, which
+the 2D step's plain version runs after its resample). This is the
+plain-torch assembly; on CUDA the solve loop runs the same math through the
+kernels of ``ops/kernels/fused_gradient.py`` (3D) and
+``ops/kernels/step2d.py`` (2D).
 """
 
 from __future__ import annotations

@@ -4,8 +4,8 @@ adds nothing; under ``torch.profiler`` each span appears where the program
 says it does (the solve loop, the fusion frame, the native prefetcher, the
 halo exchange, the 2D and 3D TSDF), ``spans()`` totals them,
 ``halo.bytes_sent`` counts the bytes handed to ``isend``, each graph replay
-adds its chunk's kernels and iterations, and the CLI's ``--profile`` writes
-the counters into its summary."""
+adds its chunk's kernels and iterations (and its 2D steps, where it has
+them), and the CLI's ``--profile`` writes the counters into its summary."""
 
 import collections
 import dataclasses
@@ -29,6 +29,7 @@ from levelsetfusion_tpu_torch.models.single_level import (
     release_kept_loops,
     solve_single_level,
 )
+from levelsetfusion_tpu_torch.ops.kernels import fused_gradient, resample, step2d
 from levelsetfusion_tpu_torch.ops.tsdf import generate_tsdf_2d
 from levelsetfusion_tpu_torch.utils import profiling
 from levelsetfusion_tpu_torch.utils.config import PRESETS
@@ -167,6 +168,29 @@ def test_replay_counts_kernels_and_iterations_under_a_profiler(check_every, repl
     assert counts == {"solve.graph_kernels": 107 * replays,
                       "solve.graph_iterations": check_every * replays}
     assert loop._graph.replays == loop.replays == 1 + replays
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_replay_counts_the_2d_step_where_the_chunk_launched_it(dim, tmp_path):
+    """A replay adds the 2D step's launches of its chunk to
+    ``solve.step2d_iterations`` under a profiler, and to the step's
+    ``launch_count`` always; a chunk that launched none (a 3D loop's) adds
+    no such counter."""
+    loop = _stub_loop(16)
+    loop.graph_launches = ({step2d: 16, resample: 0, fused_gradient: 0} if dim == 2
+                           else {step2d: 0, resample: 16, fused_gradient: 16})
+    launched, before = step2d.launch_count, profiling.counters()
+    SolveLoop._replay(loop)
+    assert profiling.counters() == before
+    with profiling.trace(str(tmp_path)):
+        SolveLoop._replay(loop)
+        SolveLoop._replay(loop)
+        counts = profiling.counters()
+    want = {"solve.graph_kernels": 107 * 2, "solve.graph_iterations": 32}
+    if dim == 2:
+        want["solve.step2d_iterations"] = 32
+    assert counts == want
+    assert step2d.launch_count == launched + (48 if dim == 2 else 0)
 
 
 def test_tsdf_2d_span(tmp_path):
