@@ -126,6 +126,7 @@ from levelsetfusion_tpu_torch.models.rigid import solve_rigid_2d, solve_rigid_3d
 from levelsetfusion_tpu_torch.models.single_level import (
     CHECK_EVERY,
     SolveLoop,
+    release_kept_loops,
     solve_single_level,
 )
 from levelsetfusion_tpu_torch.ops import pyramid
@@ -688,6 +689,7 @@ def _chunk_launches(iterations):
 
 
 def phase5_main_path(serial_it):
+    release_kept_loops()  # the counts below take a new loop's warm-up and capture
     with tempfile.TemporaryDirectory() as out:
         resample.launch_count = 0
         fused_gradient.launch_count = 0
@@ -1512,6 +1514,7 @@ def phase16_config4_parity():
     the plain fusion on the CPU (``_fusion_on_card_and_cpu``). Then the
     pipelined loop against the serial loop on the card: reports, states and
     warps equal."""
+    release_kept_loops()
     seq = synthetic.snoopy_style_sequence_3d(**C4_SMALL_SEQ)
     warps = {"cpu": {}, "cuda": {}, "serial": {}}
     got, its, errs, near, share = _fusion_on_card_and_cpu(seq, C4_SMALL, warps)
@@ -1583,7 +1586,9 @@ def _fusion_split(ds, pipeline_cfg):
     fusion.fuse_sequence(ds.frames, ds.camera, pipeline_cfg, device="cuda",
                          frame_callback=lambda t, s, w: times.append(time.perf_counter()))
     fps = (len(times) - 1) / (times[-1] - times[0])
-    # loop_for makes the sequence's loop from single_level's namespace.
+    # loop_for makes the sequence's loop from single_level's namespace; the
+    # loop the run above kept would serve this run instead of a timed one.
+    release_kept_loops()
     loop_class, single_level.SolveLoop = single_level.SolveLoop, _TimedLoop
     try:
         _TimedLoop.seconds = []
@@ -1592,6 +1597,7 @@ def _fusion_split(ds, pipeline_cfg):
                              frame_callback=lambda t, s, w: stamps.append(time.perf_counter()))
     finally:
         single_level.SolveLoop = loop_class
+        release_kept_loops()
     # Frame t's solve runs between the callbacks of frames t - 1 and t.
     return fps, stamps[-1] - stamps[0], sum(_TimedLoop.seconds[1:])
 
@@ -1602,6 +1608,7 @@ def phase17_config4():
     frame C4_STOP's checkpoint and resumed with ``resume=True``, whose final
     state must equal the uninterrupted run's."""
     cfg = PRESETS[C4]
+    release_kept_loops()  # the counts below take a new loop's warm-up and capture
     with tempfile.TemporaryDirectory() as root:
         out, stopped = os.path.join(root, "c4"), os.path.join(root, "stopped")
         save_s = []
@@ -1729,6 +1736,7 @@ def phase18_config1():
         return solves[-1]
 
     cli.solve_single_level = recording
+    release_kept_loops()  # the counts below take a new loop's warm-up and capture
     try:
         _reset_launches()
         summary, wall = _cli_run(cfg, "cuda")
@@ -1795,6 +1803,7 @@ def phase19_config2():
     for method in ("ewa_depth", "block_mean"):
         cfg = dataclasses.replace(PRESETS[C2], pyramid_method=method)
         cpu, _ = _cli_run(cfg, "cpu")
+        release_kept_loops()  # each level's new loop: a warm-up and a capture
         _reset_launches()
         summary, wall = _cli_run(cfg, "cuda")
         launches = {**_read_launches(), "step2d": step2d.launch_count}
@@ -1905,6 +1914,9 @@ def phase21_hierarchical_fusion():
         grid=_grid(cfg), narrow_band_width_voxels=cfg.narrow_band_width_voxels,
         hierarchical=False, solver=cfg.solver)
     hier_cfg = dataclasses.replace(flat_cfg, hierarchical=True)
+    # Three new counting loops: none kept by an earlier run serves this one,
+    # and none of them serves the runs after it.
+    release_kept_loops()
     loop_class, single_level.SolveLoop = single_level.SolveLoop, _CountingLoop
     try:
         _CountingLoop.made = []
@@ -1913,6 +1925,7 @@ def phase21_hierarchical_fusion():
         launches = {**_read_launches(), "step2d": step2d.launch_count}
     finally:
         single_level.SolveLoop = loop_class
+        release_kept_loops()
     _, flat_fps = _fps(ds.frames, ds.camera, flat_cfg)
     hier_again, hier_fps2 = _fps(ds.frames, ds.camera, hier_cfg)
     loops = _CountingLoop.made
@@ -2384,12 +2397,12 @@ def _hold_sharded_frames(ds, pipeline_cfg, got, after, group, live_halo):
     bound = float(np.float32(1.0 - fusion.TRUNCATION_EPS))
     errs = {"warp": 0.0, "canonical": 0.0, "weights": 0.0}
     witness, witness_near = dict(errs), 0.0
-    near_max, loops = 0.0, {}
+    near_max = 0.0
     for t in range(1, len(ds.frames)):
         state0, warp0 = after[t - 1]
         live = fusion._tsdf(ds.frames[t], ds.camera, pipeline_cfg, device)
         state, warp, report, _ = fusion.fuse_frame(state0, live, warp0, pipeline_cfg.solver,
-                                                   pipeline_cfg, t, loops=loops)
+                                                   pipeline_cfg, t)
         if report.solver_iterations != its[t - 1]:
             raise AssertionError(f"frame {t}: {report.solver_iterations} iterations, sharded "
                                  f"{its[t - 1]}")
@@ -2893,6 +2906,7 @@ def phase28_config4_disk():
             if not np.array_equal(np.asarray(got), want):
                 raise AssertionError(f"the {decoder} decoder differs from the plain one")
         out, stopped = os.path.join(root, "c4disk"), os.path.join(root, "stopped")
+        release_kept_loops()  # the counts below take a new loop's warm-up and capture
         _reset_launches()
         t0 = time.perf_counter()
         summary = run_experiment(disk_cfg, out, device="cuda")

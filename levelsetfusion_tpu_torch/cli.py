@@ -19,26 +19,8 @@ names the module and the files not written, and the run is otherwise the
 same. ``--verbose`` echoes the telemetry and logs a ``focus_voxel`` event
 at the voxel of the largest band residual (reduced on the device);
 ``--profile`` writes a ``torch.profiler`` trace to ``<out>/trace/``, with
-the program's spans in it (``utils/profiling.py::span``), and its counters
-into the summary (``counters``: ``halo.bytes_sent``, the bytes the halo
-exchanges handed to ``isend``; ``solve.loop_kept`` and ``solve.loop_built``,
-the ``solve_single_level`` calls that reused the kept solve loop and those
-that built one; on CUDA ``solve.graph_kernels`` and ``solve.graph_iterations``,
-the kernels and the iterations of the captured chunks replayed). The spans:
-
-- ``lsf.tsdf``: one TSDF generation, 2D or 3D;
-- ``lsf.solve``: one solve; inside it ``lsf.solve.capture`` (the CUDA
-  graph's warm-up, capture and instantiation), ``lsf.solve.flag_read`` (a
-  host read of the done flag) and ``lsf.solve.result_read``;
-- ``lsf.solve.build``: ``solve_single_level``'s look-up of its kept loop,
-  one a call (where it misses: the old loop's release and the new loop's
-  state buffers), or a new loop's state buffers in ``loop_for``;
-  ``lsf.solve.release``: ``release_kept_loops``;
-- ``lsf.frame.next``: waiting for a frame; ``lsf.frame.blend``: a frame's
-  resample, blend and stats pack; ``lsf.frame.report_read``: its stats read;
-- ``lsf.io.prefetch_wait``: blocked on the native decode queue;
-- ``lsf.halo.exchange``, ``lsf.halo.wait``, ``lsf.reduce``: the sharded
-  solvers' halo exchanges, their waits and ``all_reduce`` calls.
+the program's spans in it, and its counters into the summary
+(``counters``); ``utils/profiling.py``'s docstring lists both.
 
 ``--check-nans`` runs every single-device solve serially, checked for NaN
 and Inf each iteration (``utils/debug.py::nan_checks``).
@@ -275,14 +257,12 @@ def _resume_fusion(state, warp, frames, camera, pipeline_cfg, on_frame, frame_of
     already blended into ``state``), so its first frame is skipped."""
     frame_iter = iter(frames)
     next(frame_iter, None)  # the checkpointed frame itself
-    loops = {}
     reports = []
     solver = pipeline_cfg.solver
     for j, frame in enumerate(frame_iter, start=1):
         t = frame_offset + j
         state, warp, report, solver = fuse_frame(
-            state, None, warp, solver, pipeline_cfg, t, depth=frame, camera=camera, loops=loops
-        )
+            state, None, warp, solver, pipeline_cfg, t, depth=frame, camera=camera)
         reports.append(report)
         _call_frame_callback(on_frame, t, state, warp, report, solver)
     return FusionResult(state=state, reports=reports, final_warp=warp)

@@ -18,9 +18,11 @@ host reads once. With ``warm_start`` (JAX's default) a frame's solve starts
 from the previous frame's warp, else from zero. The flat path's
 ``fuse_sequence`` pipelines frames: frame t + 1 is dispatched from frame
 t's device outputs before frame t's statistics are read; the hierarchical
-path reads each frame's statistics before the next, as JAX's does. A
-sequence keeps one ``SolveLoop`` per solve shape, so each shape's CUDA graph
-is captured once.
+path reads each frame's statistics before the next, as JAX's does. Every
+solve (a frame's, or a level's of it) is ``solve_single_level``'s, in
+``single_level.loop_for``'s kept loop of its shape, so each shape's CUDA
+graph is captured once, and frames of later sequences or ``fuse_frame``
+calls with the same solver reuse it.
 
 Left out against JAX: its TPU resample clamps ±K, so JAX measures each
 frame's max |u| against K and redoes a frame with K raised; the port's
@@ -35,7 +37,7 @@ from __future__ import annotations
 
 import dataclasses
 import inspect
-from typing import Callable, Dict, List, NamedTuple, Tuple
+from typing import Callable, List, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -44,7 +46,7 @@ from levelsetfusion_tpu_torch.core.camera import PinholeCamera
 from levelsetfusion_tpu_torch.core.grid import GridSpec
 from levelsetfusion_tpu_torch.models.hierarchical import solve_hierarchical
 from levelsetfusion_tpu_torch.models.params import HierarchicalParams, SolverParams
-from levelsetfusion_tpu_torch.models.single_level import SolveLoop, SolveResult, loop_for
+from levelsetfusion_tpu_torch.models.single_level import SolveResult, solve_single_level
 from levelsetfusion_tpu_torch.ops.kernels.fused_gradient import to_component_major
 from levelsetfusion_tpu_torch.ops.kernels.resample import warp_field_cm
 from levelsetfusion_tpu_torch.ops.tsdf import GenerationMethod, generate_tsdf_3d
@@ -189,19 +191,17 @@ def _tsdf(depth, camera: PinholeCamera, config: FusionPipelineConfig,
     )
 
 
-def _dispatch(t, live, prev_state, init_warp, loops, config, solver) -> _Frame:
+def _dispatch(t, live, prev_state, init_warp, config, solver) -> _Frame:
     """Frame t's program after TSDF generation: solve, resample, blend and
-    the stats pack. Only the solve's flag reads wait for the device.
-    ``loops`` maps a solve shape to its ``SolveLoop`` (filled at first use);
-    the hierarchical solve's statistics are its finest level's."""
+    the stats pack. Only the solve's flag reads wait for the device. The
+    hierarchical solve's statistics are its finest level's."""
     if config.hierarchical:
         hres = solve_hierarchical(
             prev_state.canonical, live, HierarchicalParams(levels=config.levels, base=solver),
-            initial_warp=init_warp, loops=loops)
+            initial_warp=init_warp)
         warp, res = hres.warp, hres.level_results[-1]
     else:
-        loop = loop_for(loops, tuple(live.shape), solver, live.device)
-        res = loop.solve(prev_state.canonical, live, init_warp)
+        res = solve_single_level(prev_state.canonical, live, solver, init_warp)
         warp = res.warp
     with span("lsf.frame.blend"):
         state = blend(prev_state, warp_field_cm(live, to_component_major(warp)))
@@ -230,20 +230,15 @@ def fuse_frame(
     frame_index: int,
     depth=None,
     camera: PinholeCamera | None = None,
-    loops: Dict[tuple, SolveLoop] | None = None,
 ):
     """One fusion frame: solve (flat or hierarchical, as ``config`` says),
     resample, blend, then the stats read; with ``depth`` and ``camera`` the
     frame's TSDF is generated first (``live`` may be None then). Returns
-    ``(state, warp, report, solver)``, as JAX's does. ``loops`` (a dict, a
-    solve shape to its ``SolveLoop`` for ``solver`` on the state's device,
-    filled at first use) carries each shape's CUDA graph across frames;
-    without it the frame makes its own."""
+    ``(state, warp, report, solver)``, as JAX's does."""
     device = state.canonical.device
     if depth is not None:
         live = _tsdf(depth, camera, config, device)
-    frame = _dispatch(frame_index, live, state, init_warp, {} if loops is None else loops,
-                      config, solver)
+    frame = _dispatch(frame_index, live, state, init_warp, config, solver)
     return frame.state, frame.warp, _report(frame), solver
 
 
@@ -283,7 +278,6 @@ def fuse_sequence(
 
     state = init_state(_tsdf(next_frame(), camera, config, device))
     warp = torch.zeros((*grid.shape, grid.dim), dtype=torch.float32, device=device)
-    loops: Dict[tuple, SolveLoop] = {}
     pipelined = pipelined and not config.hierarchical
     reports: List[FrameReport] = []
 
@@ -298,7 +292,7 @@ def fuse_sequence(
     while (depth := next_frame(_END)) is not _END:
         t += 1
         cur = _dispatch(t, _tsdf(depth, camera, config, device), state,
-                        warp if config.warm_start else None, loops, config, config.solver)
+                        warp if config.warm_start else None, config, config.solver)
         state, warp = cur.state, cur.warp
         if pending is not None:
             emit(pending)
@@ -379,7 +373,6 @@ def fuse_sequence_sharded(
     warp = torch.zeros((*block.shape, block.dim), dtype=torch.float32, device=device)
     solver = config.solver
     reports: List[FrameReport] = []
-    loops: Dict[tuple, SolveLoop] = {}
     for t, depth in enumerate(frame_iter, start=1):
         live = _tsdf(depth, camera, config, device, block)
         init_warp = warp if config.warm_start else None
@@ -388,7 +381,7 @@ def fuse_sequence_sharded(
             hres = solve_hierarchical_sharded(
                 gather_field(state.canonical, group), gather_field(live, group),
                 HierarchicalParams(levels=config.levels, base=solver), group=group,
-                min_live_halo=live_halo, loops=loops,
+                min_live_halo=live_halo,
                 initial_warp=None if init_warp is None else gather_field(init_warp, group))
             warp, res, level_halos = shard_field(hres.warp, group), hres.level_results[-1], \
                 hres.level_halos

@@ -4,20 +4,20 @@
 Builds power-of-two pyramids of the canonical and live TSDF fields, solves
 the warp at the coarsest level, then prolongates it (×2 upsample,
 displacement doubled) as the warm start of each finer level. A level's solve
-is ``SolveLoop.solve`` (``models/single_level.py``): on CUDA its loop is a
-captured graph, so a caller that solves many pairs (the fusion's frames)
-passes ``loops``, one ``SolveLoop`` per level shape, and each level's graph
-is captured once.
+is ``solve_single_level``'s (``models/single_level.py``), in ``loop_for``'s
+kept loop of the level's shape: on CUDA a captured graph, kept one a level,
+so a caller that solves many pairs (the fusion's frames) captures each
+level's graph once.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple
+from typing import List, NamedTuple
 
 import torch
 
 from levelsetfusion_tpu_torch.models.params import HierarchicalParams
-from levelsetfusion_tpu_torch.models.single_level import SolveLoop, SolveResult, loop_for
+from levelsetfusion_tpu_torch.models.single_level import SolveResult, solve_single_level
 from levelsetfusion_tpu_torch.ops import pyramid
 from levelsetfusion_tpu_torch.ops.tsdf import (
     GenerationMethod,
@@ -80,33 +80,27 @@ def solve_hierarchical(
     live: torch.Tensor,
     params: HierarchicalParams = HierarchicalParams(),
     initial_warp: torch.Tensor | None = None,
-    loops: Dict[tuple, SolveLoop] | None = None,
 ) -> HierarchicalResult:
     """Coarse-to-fine warp solve on the fields' device.
 
     ``initial_warp`` (finest resolution) is downsampled to the coarsest level
-    if given, as warm-started multi-frame fusion does. ``loops``: see
-    ``_solve_over_pyramids``.
+    if given, as warm-started multi-frame fusion does.
     """
     canon_pyr = pyramid.build_pyramid(canonical, params.levels)
     live_pyr = pyramid.build_pyramid(live, params.levels)
     warp = None
     if initial_warp is not None:
         warp = downsample_warp(initial_warp, params.levels - 1)
-    return _solve_over_pyramids(canon_pyr, live_pyr, params, warp, loops)
+    return _solve_over_pyramids(canon_pyr, live_pyr, params, warp)
 
 
-def _solve_over_pyramids(canon_pyr, live_pyr, params: HierarchicalParams, warp=None,
-                         loops: Dict[tuple, SolveLoop] | None = None) -> HierarchicalResult:
-    """Solve each level from the prolongated warp of the one before.
-    ``loops`` maps a level shape to the ``SolveLoop`` that solves it; the
-    levels it lacks are added to it (a new dict per call when None)."""
-    loops = {} if loops is None else loops
+def _solve_over_pyramids(canon_pyr, live_pyr, params: HierarchicalParams,
+                         warp=None) -> HierarchicalResult:
+    """Solve each level from the prolongated warp of the one before."""
     results: List[SolveResult] = []
     for level in range(params.levels):
         canon_l, live_l = canon_pyr[level], live_pyr[level]
-        loop = loop_for(loops, tuple(canon_l.shape), params.base, canon_l.device)
-        res = loop.solve(canon_l, live_l, warp)
+        res = solve_single_level(canon_l, live_l, params.base, warp)
         results.append(res)
         if level + 1 < params.levels:
             warp = pyramid.prolongate_warp(res.warp, target_shape=canon_pyr[level + 1].shape)
@@ -123,11 +117,10 @@ def solve_hierarchical_from_depth(
     params: HierarchicalParams = HierarchicalParams(),
     narrow_band_width_voxels: int = 20,
     coarse_method: GenerationMethod | None = None,
-    loops: Dict[tuple, SolveLoop] | None = None,
 ) -> HierarchicalResult:
     """Hierarchical solve on pyramids regenerated from depth with EWA."""
     canon_pyr, _ = build_pyramid_from_depth(
         canonical_depth, camera, grid, params.levels, narrow_band_width_voxels, coarse_method)
     live_pyr, _ = build_pyramid_from_depth(
         live_depth, camera, grid, params.levels, narrow_band_width_voxels, coarse_method)
-    return _solve_over_pyramids(canon_pyr, live_pyr, params, loops=loops)
+    return _solve_over_pyramids(canon_pyr, live_pyr, params)

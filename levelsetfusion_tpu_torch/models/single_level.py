@@ -46,13 +46,17 @@ same chunk runs eagerly. A capture or replay that fails raises. Under
 ``utils.debug.nan_checks`` every solve runs serially instead, checked for
 NaN and Inf each iteration.
 
-``solve_single_level`` keeps its loop: each thread holds at most one loop a
-device, and a call of the kept loop's shape and ``SolverParams`` reuses it
-(no build, no capture), while any other call releases it and builds its
-own. So the last loop, its state buffers and on CUDA its graph and graph
-pool, stays on the device after the call returns, until a call of another
-key or ``release_kept_loops``. ``solve`` resets every state buffer and
-returns copies, so a reused loop gives a new loop's results exactly.
+``loop_for`` owns the loop of every ``solve_single_level`` call, and so of
+every fusion frame and hierarchical level, which solve through it: each
+thread keeps, a device, the loops of one ``SolverParams``, one a shape. A
+call of a kept loop's shape and params reuses it (no build, no capture); a
+new shape under those params builds a loop kept beside the others; other
+params release every loop of the device first. So the loops, their state
+buffers and on CUDA their graphs and graph pools, stay on the device after
+the call returns, until a call of other params or ``release_kept_loops``
+(a thread that alternates shapes under one params keeps one loop a shape
+until then). ``solve`` resets every state buffer and returns copies, so a
+reused loop gives a new loop's results exactly.
 """
 
 from __future__ import annotations
@@ -178,6 +182,7 @@ class SolveLoop:
         # rounded to f32; compare the same way.
         self.threshold = float(np.float32(params.convergence_threshold))
         self.replays = 0
+        self.stream = None  # the CUDA stream of its last call through loop_for
         self._graph = None
         self.graph_launches = None  # {kernel module: calls its capture recorded}
         self.chunk_kernels = None  # kernel nodes of the captured chunk
@@ -351,51 +356,42 @@ class SolveLoop:
             return bool(self.active)
 
 
-def loop_for(loops, shape, params: SolverParams, device) -> SolveLoop:
-    """The loop of one solve shape: ``loops``' (made there at first use).
-    ``device`` is a tensor's, so a CUDA one carries its index. A kept loop
-    of other parameters or on another device is refused."""
-    loop = loops.get(shape)
-    if loop is None:
-        with span("lsf.solve.build"):
-            loop = loops[shape] = SolveLoop(shape, params, device)
-    elif loop.params != params or loop.device != device:
-        raise ValueError(f"the loop for {shape} runs {loop.params} on {loop.device}, "
-                         f"not {params} on {device}")
-    return loop
-
-
-_kept = threading.local()  # .loops: {device: (SolveLoop, the stream of its last call)}
+_kept = threading.local()  # .loops: {device: [SolveLoop, ...], last used first}
 
 
 def _kept_loops() -> dict:
-    """The calling thread's kept loops, by device."""
+    """The calling thread's kept loops: a device's, all of one
+    ``SolverParams``, most recently used first."""
     if not hasattr(_kept, "loops"):
         _kept.loops = {}
     return _kept.loops
 
 
-def _kept_loop(shape, params: SolverParams, device) -> SolveLoop:
-    """The calling thread's kept loop on ``device`` if it solves ``shape``
-    with ``params``, else a new loop kept in its place, the old one released
-    first (one loop a device at a time). A reused loop's last call may have
+def loop_for(shape, params: SolverParams, device) -> SolveLoop:
+    """The calling thread's kept loop that solves ``shape`` with ``params``
+    on ``device`` (a tensor's, so a CUDA one carries its index); where none
+    is kept, a new loop kept beside the device's others, which are released
+    first if they solve other ``params``. A reused loop's last call may have
     run on another CUDA stream, still reading its buffers: this call's
     stream waits for it."""
-    loops = _kept_loops()
+    kept = _kept_loops()
     stream = torch.cuda.current_stream(device) if device.type == "cuda" else None
     with span("lsf.solve.build"):
-        loop, last = loops.get(device, (None, None))
-        if loop is not None and loop.shape == shape and loop.params == params:
-            if last != stream:
-                stream.wait_stream(last)
-            loops[device] = (loop, stream)
+        loops = kept.get(device, [])
+        if loops and loops[0].params != params:
+            del kept[device]
+            loops = []  # freed before the new loop allocates
+        loop = next((x for x in loops if x.shape == shape), None)
+        if loop is not None:
+            loops.remove(loop)
+            if loop.stream != stream:
+                stream.wait_stream(loop.stream)
             count("solve.loop_kept")
-            return loop
-        loops.pop(device, None)
-        del loop, last  # freed before the new loop allocates
-        loop = SolveLoop(shape, params, device)
-        loops[device] = (loop, stream)
-        count("solve.loop_built")
+        else:
+            loop = SolveLoop(shape, params, device)
+            count("solve.loop_built")
+        loop.stream = stream
+        kept[device] = [loop, *loops]
         return loop
 
 
@@ -420,9 +416,8 @@ def solve_single_level(
       params: solver parameters.
       initial_warp: optional warm start ``(*spatial, D)``, else zeros.
 
-    Runs on ``canonical``'s device, in the calling thread's kept loop there
-    (on CUDA through its captured graph), built here where the kept loop
-    solves another shape or other ``params``.
+    Runs on ``canonical``'s device, in ``loop_for``'s loop there (on CUDA
+    through its captured graph).
     """
-    loop = _kept_loop(tuple(canonical.shape), params, canonical.device)
-    return loop.solve(canonical, live, initial_warp)
+    return loop_for(tuple(canonical.shape), params, canonical.device).solve(
+        canonical, live, initial_warp)

@@ -5,8 +5,9 @@ The sharded solvers' live-halo contract (every displacement within
 ``live_halo - 2`` slices of a block's face) is kept by construction:
 
 - **Coarse levels run replicated.** Every rank solves them whole, with the
-  single-device semantics (``models/single_level.py``'s ``SolveLoop``, on
-  CUDA a captured graph; ``loops`` keeps one per level shape across calls).
+  single-device semantics (``models/single_level.py::solve_single_level``,
+  in ``loop_for``'s kept loop of the level's shape, on CUDA a captured
+  graph).
 - **Fine levels run sharded** (``parallel/sharded.py`` on a ``Group``,
   ``parallel/sharded2d.py`` on a ``Mesh2D``), warm-started by the
   prolongated coarser warp, with a live halo sized from that warp's
@@ -24,13 +25,13 @@ are whole volumes on every rank.
 from __future__ import annotations
 
 import math
-from typing import Dict, List
+from typing import List
 
 import torch
 
 from levelsetfusion_tpu_torch.models.hierarchical import HierarchicalResult, downsample_warp
 from levelsetfusion_tpu_torch.models.params import HierarchicalParams
-from levelsetfusion_tpu_torch.models.single_level import SolveLoop, SolveResult, loop_for
+from levelsetfusion_tpu_torch.models.single_level import SolveResult, solve_single_level
 from levelsetfusion_tpu_torch.ops import pyramid
 from levelsetfusion_tpu_torch.parallel.halo import pmax_axis
 from levelsetfusion_tpu_torch.parallel.mesh import Group, Mesh2D, gather_field, shard_field
@@ -64,7 +65,6 @@ def solve_hierarchical_sharded(
     min_live_halo: int = 8,
     halo_margin: int = 2,
     pyramids=None,
-    loops: Dict[tuple, SolveLoop] | None = None,
 ) -> HierarchicalResult:
     """Coarse-to-fine solve of the whole fields ``canonical``/``live`` (every
     rank passes them, on the group's device), its fine levels split over
@@ -79,8 +79,6 @@ def solve_hierarchical_sharded(
       pyramids: optional ``(canon_pyr, live_pyr)``, coarsest first (e.g.
         ``models.hierarchical.build_pyramid_from_depth``'s EWA levels);
         default 2x block means of the fields.
-      loops: the replicated levels' ``SolveLoop`` per shape, kept across
-        calls (a new dict when None).
 
     Returns the finest warp, each level's result (whole volumes) and each
     level's live halo (None where it ran replicated).
@@ -88,7 +86,6 @@ def solve_hierarchical_sharded(
     two_d = isinstance(group, Mesh2D)
     disp_axes = (0, 1) if two_d else (0,)
     min_rows = 3 if params.base.sobolev_smoothing else 2
-    loops = {} if loops is None else loops
     if pyramids is not None:
         canon_pyr, live_pyr = pyramids
     else:
@@ -126,7 +123,7 @@ def solve_hierarchical_sharded(
         else:
             # Too small to shard, or the motion exceeds a one-block halo:
             # this level replicated, with the single-device semantics.
-            res = loop_for(loops, shape, params.base, canon_l.device).solve(canon_l, live_l, warp)
+            res = solve_single_level(canon_l, live_l, params.base, warp)
         results.append(res)
         if level + 1 < params.levels:
             warp = pyramid.prolongate_warp(res.warp, target_shape=canon_pyr[level + 1].shape)

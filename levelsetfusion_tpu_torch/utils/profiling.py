@@ -15,14 +15,38 @@
   adds nothing. ``counters()`` and ``spans()`` give what was recorded;
   ``trace`` clears both on entry. Spans sit at request, chunk and exchange
   boundaries, never inside a solver iteration or a captured chunk; their
-  names start with ``lsf.`` (the CLI's docstring lists them and the
-  counters).
+  names start with ``lsf.``. The CLI's ``--profile`` writes both.
 - ``graph_kernel_nodes``: the kernel nodes of a captured CUDA graph, read
   through ``libcuda.so.1`` (the solve loop counts its chunk's once, at
   capture).
 - ``solver_roofline``: one solver iteration's time against the least time
   the card could take for its bytes, priced for the H100 (NVIDIA H100
   80GB HBM3 at a 700 W power limit: 3.35 TB/s).
+
+The program's spans:
+
+- ``lsf.tsdf``: one TSDF generation, 2D or 3D;
+- ``lsf.solve``: one solve; inside it ``lsf.solve.capture`` (the CUDA
+  graph's warm-up, capture and instantiation), ``lsf.solve.flag_read`` (a
+  host read of the done flag) and ``lsf.solve.result_read``;
+- ``lsf.solve.build``: ``single_level.loop_for``'s look-up of a solve's
+  loop, one a solve (where it misses: the release of loops of other
+  params and the new loop's state buffers); ``lsf.solve.release``:
+  ``release_kept_loops``;
+- ``lsf.frame.next``: waiting for a frame; ``lsf.frame.blend``: a frame's
+  resample, blend and stats pack; ``lsf.frame.report_read``: its stats read;
+- ``lsf.io.prefetch_wait``: blocked on the native decode queue;
+- ``lsf.halo.exchange``, ``lsf.halo.wait``, ``lsf.reduce``: the sharded
+  solvers' halo exchanges, their waits and ``all_reduce`` calls.
+
+Its counters:
+
+- ``halo.bytes_sent``: the bytes the halo exchanges handed to ``isend``;
+- ``solve.loop_kept`` and ``solve.loop_built``: the ``loop_for`` look-ups
+  that reused a kept solve loop and those that built one;
+- on CUDA ``solve.graph_kernels`` and ``solve.graph_iterations``: the
+  kernels and the iterations of the captured chunks replayed, and
+  ``solve.step2d_iterations``: the 2D step's launches among them.
 """
 
 from __future__ import annotations

@@ -14,6 +14,7 @@ the weights exactly, the canonical within tolerance and ``band_voxels``
 are compared away from such voxels, which are counted and bounded."""
 
 import dataclasses
+import inspect
 
 import jax.numpy as jnp
 import numpy as np
@@ -23,13 +24,14 @@ import torch
 from levelsetfusion_tpu.core.grid import GridSpec as JGrid
 from levelsetfusion_tpu.io import synthetic as jsynthetic
 from levelsetfusion_tpu.models import fusion as jfusion
+from levelsetfusion_tpu.models import hierarchical as jhierarchical
 from levelsetfusion_tpu.models.params import SmoothingMode as JMode
 from levelsetfusion_tpu.models.params import SolverParams as JSolver
 from levelsetfusion_tpu.ops.interpolation import warp_field as jwarp_field
 from levelsetfusion_tpu.ops.tsdf import generate_tsdf_3d as jtsdf
 from levelsetfusion_tpu_torch.core.grid import GridSpec
 from levelsetfusion_tpu_torch.io import synthetic
-from levelsetfusion_tpu_torch.models import fusion
+from levelsetfusion_tpu_torch.models import fusion, hierarchical
 from levelsetfusion_tpu_torch.models.params import SmoothingMode, SolverParams
 from levelsetfusion_tpu_torch.ops.interpolation import warp_field
 from tests.torch_parity import assert_close, n, t
@@ -247,13 +249,11 @@ def test_fusion_without_warm_start_matches_jax():
         assert_close(got.final_warp, want.final_warp, rtol=3e-4, atol=3e-6)
 
 
-def test_hierarchical_keeps_one_loop_per_level_shape(hier_runs, monkeypatch):
-    """A hierarchical sequence makes one SolveLoop per level shape (so on
-    CUDA each level's graph is captured once), and ``fuse_frame`` with the
-    caller's loops gives the sequence's first frame."""
+def _counted_loops(monkeypatch):
+    """``single_level.SolveLoop`` patched to append each new loop's shape to
+    the list returned."""
     from levelsetfusion_tpu_torch.models import single_level
 
-    _, _, _, (got, twarps) = hier_runs
     made = []
 
     class Counted(single_level.SolveLoop):
@@ -262,37 +262,98 @@ def test_hierarchical_keeps_one_loop_per_level_shape(hier_runs, monkeypatch):
             super().__init__(shape, *args, **kw)
 
     monkeypatch.setattr(single_level, "SolveLoop", Counted)
+    return made
+
+
+def _first_frame(tcfg, tseq):
+    """``fuse_frame`` of frame 1 onto frame 0's state, from a zero warp."""
+    state = fusion.init_state(fusion._tsdf(tseq.frames[0], tseq.camera, tcfg,
+                                           torch.device("cpu")))
+    return fusion.fuse_frame(state, None, torch.zeros((*SHAPE, 3)), tcfg.solver, tcfg, 1,
+                             depth=tseq.frames[1], camera=tseq.camera)
+
+
+def test_hierarchical_keeps_one_loop_per_level_shape(hier_runs, monkeypatch):
+    """A hierarchical sequence makes one SolveLoop per level shape (so on
+    CUDA each level's graph is captured once), and a ``fuse_frame`` after
+    it builds nothing: it runs in the sequence's kept loops, the last level
+    first, and gives the sequence's first frame."""
+    from levelsetfusion_tpu_torch.models import single_level
+
+    _, _, _, (got, twarps) = hier_runs
+    single_level.release_kept_loops()
+    made = _counted_loops(monkeypatch)
     tseq = synthetic.snoopy_style_sequence_3d(**SEQ)
     _, tcfg = _hier_configs()
     again = fusion.fuse_sequence(tseq.frames, tseq.camera, tcfg, device="cpu")
     assert made == [(8, 8, 6), (16, 16, 12), (32, 32, 24)]
     assert again.reports == got.reports
-    loops = {}
-    state = fusion.init_state(fusion._tsdf(tseq.frames[0], tseq.camera, tcfg,
-                                           torch.device("cpu")))
-    _, warp, report, _ = fusion.fuse_frame(state, None, torch.zeros((*SHAPE, 3)), tcfg.solver,
-                                           tcfg, 1, depth=tseq.frames[1], camera=tseq.camera,
-                                           loops=loops)
-    assert report == got.reports[0] and sorted(loops) == made[:3]
+    _, warp, report, _ = _first_frame(tcfg, tseq)
+    kept = single_level._kept_loops()[torch.device("cpu")]
+    assert report == got.reports[0] and len(made) == 3
+    assert [loop.shape for loop in kept] == made[::-1]
     np.testing.assert_array_equal(n(warp), twarps[1])
 
 
 @pytest.mark.parametrize("hierarchical", [False, True])
-def test_fuse_frame_refuses_a_loop_of_another_solver(hierarchical):
-    """Both branches look a solve shape's loop up in the caller's ``loops``
-    the same way: a kept loop built for other parameters is refused, not
-    reused."""
-    from levelsetfusion_tpu_torch.models.single_level import SolveLoop
+def test_fuse_frame_of_another_solver_releases_the_kept_loops(hierarchical):
+    """Both branches look a solve shape's loop up in ``loop_for`` the same
+    way: kept loops built for other parameters are released, not reused;
+    the frame builds and keeps its own, and equals a frame run with
+    nothing kept exactly."""
+    from levelsetfusion_tpu_torch.models import single_level
 
     tseq = synthetic.snoopy_style_sequence_3d(**SEQ)
     _, tcfg = _hier_configs() if hierarchical else _configs()
-    state = fusion.init_state(fusion._tsdf(tseq.frames[0], tseq.camera, tcfg,
-                                           torch.device("cpu")))
-    shape = (8, 8, 6) if hierarchical else SHAPE
-    loops = {shape: SolveLoop(shape, tcfg.solver.replace(max_iterations=3), "cpu")}
-    with pytest.raises(ValueError, match="the loop for"):
-        fusion.fuse_frame(state, None, torch.zeros((*SHAPE, 3)), tcfg.solver, tcfg, 1,
-                          depth=tseq.frames[1], camera=tseq.camera, loops=loops)
+    cpu = torch.device("cpu")
+    shapes = [(8, 8, 6), (16, 16, 12), SHAPE] if hierarchical else [SHAPE]
+    single_level.release_kept_loops()
+    stale = [single_level.loop_for(shape, tcfg.solver.replace(max_iterations=3), cpu)
+             for shape in shapes]
+    got = _first_frame(tcfg, tseq)
+    kept = single_level._kept_loops()[cpu]
+    assert sorted(loop.shape for loop in kept) == sorted(shapes)
+    assert all(loop.params == tcfg.solver and all(loop is not s for s in stale)
+               for loop in kept)
+    single_level.release_kept_loops()
+    want = _first_frame(tcfg, tseq)
+    assert got[2] == want[2]
+    for a, b in zip((*got[0], got[1]), (*want[0], want[1])):
+        assert torch.equal(a, b)
+
+
+def test_fuse_sequence_reuses_a_solve_single_levels_loop(runs, monkeypatch):
+    """A flat sequence after a ``solve_single_level`` call of its shape and
+    solver builds no loop: every frame runs in the loop that call left
+    kept, with the reports and final warp of a sequence run alone."""
+    from levelsetfusion_tpu_torch.models import single_level
+
+    _, _, _, (want, _), _ = runs
+    tseq = synthetic.snoopy_style_sequence_3d(**SEQ)
+    _, tcfg = _configs()
+    single_level.release_kept_loops()
+    c, l = (fusion._tsdf(d, tseq.camera, tcfg, torch.device("cpu")) for d in tseq.frames[:2])
+    single_level.solve_single_level(c, l, tcfg.solver)
+    loop, = single_level._kept_loops()[torch.device("cpu")]
+    made = _counted_loops(monkeypatch)
+    got = fusion.fuse_sequence(tseq.frames, tseq.camera, tcfg, device="cpu")
+    assert made == [] and single_level._kept_loops()[torch.device("cpu")] == [loop]
+    assert got.reports == want.reports
+    assert torch.equal(got.final_warp, want.final_warp)
+
+
+@pytest.mark.parametrize("name", ["fuse_frame", "solve_hierarchical",
+                                  "solve_hierarchical_from_depth"])
+def test_signature_matches_jax(name):
+    """The public solves take their JAX twins' parameters, by name and kind,
+    and no more: no caller hands in a solve loop."""
+    port = fusion if name == "fuse_frame" else hierarchical
+    twin = jfusion if name == "fuse_frame" else jhierarchical
+
+    def params(fn):
+        return [(p.name, p.kind) for p in inspect.signature(fn).parameters.values()]
+
+    assert params(getattr(port, name)) == params(getattr(twin, name))
 
 
 def test_pipeline_config_matches_jax():

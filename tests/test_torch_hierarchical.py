@@ -1,7 +1,7 @@
 """Parity of the port's hierarchical coarse-to-fine solve
 (``models/hierarchical.py``) with the JAX package's: config2's problem on a
 block-mean pyramid and on an EWA depth pyramid, a warm start downsampled to
-the coarsest level, and the per-level loops a caller may pass.
+the coarsest level, and the per-level loops ``loop_for`` keeps.
 
 Tolerances: each level's iteration count and ``converged`` exactly; its
 warp and max |u| rtol 3e-4 atol 3e-6 and telemetry rtol 2e-4 atol 1e-8
@@ -25,7 +25,7 @@ from levelsetfusion_tpu_torch.core.camera import PinholeCamera
 from levelsetfusion_tpu_torch.core.grid import GridSpec
 from levelsetfusion_tpu_torch.models import hierarchical as th
 from levelsetfusion_tpu_torch.models import params as tparams
-from levelsetfusion_tpu_torch.models.single_level import SolveLoop
+from levelsetfusion_tpu_torch.models.single_level import _kept_loops, release_kept_loops
 from levelsetfusion_tpu_torch.ops.tsdf import GenerationMethod
 from tests.test_torch_single_level import _compare
 from tests.torch_parity import assert_close, n, t
@@ -139,22 +139,52 @@ def test_ewa_depth_pyramid_3d_matches_jax():
 
 
 def test_loops_serve_a_sequence_of_solves():
-    """A caller's ``loops`` get one SolveLoop per level shape, reused by the
-    next solve with the results a fresh solve gives; a loop of other
-    parameters is refused."""
+    """``loop_for`` keeps one SolveLoop per level shape, reused by the next
+    solve with the results of new loops; a solve of other parameters
+    releases them and keeps its own."""
     _, canonical, live = _pair(4.0, dict(shape=(32, 16), voxel_size=0.008, offset=(-16, 42)))
     _, tp = _params(max_iterations=12)
-    loops = {}
-    first = th.solve_hierarchical(t(canonical), t(live), tp, loops=loops)
-    assert sorted(loops) == [(8, 4), (16, 8), (32, 16)]
-    kept = dict(loops)
-    again = th.solve_hierarchical(t(live), t(canonical), tp, loops=loops)
+    cpu = torch.device("cpu")
+    release_kept_loops()
+    first = th.solve_hierarchical(t(canonical), t(live), tp)
+    kept = list(_kept_loops()[cpu])
+    assert [loop.shape for loop in kept] == [(32, 16), (16, 8), (8, 4)]
+    again = th.solve_hierarchical(t(live), t(canonical), tp)
+    assert len(_kept_loops()[cpu]) == 3
+    assert all(a is b for a, b in zip(_kept_loops()[cpu], kept))
+    release_kept_loops()
     fresh = th.solve_hierarchical(t(live), t(canonical), tp)
-    assert loops == kept and all(loops[k] is kept[k] for k in kept)
     for a, b in zip(again.level_results, fresh.level_results):
         assert a.iterations == b.iterations
         np.testing.assert_array_equal(n(a.warp), n(b.warp))
     assert first.level_results[0].iterations > 0
-    loops[(8, 4)] = SolveLoop((8, 4), tp.base.replace(max_iterations=3), "cpu")
-    with pytest.raises(ValueError, match="the loop for"):
-        th.solve_hierarchical(t(canonical), t(live), tp, loops=loops)
+    other = tp.replace(base=tp.base.replace(max_iterations=3))
+    th.solve_hierarchical(t(canonical), t(live), other)
+    assert len(_kept_loops()[cpu]) == 3
+    assert all(loop.params == other.base for loop in _kept_loops()[cpu])
+
+
+@pytest.mark.parametrize("shape", [(32, 16), (16, 8, 8)])
+def test_last_level_leads_the_kept_loops(shape, monkeypatch):
+    """After a three-level solve the kept loops are its levels', the loop
+    of the last call first: the finest level's, then the coarser ones."""
+    from levelsetfusion_tpu_torch.models import single_level
+
+    solved = []
+
+    class Recorded(single_level.SolveLoop):
+        def solve(self, *args, **kw):
+            solved.append(self)
+            return super().solve(*args, **kw)
+
+    monkeypatch.setattr(single_level, "SolveLoop", Recorded)
+    rng = np.random.default_rng(5)
+    canonical, live = (np.tanh(rng.standard_normal(shape)).astype(np.float32)
+                       for _ in range(2))
+    _, tp = _params(max_iterations=6)
+    release_kept_loops()
+    th.solve_hierarchical(t(canonical), t(live), tp)
+    kept = _kept_loops()[torch.device("cpu")]
+    assert kept[0] is solved[-1] and kept == solved[::-1]
+    assert [loop.shape for loop in kept] == [shape, *(
+        tuple(s // f for s in shape) for f in (2, 4))]

@@ -268,9 +268,10 @@ def _counted(fn, tmp_path):
 
 
 def test_kept_loop_is_reused_and_replaced(tmp_path):
-    """A call with the kept loop's key builds nothing (counted as kept, no
-    capture); one of another shape or other params releases it and builds
-    its own; ``release_kept_loops`` empties the slot."""
+    """A call with a kept loop's key builds nothing (counted as kept, no
+    capture); one of another shape builds a loop kept beside the first, the
+    last used first; one of other params releases both and builds its own;
+    ``release_kept_loops`` empties the slot."""
     release_kept_loops()
     assert single_level._kept_loops() == {}
     tp = _params(max_iterations=8, convergence_threshold=0.0)[1]
@@ -279,20 +280,25 @@ def test_kept_loop_is_reused_and_replaced(tmp_path):
     cpu = torch.device("cpu")
 
     def kept():
-        return single_level._kept_loops()[cpu][0]
+        return single_level._kept_loops()[cpu]
 
     _, counts, _ = _counted(lambda: tsolve(c, l, tp), tmp_path)
-    first = kept()
+    first, = kept()
     assert counts == {"solve.loop_built": 1} and first.shape == (12, 10, 8)
     _, counts, spans = _counted(lambda: tsolve(c, l, tp), tmp_path)
-    assert counts == {"solve.loop_kept": 1} and kept() is first
+    assert counts == {"solve.loop_kept": 1} and kept() == [first]
     assert "lsf.solve.capture" not in spans
-    for args in ((c2, l2, tp), (c, l, tp.replace(learning_rate=0.2))):
-        _, counts, _ = _counted(lambda: tsolve(*args), tmp_path)
-        assert counts == {"solve.loop_built": 1} and kept() is not first
-        assert len(single_level._kept_loops()) == 1
-        first = kept()
-    assert first.params == tp.replace(learning_rate=0.2)
+    _, counts, _ = _counted(lambda: tsolve(c2, l2, tp), tmp_path)
+    second = kept()[0]
+    assert counts == {"solve.loop_built": 1} and kept() == [second, first]
+    assert second.shape == (10, 10, 8)
+    _, counts, _ = _counted(lambda: tsolve(c, l, tp), tmp_path)
+    assert counts == {"solve.loop_kept": 1} and kept() == [first, second]
+    other = tp.replace(learning_rate=0.2)
+    _, counts, _ = _counted(lambda: tsolve(c, l, other), tmp_path)
+    assert counts == {"solve.loop_built": 1} and len(kept()) == 1
+    assert kept()[0] is not first and kept()[0].params == other
+    assert len(single_level._kept_loops()) == 1
     release_kept_loops()
     assert single_level._kept_loops() == {}
 

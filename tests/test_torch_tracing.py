@@ -105,8 +105,9 @@ def test_solve_spans(iterations, threshold, tmp_path):
     """solve_single_level (its loop eager on the CPU): one look-up of the
     kept loop, which builds it on a miss and nothing on a hit, the solve,
     one flag read before the first chunk and one after each and the result
-    read; a call of other params misses again. A loop of the caller's own
-    records no look-up; ``release_kept_loops`` records the release."""
+    read; a call of other params misses again, and so does one of the first
+    params after it. A SolveLoop called directly records no look-up;
+    ``release_kept_loops`` records the release."""
     c, l = _pair()
     params = SolverParams(max_iterations=iterations, learning_rate=0.3,
                           convergence_threshold=threshold)
@@ -128,6 +129,8 @@ def test_solve_spans(iterations, threshold, tmp_path):
     _, spans, counts = profiled(lambda: solve_single_level(c, l, other))
     assert spans["lsf.solve.build"] == 1 and "lsf.solve.release" not in spans
     assert counts == {"solve.loop_built": 1}
+    _, spans, counts = profiled(lambda: solve_single_level(c, l, params))
+    assert (spans, counts) == ({"lsf.solve.build": 1, **solve}, {"solve.loop_built": 1})
     loop = SolveLoop(c.shape, params, c.device, graph=False)
     again, spans, counts = profiled(lambda: loop.solve(c, l))
     assert again.iterations == res.iterations and torch.equal(again.warp, res.warp)
@@ -219,16 +222,19 @@ def _fusion_config():
 @pytest.mark.parametrize("pipelined", [True, False])
 def test_fusion_frame_spans(pipelined, tmp_path):
     """fuse_sequence over 4 frames: a TSDF and a frame read each (and the
-    read that finds the end), and for frames 1-3 a solve, a blend and a
-    report read; one loop build for the sequence."""
+    read that finds the end), and for frames 1-3 a loop look-up, a solve, a
+    blend and a report read; the first look-up builds the loop, the others
+    reuse it."""
     seq = synthetic.snoopy_style_sequence_3d(**SEQ)
     cfg = _fusion_config()
+    release_kept_loops()
     res, spans = _profiled(lambda: fusion.fuse_sequence(
         seq.frames, seq.camera, cfg, device="cpu", pipelined=pipelined), tmp_path)
     n = len(seq.frames)
     assert len(res.reports) == n - 1
+    assert profiling.counters() == {"solve.loop_built": 1, "solve.loop_kept": n - 2}
     reads = sum(math.ceil(r.solver_iterations / CHECK_EVERY) + 1 for r in res.reports)
-    assert spans == {"lsf.frame.next": n + 1, "lsf.tsdf": n, "lsf.solve.build": 1,
+    assert spans == {"lsf.frame.next": n + 1, "lsf.tsdf": n, "lsf.solve.build": n - 1,
                      "lsf.solve": n - 1, "lsf.solve.flag_read": reads,
                      "lsf.solve.result_read": n - 1, "lsf.frame.blend": n - 1,
                      "lsf.frame.report_read": n - 1}
@@ -276,13 +282,14 @@ def test_cli_profile_writes_counters(tmp_path):
     cfg = dataclasses.replace(cfg, solver=cfg.solver.replace(max_iterations=25))
     path = tmp_path / "c1.json"
     path.write_text(cfg.to_json())
-    out = tmp_path / "run"
     release_kept_loops()
-    assert cli.main(["--config", str(path), "--out", str(out), "--device", "cpu",
-                     "--profile"]) == 0
-    with open(out / "summary.json") as f:  # one device: no halo exchange
-        assert json.load(f)["counters"] == {"solve.loop_built": 1}
-    with open(os.path.join(out, "trace", "trace.json")) as f:
-        names = {e.get("name") for e in json.load(f)["traceEvents"]}
-    assert {"lsf.solve.build", "lsf.solve", "lsf.solve.flag_read",
-            "lsf.solve.result_read"} <= names
+    for run, want in (("run", "solve.loop_built"), ("again", "solve.loop_kept")):
+        out = tmp_path / run  # the second run reuses the first one's kept loop
+        assert cli.main(["--config", str(path), "--out", str(out), "--device", "cpu",
+                         "--profile"]) == 0
+        with open(out / "summary.json") as f:  # one device: no halo exchange
+            assert json.load(f)["counters"] == {want: 1}
+        with open(os.path.join(out, "trace", "trace.json")) as f:
+            names = {e.get("name") for e in json.load(f)["traceEvents"]}
+        assert {"lsf.solve.build", "lsf.solve", "lsf.solve.flag_read",
+                "lsf.solve.result_read"} <= names
