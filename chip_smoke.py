@@ -4,9 +4,10 @@
 
 Builds every CUDA kernel of the port from ``levelsetfusion_tpu_torch/csrc``
 (one nvcc per source, all at once; phase 1), holds B1 and B2 against their
-plain torch versions on the card (2, 3) and the 2D step at every 2D shape of
-the main path, timed (3b), checks a small kernel solve against
-the plain solve on the CPU (4), holds the solve's graph loop (16 iterations
+plain torch versions on the card (2, 3), the 2D step at every 2D shape of
+the main path, timed (3b), and the solve loop's tail at config1's and
+config3's stats, timed in a CUDA graph against a stated limit (3c), checks
+a small kernel solve against the plain solve on the CPU (4), holds the solve's graph loop (16 iterations
 a CUDA graph replay, the done flag on the device) to the eager loop that
 reads the flag every iteration at 128³, exactly, and prints the graph's
 memory (4b), runs the config3 preset (128³, full energy) through
@@ -131,7 +132,7 @@ from levelsetfusion_tpu_torch.models.single_level import (
 )
 from levelsetfusion_tpu_torch.ops import pyramid
 from levelsetfusion_tpu_torch.ops.interpolation import advect_field, warp_field
-from levelsetfusion_tpu_torch.ops.kernels import _lib, fused_gradient, resample, step2d
+from levelsetfusion_tpu_torch.ops.kernels import _lib, fused_gradient, loop_tail, resample, step2d
 from levelsetfusion_tpu_torch.ops.kernels.fused_gradient import (
     fused_gradient_update,
     fused_gradient_update_reference,
@@ -203,7 +204,7 @@ CASES = [
     (0.0, 0.0, False, False, True),
 ]
 BENCH_ITERS = 300  # bench.py's N_ITER
-MAIN_LIBRARIES = ("resample", "fused_gradient", "step2d")  # the main paths' kernels
+MAIN_LIBRARIES = ("resample", "fused_gradient", "step2d", "loop_tail")  # the main paths' kernels
 LIBRARIES = (*MAIN_LIBRARIES, "conv_yz", "fused_io_probe", "dma_probe",
              "resample_variants", "v10_xslab", "stack_bodies")
 RAGGED_X = (20, 64, 128)  # a ragged x for the resample variants (their Z is 128)
@@ -591,6 +592,152 @@ def phase3b_step2d():
     return (max(worst["warp"], worst["maxes"]), *row)
 
 
+# The loop tail's limit a call in a CUDA graph, as the solve loop replays it:
+# one dependent node of one warp costs about 2 us on the H100, so twice that.
+LOOP_TAIL_LIMIT_US = 4.0
+TAIL_CAP = 24  # a short iteration cap, so that sequences reach it
+
+
+def _tail_state(dim, n, seed):
+    """The loop's buffers as ``_solve`` seeds them, the telemetry filled
+    with 7 so that an unwritten entry shows."""
+    rng = np.random.default_rng(seed)
+    f32 = dict(dtype=torch.float32, device="cuda")
+    return {"rate": torch.tensor(0.5, **f32), "prev_energy": torch.tensor(float("inf"), **f32),
+            "telemetry": torch.full((5, n + 1), 7.0, **f32),
+            "max_disp": torch.tensor(rng.uniform(0.0, 1.0, dim), **f32),
+            "max_update": torch.tensor(float("inf"), **f32),
+            "iteration": torch.zeros((), dtype=torch.int64, device="cuda"),
+            "active": torch.tensor(True, device="cuda")}
+
+
+def _tail_stats(rng, dim, step, threshold):
+    """One iteration's stats: energies that mostly fall and now and then
+    rise, an update that stays above the threshold but now and then falls
+    below it, and a NaN or an infinity in one call of ~30."""
+    energies = rng.uniform(0.2, 0.4, 3) * (1.0 + 0.05 * rng.standard_normal()) / (1 + step)
+    stats = np.concatenate([energies, [rng.uniform(1.0, 9.0)],
+                            [rng.uniform(0.9, 3.0) * threshold], rng.uniform(0.5, 3.0, dim)])
+    odd = rng.uniform()
+    if odd < 0.02:
+        stats[rng.integers(len(stats))] = float("nan")
+    elif odd < 0.035:
+        stats[rng.integers(len(stats))] = float("inf")
+    return torch.from_numpy(stats.astype(np.float32)).cuda()
+
+
+def _tail_call(fn, stats, flag, s, kw):
+    fn(stats, flag, s["rate"], s["prev_energy"], s["telemetry"], s["max_disp"],
+       s["max_update"], s["iteration"], s["active"], **kw)
+
+
+def _tail_differs(got, want, n):
+    """The buffers where the kernel's differ from the plain version's (NaN
+    equal to NaN); the telemetry's first ``n`` columns, since the plain
+    version writes a frozen call's entries into the spare column ``n``."""
+    bad = []
+    for key in got:
+        a, b = got[key], want[key]
+        if key == "telemetry":
+            a, b = a[:, :n], b[:, :n]
+        same = a == b
+        if a.is_floating_point():
+            same |= torch.isnan(a) & torch.isnan(b)
+        if not bool(same.all()):
+            bad.append(key)
+    return bad
+
+
+def phase3c_loop_tail():
+    """The loop tail (``loop_tail``, one launch an iteration of every solve
+    loop, 2D and 3D) against its plain version on the card, on the same
+    inputs, at config1's stats (7) and telemetry and config3's (8): the
+    presets' caps and threshold and a cap of TAIL_CAP, the adaptive rate on
+    and off, the flag aliased to ``active`` (fed back, as in a chunk) and a
+    separate flag that is on; sequences of random stats with NaN and
+    infinities, every buffer equal after every call (max|Δ| 0), the spare
+    telemetry column never written; now and then a call with a separate
+    false flag, which must write nothing. The launches counted equal the
+    calls. Then the tail timed at both shapes in a CUDA graph of 16 calls,
+    as the loop replays it, on and frozen, against LOOP_TAIL_LIMIT_US, and
+    its plain version's ops after a spin. Returns (max|Δ|, launches, ms,
+    plain ms, bound) at config1."""
+    loop_tail.launch_count = 0
+    calls, sequences, off_calls, lines, row = 0, 0, 0, [], None
+    for preset, shape in ((C1, CONFIG1), (PRESET, FULL)):
+        params, dim = PRESETS[preset].solver, len(shape)
+        threshold = float(np.float32(params.convergence_threshold))
+        for cap in (params.max_iterations, TAIL_CAP):
+            for adaptive in (True, False):
+                kw = dict(threshold=threshold, voxels=int(np.prod(shape)), adaptive=adaptive)
+                for aliased in (True, False):
+                    seed = 40 + 8 * dim + 4 * (cap == TAIL_CAP) + 2 * adaptive + aliased
+                    rng = np.random.default_rng(seed)
+                    got = _tail_state(dim, cap, seed)
+                    want = {k: v.clone() for k, v in got.items()}
+                    # A separate flag that stays on runs the count up to the
+                    # cap and stops there: the plain version would index past
+                    # the spare column.
+                    for step in range(TAIL_CAP + 6 if aliased else min(TAIL_CAP + 6, cap)):
+                        stats = _tail_stats(rng, dim, step, threshold)
+                        flags = ((got["active"], want["active"]) if aliased else
+                                 (torch.tensor(True, device="cuda"),) * 2)
+                        _tail_call(loop_tail.loop_tail, stats, flags[0], got, kw)
+                        _tail_call(loop_tail.loop_tail_reference, stats, flags[1], want, kw)
+                        calls += 1
+                        name = (f"loop_tail {preset} cap {cap} adaptive {adaptive} aliased "
+                                f"{aliased} step {step}")
+                        bad = _tail_differs(got, want, cap)
+                        if bad or not bool((got["telemetry"][:, cap] == 7.0).all()):
+                            raise AssertionError(f"{name}: differs from the plain version in "
+                                                 f"{bad or 'the spare column'}")
+                        if step % 7 == 3:
+                            before = {k: v.clone() for k, v in got.items()}
+                            _tail_call(loop_tail.loop_tail, stats,
+                                       torch.tensor(False, device="cuda"), got, kw)
+                            calls += 1
+                            off_calls += 1
+                            torch.cuda.synchronize()
+                            if _tail_differs(got, before, cap + 1):
+                                raise AssertionError(f"{name}: a call with the flag off wrote")
+                    sequences += 1
+    if loop_tail.launch_count != calls:
+        raise AssertionError(f"loop_tail: {loop_tail.launch_count} launches counted for "
+                             f"{calls} calls")
+    for preset, shape in ((C1, CONFIG1), (PRESET, FULL)):
+        params, dim = PRESETS[preset].solver, len(shape)
+        kw = dict(threshold=float(np.float32(params.convergence_threshold)),
+                  voxels=int(np.prod(shape)), adaptive=params.adaptive_learning_rate)
+        s = _tail_state(dim, params.max_iterations, 1)
+        stats = _tail_stats(np.random.default_rng(1), dim, 0, kw["threshold"])
+        on, off = torch.tensor(True, device="cuda"), torch.tensor(False, device="cuda")
+        # The kernel keeps a call past the cap in the spare column; the plain
+        # version's calls start from iteration 0, fewer than the cap.
+        graph_us = _graph_us(lambda: _tail_call(loop_tail.loop_tail, stats, on, s, kw))
+        frozen_us = _graph_us(lambda: _tail_call(loop_tail.loop_tail, stats, off, s, kw))
+        s["iteration"].zero_()
+        plain_ms = _time_ms(lambda: _tail_call(loop_tail.loop_tail_reference, stats, on, s, kw),
+                            params.max_iterations // 2 - 1)
+        if graph_us > LOOP_TAIL_LIMIT_US or graph_us > plain_ms * 1e3:
+            raise AssertionError(f"loop_tail at {shape}: {graph_us:.2f} us a call in a graph, "
+                                 f"limit {LOOP_TAIL_LIMIT_US}, plain {plain_ms * 1e3:.2f} us")
+        # Bytes: the stats and the scalars read, the column, the maxes and the
+        # scalars written.
+        bound = _bound(4 * (5 + dim) + 4 * (5 + 2 * dim) + 4 * 3 * 2 + 8 * 2 + 2, 10 + dim)
+        if row is None:
+            row = (graph_us * 1e-3, plain_ms, bound)
+        lines.append(f"{preset} {shape}: {graph_us:.2f} us a call in a CUDA graph of 16 "
+                     f"(frozen {frozen_us:.2f}; limit {LOOP_TAIL_LIMIT_US}), plain "
+                     f"{plain_ms * 1e3:.1f} us after a spin")
+    print(f"[3c] loop tail vs plain at config1's and config3's stats, caps "
+          f"({PRESETS[C1].solver.max_iterations}, {PRESETS[PRESET].solver.max_iterations}, "
+          f"{TAIL_CAP}), adaptive on and off, flag aliased and separate: {sequences} "
+          f"sequences, every buffer equal after each of {calls - off_calls} calls (max|Δ| 0); "
+          f"{off_calls} calls with the flag off wrote nothing; {calls} launches counted; "
+          f"{'; '.join(lines)}")
+    return (0.0, *row)
+
+
 def phase4_solve_parity():
     cfg = PRESETS[PRESET]
     small = dataclasses.replace(cfg, grid_shape=(32, 32, 64), grid_offset=(-16, -16, 70))
@@ -615,11 +762,11 @@ def _max_diff(a, b):
 def _check_capture(loop, k):
     """The calls of each kernel that ``loop``'s capture recorded (what a
     replay adds to its launch counter) must be the chunk's ``k``: B1's and
-    B2's in 3D, the 2D step's in 2D."""
+    B2's in 3D, the 2D step's in 2D, the loop tail's in both."""
     recorded = {m.__name__.rsplit(".", 1)[-1]: c for m, c in loop.graph_launches.items()}
     three = loop.dim == 3
     if recorded != {"resample": k if three else 0, "fused_gradient": k if three else 0,
-                    "step2d": 0 if three else k}:
+                    "step2d": 0 if three else k, "loop_tail": k}:
         raise AssertionError(f"the capture of a {k}-iteration chunk recorded {recorded}")
 
 
@@ -691,17 +838,15 @@ def _chunk_launches(iterations):
 def phase5_main_path(serial_it):
     release_kept_loops()  # the counts below take a new loop's warm-up and capture
     with tempfile.TemporaryDirectory() as out:
-        resample.launch_count = 0
-        fused_gradient.launch_count = 0
-        torch.cuda.synchronize()
+        _reset_launches()
         t0 = time.perf_counter()
         summary = run_experiment(PRESETS[PRESET], out, device="cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {"resample": resample.launch_count,
-                    "fused_gradient": fused_gradient.launch_count}
+        launches = _read_launches()
     it = summary["iterations"]
-    want = {"resample": _chunk_launches([it]) + 1, "fused_gradient": _chunk_launches([it])}
+    want = {"resample": _chunk_launches([it]) + 1, "fused_gradient": _chunk_launches([it]),
+            "loop_tail": _chunk_launches([it])}
     print(f"[5] {PRESET} at {FULL} on cuda: iterations {it} (serial loop {serial_it}; "
           f"{-(-it // CHECK_EVERY)} replays of {CHECK_EVERY}), converged "
           f"{summary['converged']}, residual {summary['residual_before']:.6f} -> "
@@ -719,10 +864,11 @@ def phase5_main_path(serial_it):
     if not summary["residual_reduction"] >= 2.0:
         raise AssertionError("config3 residual reduction < 2")
     # A replay launches the calls its capture recorded, CHECK_EVERY of each
-    # kernel, frozen ones too; a warm-up before the capture, and the final
-    # resample, add one each.
-    if launches != want:
-        raise AssertionError(f"launch counts {launches} for {it} iterations, want {want}")
+    # kernel (B1, B2 and the tail), frozen ones too; a warm-up before the
+    # capture, and the final resample, add one each.
+    if launches != want or summary["kernel_launches"] != {**want, "step2d": 0}:
+        raise AssertionError(f"launch counts {launches} (summary.json: "
+                             f"{summary['kernel_launches']}) for {it} iterations, want {want}")
     return launches
 
 
@@ -954,11 +1100,13 @@ def phase7_ptxas():
     -v`` log, and the SASS a voxel of the pair-loop kernels."""
     parts = [f"{name}: {', '.join(_ptxas(name))}" for name in LIBRARIES[len(MAIN_LIBRARIES):]]
     # B12's banded kernels, B5's ring kernels (ring_kernel<loop, 1>), B10's
-    # ring and B9's loop_kernel must not touch local memory.
+    # ring, B9's loop_kernel and the solve loop's tail must not touch local
+    # memory.
     for library, redesigned in (("conv_yz", "banded"),
                                 ("resample_variants", r"^ring_kernel<\d+,1>$"),
                                 ("dma_probe", r"^dma_probe_kernel$"),
-                                ("stack_bodies", r"^loop_kernel<")):
+                                ("stack_bodies", r"^loop_kernel<"),
+                                ("loop_tail", r"^loop_tail_kernel$")):
         log = (_lib.BUILD_DIR / f"lib{library}.log").read_text()
         for mangled, (_, spill, stack, _) in _sweep.ptxas(log).items():
             name = _sweep.kernel_name(mangled)
@@ -1615,15 +1763,12 @@ def phase17_config4():
         save, timed_save = _timed_saves(save_s)
         checkpoint.save = timed_save
         try:
-            resample.launch_count = 0
-            fused_gradient.launch_count = 0
-            torch.cuda.synchronize()
+            _reset_launches()
             t0 = time.perf_counter()
             summary = run_experiment(cfg, out, device="cuda")
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            launches = {"resample": resample.launch_count,
-                        "fused_gradient": fused_gradient.launch_count}
+            launches = _read_launches()
         finally:
             checkpoint.save = save
         final = cfg.num_frames - 1
@@ -1648,7 +1793,7 @@ def phase17_config4():
     its = [r["solver_iterations"] for r in reports]
     bands = [r["band_voxels"] for r in reports]
     want = {"resample": _chunk_launches(its) + len(reports),
-            "fused_gradient": _chunk_launches(its)}
+            "fused_gradient": _chunk_launches(its), "loop_tail": _chunk_launches(its)}
     pipeline_cfg = fusion.FusionPipelineConfig(
         grid=_grid(cfg), narrow_band_width_voxels=cfg.narrow_band_width_voxels,
         hierarchical=False, solver=cfg.solver)
@@ -1691,12 +1836,17 @@ def _reset_launches():
     resample.launch_count = 0
     fused_gradient.launch_count = 0
     step2d.launch_count = 0
+    loop_tail.launch_count = 0
     torch.cuda.synchronize()
 
 
 def _read_launches():
+    """B1's, B2's and the loop tail's launches since ``_reset_launches``
+    (the tail's: one an iteration of every ``SolveLoop``, none on the
+    sharded solvers' own loops)."""
     torch.cuda.synchronize()
-    return {"resample": resample.launch_count, "fused_gradient": fused_gradient.launch_count}
+    return {"resample": resample.launch_count, "fused_gradient": fused_gradient.launch_count,
+            "loop_tail": loop_tail.launch_count}
 
 
 def _cli_run(cfg, device):
@@ -1749,7 +1899,8 @@ def phase18_config1():
                              f"the CPU run {ref.iterations}")
     err = _close("config1 warp", solves[0].warp.cpu(), ref.warp, 3e-4, 3e-6)
     launches["step2d"] = step2d.launch_count
-    want = {"resample": 1, "fused_gradient": 0, "step2d": _chunk_launches([it])}
+    want = {"resample": 1, "fused_gradient": 0, "step2d": _chunk_launches([it]),
+            "loop_tail": _chunk_launches([it])}
     if launches != want or summary["kernel_launches"] != want:
         raise AssertionError(f"config1 launches {launches} (summary.json: "
                              f"{summary['kernel_launches']}) for {it} iterations, want {want}")
@@ -1799,7 +1950,7 @@ def phase19_config2():
     iterations equal to the CPU run's, residuals within rtol 1e-3 of it,
     the 2D step launched by each level's new loop (a warm-up, 16 a replay)
     and B1 by the final resample."""
-    lines, total = [], {"resample": 0, "fused_gradient": 0, "step2d": 0}
+    lines, total = [], {"resample": 0, "fused_gradient": 0, "step2d": 0, "loop_tail": 0}
     for method in ("ewa_depth", "block_mean"):
         cfg = dataclasses.replace(PRESETS[C2], pyramid_method=method)
         cpu, _ = _cli_run(cfg, "cpu")
@@ -1814,7 +1965,8 @@ def phase19_config2():
         for key in ("residual_before", "residual_after"):
             _close(f"config2 {method} {key}", torch.tensor(summary[key]), torch.tensor(cpu[key]),
                    1e-3, 0.0)
-        want = {"resample": 1, "fused_gradient": 0, "step2d": _level_launches(its)}
+        want = {"resample": 1, "fused_gradient": 0, "step2d": _level_launches(its),
+                "loop_tail": _level_launches(its)}
         if launches != want or summary["kernel_launches"] != want:
             raise AssertionError(f"config2 {method} launches {launches} (summary.json: "
                                  f"{summary['kernel_launches']}), want {want}")
@@ -1936,7 +2088,8 @@ def phase21_hierarchical_fusion():
     bands = [r.band_voxels for r in result.reports]
     per_level = {tuple(loop.shape): loop.solved for loop in loops}
     b2 = sum(_chunk_launches(loop.solved) for loop in loops)
-    want = {"resample": b2 + len(result.reports), "fused_gradient": b2, "step2d": 0}
+    want = {"resample": b2 + len(result.reports), "fused_gradient": b2, "step2d": 0,
+            "loop_tail": b2}
     state = result.state
     for name, t in (("canonical", state.canonical), ("weights", state.weights),
                     ("warp", result.final_warp)):
@@ -2149,8 +2302,9 @@ class _ShardedLoop:
 
 def _sharded_launches(iterations):
     """B1's and B2's launches of a sharded_3d run: one each an iteration,
-    and B1's final resample of the live field."""
-    return {"resample": iterations + 1, "fused_gradient": iterations}
+    and B1's final resample of the live field; its own loop runs no loop
+    tail."""
+    return {"resample": iterations + 1, "fused_gradient": iterations, "loop_tail": 0}
 
 
 def _free_port():
@@ -2351,7 +2505,7 @@ def phase24_sharded_fusion():
     finally:
         close_group(group)
     fps = (len(stamps) - 1) / (stamps[-1] - stamps[0])
-    want = {"resample": sum(its) + len(its), "fused_gradient": sum(its)}
+    want = {"resample": sum(its) + len(its), "fused_gradient": sum(its), "loop_tail": 0}
     if launches != want:
         raise AssertionError(f"sharded fusion launches {launches}, want {want}")
     if any(r.contract_violations for r in got.reports):
@@ -2688,14 +2842,14 @@ def phase26_mesh_solvers(sharded_1d):
             raise AssertionError(f"{name}: {summary}")
         if "outer_steps" in summary:
             inner = summary["total_inner_iterations"]
-            want = {"resample": inner + 1, "fused_gradient": inner}
+            want = {"resample": inner + 1, "fused_gradient": inner, "loop_tail": 0}
         elif "iterations_per_level" in summary:
             want = None
         else:
             want = _sharded_launches(summary["iterations"])
         if want is not None and paths[name] != want:
             raise AssertionError(f"{name}: launches {paths[name]}, want {want}")
-        if min(paths[name].values()) == 0:
+        if min(paths[name]["resample"], paths[name]["fused_gradient"]) == 0:
             raise AssertionError(f"{name}: a kernel never launched: {paths[name]}")
         runs[name] = summary
         runs[name]["wall"] = wall
@@ -2831,10 +2985,11 @@ def phase27_mesh_fusion():
             fps = (len(stamps) - 1) / (stamps[-1] - stamps[0])
             its = [r.solver_iterations for r in got.reports]
             if any(r.contract_violations for r in got.reports) or min(
-                    paths[label].values()) == 0:
+                    paths[label]["resample"], paths[label]["fused_gradient"]) == 0:
                 raise AssertionError(f"{label}: {paths[label]} "
                                      f"{[r.contract_violations for r in got.reports]}")
             if not hierarchical and paths[label] != {"resample": sum(its) + len(its),
+                                                     "loop_tail": 0,
                                                      "fused_gradient": sum(its)}:
                 raise AssertionError(f"{label}: launches {paths[label]} for {its}")
             ref, ref_fps = _fps(ds.frames, ds.camera, pipeline_cfg)
@@ -2953,7 +3108,7 @@ def phase28_config4_disk():
     reports = summary["reports"]
     its = [r["solver_iterations"] for r in reports]
     want = {"resample": _chunk_launches(its) + len(reports),
-            "fused_gradient": _chunk_launches(its)}
+            "fused_gradient": _chunk_launches(its), "loop_tail": _chunk_launches(its)}
     if json.loads(json.dumps(reports)) != json.loads(json.dumps(
             [r._asdict() for r in mem.reports])):
         raise AssertionError(f"from disk {reports} != in memory {mem.reports}")
@@ -3113,6 +3268,7 @@ def main():
     err_resample = phase2_resample()
     err_fused = phase3_fused()
     err_step2d, *times_step2d = phase3b_step2d()
+    err_tail, *times_tail = phase3c_loop_tail()
     phase4_solve_parity()
     serial_it = phase4b_device_loop()
     main_launches = phase5_main_path(serial_it)
@@ -3159,6 +3315,12 @@ def main():
     step2d_row = _numbers(sum(step2d_by_path.values()), err_step2d, *times_step2d, None)
     step2d_row["launches_by_path"] = step2d_by_path
     step2d_row["main_path_launches_per_2d_iter"] = 1
+    # The loop tail's launches: every path through a SolveLoop (5, 17-19,
+    # 21, 28; the hierarchical sharded solvers' replicated levels), none on
+    # the sharded solvers' own loops (23, 24, 26, 27).
+    tail_by_path = {path: c["loop_tail"] for path, c in paths.items() if "loop_tail" in c}
+    tail_row = _numbers(sum(tail_by_path.values()), err_tail, *times_tail, None)
+    tail_row["launches_by_path"] = tail_by_path
     for row, name, err in ((resample_row, "resample", "resample"),
                            (fused_row, "fused_gradient", "fused")):
         w_ms, w_plain, w_bound, w_shape, w_lib = shard[name]
@@ -3180,6 +3342,7 @@ def main():
         _row("fused_gradient_update", "fused_gradient.cu",
              "levelsetfusion_tpu/ops/pallas/fused_gradient.py:1267", fused_row, 1),
         _row("step2d", "step2d.cu", None, step2d_row),
+        _row("loop_tail", "loop_tail.cu", None, tail_row, 1),
         _row("conv_yz_stencil", "conv_yz.cu", "experiments/mxu_conv.py:117",
              conv["stencil"]),
         _row("conv_yz_banded_f32", "conv_yz.cu", "experiments/mxu_conv.py:122",

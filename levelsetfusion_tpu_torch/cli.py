@@ -84,7 +84,7 @@ from levelsetfusion_tpu_torch.models.hierarchical import (
 from levelsetfusion_tpu_torch.models.params import HierarchicalParams
 from levelsetfusion_tpu_torch.models.rigid import solve_rigid_2d, solve_rigid_3d
 from levelsetfusion_tpu_torch.models.single_level import solve_single_level
-from levelsetfusion_tpu_torch.ops.kernels import fused_gradient, resample, step2d
+from levelsetfusion_tpu_torch.ops.kernels import fused_gradient, loop_tail, resample, step2d
 from levelsetfusion_tpu_torch.ops.kernels.fused_gradient import to_component_major
 from levelsetfusion_tpu_torch.ops.kernels.resample import warp_field_cm
 from levelsetfusion_tpu_torch.ops.tsdf import generate_tsdf_2d, generate_tsdf_3d
@@ -240,7 +240,7 @@ def _sequence_dataset(cfg: ExperimentConfig) -> datasets.SequenceDataset:
 def _launches(before: dict) -> dict:
     """The kernels' launches since ``before`` (a ``_launches({})``)."""
     now = {"resample": resample.launch_count, "fused_gradient": fused_gradient.launch_count,
-           "step2d": step2d.launch_count}
+           "step2d": step2d.launch_count, "loop_tail": loop_tail.launch_count}
     return {k: v - before.get(k, 0) for k, v in now.items()}
 
 

@@ -10,7 +10,9 @@ step (``ops/kernels/step2d.py``): the resample, the JAX twin's unfused
 ``_solver_step`` (the gradient of the warped field, the terms, the optional
 Sobolev filter) and u' = u − rate·g with its statistics; B2 does not take
 2D, since its zero-padded Sobolev pass along a y axis of length 1 would
-scale g by the centre tap. The same loop runs on every device: the kernel
+scale g by the centre tap. After the step, one call of the loop tail
+(``ops/kernels/loop_tail.py``) updates the loop's state from the step's
+statistics, in 2D and 3D. The same loop runs on every device: the kernel
 wrappers launch the CUDA kernels for CUDA tensors and their plain versions
 for CPU tensors.
 
@@ -30,18 +32,20 @@ Semantics kept from the JAX twin:
 The loop lives on the device, as JAX's ``lax.while_loop`` does. The done
 test is a device flag, ``active = (iteration < n) & (max_update >=
 threshold)``, that every iteration recomputes; once it is false the state
-stays frozen: the kernels read the flag and return at once, and the scalar
-state and the telemetry column take their new values only where it is true
-(``torch.where``; a frozen iteration writes the spare telemetry column
-``n``). The host reads the flag once every ``check_every``
+stays frozen: the kernels, the loop tail's among them, read the flag and
+return at once (the tail's plain version takes the scalar state and the
+telemetry column's new values only where it is true, with ``torch.where``,
+and writes a frozen iteration's column into the spare column ``n``). The
+host reads the flag once every ``check_every``
 iterations (a chunk), so a solve runs as many iterations as the serial loop
 and gives its results exactly, whatever ``check_every``. The warp lives in
 two buffers that the iterations ping-pong; after ``iterations`` active
 iterations it lies in buffer ``iterations % 2``.
 
 On CUDA the chunk is captured once as a CUDA graph and replayed: the
-Python work of ~20 ops an iteration, more than the kernels take at 128³,
-leaves the loop. On the CPU, or with ``SolveLoop(..., graph=False)``, the
+Python work of the iterations' calls leaves the loop, and a replay runs two
+kernels an iteration in 2D (the step, the tail) and four in 3D (B1, B2's
+two, the tail). On the CPU, or with ``SolveLoop(..., graph=False)``, the
 same chunk runs eagerly. A capture or replay that fails raises. Under
 ``utils.debug.nan_checks`` every solve runs serially instead, checked for
 NaN and Inf each iteration.
@@ -68,7 +72,7 @@ import numpy as np
 import torch
 
 from levelsetfusion_tpu_torch.models.params import SmoothingMode, SolverParams
-from levelsetfusion_tpu_torch.ops.kernels import fused_gradient, resample, step2d
+from levelsetfusion_tpu_torch.ops.kernels import fused_gradient, loop_tail, resample, step2d
 from levelsetfusion_tpu_torch.ops.kernels.fused_gradient import (
     from_component_major,
     fused_gradient_update,
@@ -204,22 +208,14 @@ class SolveLoop:
         self.iteration = torch.zeros((), dtype=torch.int64, device=self.device)
         self.active = torch.zeros((), dtype=torch.bool, device=self.device)
         self.ticket = torch.zeros(1, dtype=torch.int32, device=self.device)
-        # Telemetry rows from the stats (B2's layout: data, smoothing and
-        # level-set energies, sum and max of ‖δu‖, per-axis max |u'|): data,
-        # smoothing, level set, max and sum of the update (the sum divided by
-        # the voxel count).
-        self._rows = torch.tensor([0, 1, 2, 4, 3], device=self.device)
-        self._divisor = torch.tensor([1.0, 1.0, 1.0, 1.0, float(np.prod(self.shape))], **f32)
         self._kw = dict(fused_step_kwargs(params), ticket=self.ticket)
+        self._tail_kw = dict(threshold=self.threshold, voxels=int(np.prod(self.shape)),
+                             adaptive=params.adaptive_learning_rate)
         if self.dim == 2:  # the 2D step's outputs and scratch
             self._stats = torch.zeros(len(step2d.STATS_FIELDS), **f32)
             self._partial = torch.zeros(
                 step2d.partial_len(self.shape, len(self._kw["taps"]), self.device),
                 dtype=torch.float64, device=self.device)
-
-    def _update_flag(self) -> None:
-        torch.logical_and(self.iteration < self.n, self.max_update >= self.threshold,
-                          out=self.active)
 
     def _iteration(self, parity: int, flag: torch.Tensor) -> None:
         """One iteration from warp buffer ``parity`` into the other, gated
@@ -233,20 +229,9 @@ class SolveLoop:
             _, stats = step2d.step2d(self.live, self.canonical, src, self.rate, out=dst,
                                      stats=self._stats, partial=self._partial, active=flag,
                                      **self._kw)
-        energy = stats[0] + stats[1] + stats[2]
-        if self.params.adaptive_learning_rate:
-            torch.where(flag & (energy > self.prev_energy), self.rate * 0.5, self.rate,
-                        out=self.rate)
-        torch.where(flag, energy, self.prev_energy, out=self.prev_energy)
-        column = torch.where(flag, self.iteration, self.n)
-        self.telemetry.index_copy_(
-            1, column.view(1), (stats.index_select(0, self._rows) / self._divisor).view(5, 1)
-        )
-        torch.where(flag, torch.maximum(self.max_disp, stats[5:]), self.max_disp,
-                    out=self.max_disp)
-        torch.where(flag, stats[4], self.max_update, out=self.max_update)
-        self.iteration += flag
-        self._update_flag()
+        loop_tail.loop_tail(stats, flag, self.rate, self.prev_energy, self.telemetry,
+                            self.max_disp, self.max_update, self.iteration, self.active,
+                            **self._tail_kw)
 
     def _chunk(self, first: int) -> None:
         for j in range(first, first + self.check_every):
@@ -278,7 +263,7 @@ class SolveLoop:
                 self._iteration(0, torch.zeros((), dtype=torch.bool, device=self.device))
             torch.cuda.current_stream(self.device).wait_stream(stream)
             graph = torch.cuda.CUDAGraph(keep_graph=True)
-            kernels = (resample, fused_gradient, step2d)
+            kernels = (resample, fused_gradient, step2d, loop_tail)
             before = [m.captured_count for m in kernels]
             with torch.cuda.graph(graph, stream=stream):
                 self._chunk(0)
@@ -322,7 +307,8 @@ class SolveLoop:
         self.max_update.fill_(float("inf"))
         self.iteration.zero_()
         torch.amax(torch.abs(self.warps[0]), dim=self._spatial, out=self.max_disp)
-        self._update_flag()
+        loop_tail.next_flag(self.iteration, self.max_update, self.n, self.threshold,
+                            out=self.active)
         from levelsetfusion_tpu_torch.utils import debug  # utils imports the solvers
 
         if debug.nan_checks_enabled():

@@ -45,8 +45,10 @@ Its counters:
 - ``solve.loop_kept`` and ``solve.loop_built``: the ``loop_for`` look-ups
   that reused a kept solve loop and those that built one;
 - on CUDA ``solve.graph_kernels`` and ``solve.graph_iterations``: the
-  kernels and the iterations of the captured chunks replayed, and
-  ``solve.step2d_iterations``: the 2D step's launches among them.
+  kernels and the iterations of the captured chunks replayed (the kernels:
+  an iteration's step, B1 and B2's two in 3D or the 2D step, and its loop
+  tail, ``ops/kernels/loop_tail.py``), and ``solve.step2d_iterations``: the
+  2D step's launches among them.
 """
 
 from __future__ import annotations

@@ -65,7 +65,8 @@ def test_summary_matches_jax(both_runs):
     assert tsum["residual_after"] < tsum["residual_before"]
     np.testing.assert_allclose(tsum["max_abs_displacement"], jsum["max_abs_displacement"],
                                rtol=3e-4)
-    assert tsum["kernel_launches"] == {"resample": 0, "fused_gradient": 0, "step2d": 0}  # CPU run
+    assert tsum["kernel_launches"] == {"resample": 0, "fused_gradient": 0, "step2d": 0,
+                                       "loop_tail": 0}  # CPU run
     assert tsum["device"] == "cpu"
 
 
@@ -156,7 +157,8 @@ def test_sharded_presets_match_jax(name, tmp_path):
     assert tsum["residual_after"] < tsum["residual_before"]
     np.testing.assert_allclose(tsum["max_abs_displacement"], jsum["max_abs_displacement"],
                                rtol=3e-4)
-    assert tsum["kernel_launches"] == {"resample": 0, "fused_gradient": 0, "step2d": 0}  # CPU run
+    assert tsum["kernel_launches"] == {"resample": 0, "fused_gradient": 0, "step2d": 0,
+                                       "loop_tail": 0}  # CPU run
 
 
 def test_main_list_and_cpu_config_run(tmp_path, capsys):
@@ -211,7 +213,8 @@ def test_multi_frame_summary_matches_jax(c4_runs):
     for key in ("frames", "dataset", "frames_processed"):
         assert tsum[key] == jsum[key], key
     assert tsum["frames_per_s"] > 0 and tsum["frames_per_s_incl_compile"] > 0
-    assert tsum["kernel_launches"] == {"resample": 0, "fused_gradient": 0, "step2d": 0}  # CPU run
+    assert tsum["kernel_launches"] == {"resample": 0, "fused_gradient": 0, "step2d": 0,
+                                       "loop_tail": 0}  # CPU run
     assert tsum["device"] == "cpu"
     np.testing.assert_allclose(tsum["max_abs_displacement"], jsum["max_abs_displacement"],
                                rtol=3e-4, atol=3e-6)
@@ -294,7 +297,8 @@ def test_2d_modes_match_jax(two_d_runs):
         assert json.load(f) == tsum
     assert set(tsum) == (set(jsum) - {"fast_paths", "contract_violations"}) | {
         "device", "kernel_launches"}
-    assert tsum["kernel_launches"] == {"resample": 0, "fused_gradient": 0, "step2d": 0}  # CPU run
+    assert tsum["kernel_launches"] == {"resample": 0, "fused_gradient": 0, "step2d": 0,
+                                       "loop_tail": 0}  # CPU run
     for key in ("iterations", "converged", "levels", "iterations_per_level"):
         assert tsum.get(key) == jsum.get(key), key
     for key in ("residual_before", "residual_after", "residual_reduction"):
@@ -331,7 +335,8 @@ def test_rigid_modes_match_jax(name, tmp_path):
     jsum = jrun(JPRESETS[name], str(tmp_path / "jax"))
     tsum = tcli.run_experiment(PRESETS[name], str(tmp_path / "torch"), device="cpu")
     assert set(tsum) == set(jsum) | {"device", "kernel_launches"}
-    assert tsum["kernel_launches"] == {"resample": 0, "fused_gradient": 0, "step2d": 0}
+    assert tsum["kernel_launches"] == {"resample": 0, "fused_gradient": 0, "step2d": 0,
+                                       "loop_tail": 0}
     np.testing.assert_array_equal(tsum["true_extrinsic"], jsum["true_extrinsic"])
     np.testing.assert_allclose(tsum["estimated_extrinsic"], jsum["estimated_extrinsic"],
                                rtol=0, atol=1e-4)

@@ -19,7 +19,6 @@ import torch
 
 from levelsetfusion_tpu.models import params as jparams
 from levelsetfusion_tpu.models.single_level import solve_single_level as jsolve
-from levelsetfusion_tpu.utils.config import PRESETS as JPRESETS
 from levelsetfusion_tpu_torch.models import params as tparams
 from levelsetfusion_tpu_torch.models import single_level
 from levelsetfusion_tpu_torch.models.single_level import SolveLoop, release_kept_loops
@@ -37,7 +36,7 @@ from levelsetfusion_tpu_torch.ops.kernels.resample import (
     warp_field_cm,
     warp_field_cm_reference,
 )
-from tests.torch_parity import assert_close, n, t, tsdf_like
+from torch_parity import assert_close, n, t, tsdf_like  # tests/ is on sys.path under pytest
 
 CONFIG3 = dict(
     learning_rate=0.5, smoothing_term_weight=0.1,
@@ -127,7 +126,17 @@ def test_solve_takes_2d_or_3d():
             SolveLoop(shape, tparams.SolverParams(), "cpu")
 
 
+def _jax_presets():
+    """The JAX package's presets, imported where a test uses them:
+    ``levelsetfusion_tpu.utils`` imports matplotlib, which the machine that
+    runs the card tests may lack, so the module keeps it out of collection."""
+    from levelsetfusion_tpu.utils.config import PRESETS
+
+    return PRESETS
+
+
 def test_solver_params_from_jax_drops_tpu_fields():
+    JPRESETS = _jax_presets()
     for name, cfg in JPRESETS.items():
         d = dataclasses.asdict(cfg.solver)
         got = tparams.solver_params_from_jax(d)
@@ -331,7 +340,10 @@ def test_each_thread_keeps_its_own_loop():
 def test_kept_loop_captures_once_on_the_card(tmp_path):
     """On the card the second call of one key replays the kept graph:
     no capture, ``captured_count`` unchanged, the first call's answer, also
-    from another stream than the first call's."""
+    from another stream than the first call's; its counters are the kept
+    loop's and its three replays' kernels and iterations."""
+    from levelsetfusion_tpu_torch.ops.kernels import loop_tail
+
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: CUDA is not available here")
     release_kept_loops()
@@ -339,12 +351,19 @@ def test_kept_loop_captures_once_on_the_card(tmp_path):
     (c, l, w), = _kept_pairs((32, 32, 24), (95,))
     c, l, w = c.cuda(), l.cuda(), w.cuda()
     first = tsolve(c, l, tp, w)
-    captured = (fused_gradient.captured_count, resample.captured_count)
+    kernels = (fused_gradient, resample, loop_tail)
+    captured = [m.captured_count for m in kernels]
+    loop = single_level.loop_for(tuple(c.shape), tp, c.device)
+    replays = loop.replays
     with torch.cuda.stream(torch.cuda.Stream()):
         again, counts, spans = _counted(lambda: tsolve(c, l, tp, w), tmp_path)
         torch.cuda.current_stream().synchronize()
-    assert (fused_gradient.captured_count, resample.captured_count) == captured
-    assert counts == {"solve.loop_kept": 1} and "lsf.solve.capture" not in spans
+    assert [m.captured_count for m in kernels] == captured
+    replays = loop.replays - replays
+    assert replays == 3 and loop.chunk_kernels == 4 * 16  # B1, B2's two, the tail
+    assert counts == {"solve.loop_kept": 1, "solve.graph_kernels": loop.chunk_kernels * replays,
+                      "solve.graph_iterations": 16 * replays}
+    assert "lsf.solve.capture" not in spans
     _assert_same(again, first)
     release_kept_loops()
 
@@ -398,6 +417,47 @@ def test_each_loop_brings_its_own_ticket(monkeypatch):
     with pytest.raises(ValueError, match="one int32"):
         fused_gradient_update(live, canonical, to_component_major(torch.zeros(6, 5, 4, 3)),
                               torch.tensor(0.1), ticket=torch.zeros(1))
+
+
+def test_3d_loop_calls_b1_b2_and_the_tail(monkeypatch):
+    """Every 3D iteration, frozen ones included, is B1, then B2 on B1's
+    warped field, then one ``loop_tail`` call on B2's stats with the loop's
+    flag and state buffers, in that order; the 2D step is not called."""
+    from levelsetfusion_tpu_torch.ops.kernels import loop_tail, step2d
+
+    events = []
+
+    def spy(name, real, pick):
+        def call(*args, **kw):
+            out = real(*args, **kw)
+            events.append((name, args, kw, pick(out)))
+            return out
+        return call
+
+    def refuse(*args, **kw):
+        raise AssertionError("a 3D iteration called the 2D step")
+
+    monkeypatch.setattr(single_level, "warp_field_cm",
+                        spy("b1", warp_field_cm, lambda out: out))
+    monkeypatch.setattr(single_level, "fused_gradient_update",
+                        spy("b2", fused_gradient_update, lambda out: out[1]))
+    monkeypatch.setattr(loop_tail, "loop_tail", spy("tail", loop_tail.loop_tail, lambda out: out))
+    monkeypatch.setattr(step2d, "step2d", refuse)
+    tp = _params(max_iterations=5, convergence_threshold=0.0)[1]
+    loop = SolveLoop((6, 5, 4), tp, "cpu", check_every=4)
+    canonical, live, warp = (t(x) for x in tsdf_like((6, 5, 4), 61))
+    res = loop.solve(canonical, live, warp)
+    assert res.iterations == 5
+    assert [e[0] for e in events] == ["b1", "b2", "tail"] * 8  # two chunks of 4
+    state = (loop.active, loop.rate, loop.prev_energy, loop.telemetry, loop.max_disp,
+             loop.max_update, loop.iteration, loop.active)
+    for b1, b2, tail in zip(events[0::3], events[1::3], events[2::3]):
+        assert b1[2]["active"] is loop.active and b2[2]["active"] is loop.active
+        assert b2[1][0] is b1[3]  # B2 takes B1's warped field
+        assert tail[1][0] is b2[3]  # the tail takes B2's stats
+        assert all(a is b for a, b in zip(tail[1][1:], state)) and len(tail[1]) == 9
+        assert tail[2] == dict(threshold=loop.threshold, voxels=6 * 5 * 4,
+                               adaptive=tp.adaptive_learning_rate)
 
 
 def test_loop_device_is_required():
@@ -477,7 +537,7 @@ def test_config1_preset_matches_jax():
     from levelsetfusion_tpu.cli import _grid as jgrid
     from levelsetfusion_tpu.cli import _pair_2d as jpair
 
-    cfg = JPRESETS["config1_2d_pair"]
+    cfg = _jax_presets()["config1_2d_pair"]
     canonical, live, _ = jpair(cfg, jgrid(cfg))
     want = jsolve(canonical, live, cfg.solver)
     got = tsolve(t(canonical), t(live), tparams.solver_params_from_jax(

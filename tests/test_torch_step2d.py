@@ -29,7 +29,7 @@ from levelsetfusion_tpu_torch.models import single_level
 from levelsetfusion_tpu_torch.models.params import SmoothingMode, SolverParams
 from levelsetfusion_tpu_torch.models.single_level import SolveLoop, fused_step_kwargs
 from levelsetfusion_tpu_torch.ops.gradient import energy_gradient
-from levelsetfusion_tpu_torch.ops.kernels import fused_gradient, resample, step2d
+from levelsetfusion_tpu_torch.ops.kernels import fused_gradient, loop_tail, resample, step2d
 from levelsetfusion_tpu_torch.ops.kernels.fused_gradient import sobolev_taps
 from levelsetfusion_tpu_torch.ops.kernels.resample import warp_field_cm
 from torch_parity import c_prototype, ctypes_kind, n  # tests/ is on sys.path under pytest
@@ -179,18 +179,25 @@ def test_argtypes_match_the_c_prototypes():
 
 def test_2d_loop_calls_the_step_and_nothing_else(monkeypatch):
     """Every 2D iteration, frozen ones included, is one ``step2d`` call with
-    the loop's flag, ticket and stats buffer; B1 and B2 are not called."""
-    calls = []
-    real = step2d.step2d
+    the loop's flag, ticket and stats buffer, then one ``loop_tail`` call on
+    the step's stats with the loop's flag and state buffers; B1 and B2 are
+    not called."""
+    calls, tails = [], []
+    real, real_tail = step2d.step2d, loop_tail.loop_tail
 
     def spy(*args, **kw):
         calls.append(kw)
         return real(*args, **kw)
 
+    def spy_tail(*args, **kw):
+        tails.append((len(calls), args))
+        return real_tail(*args, **kw)
+
     def refuse(*args, **kw):
         raise AssertionError("a 2D iteration called B1 or B2")
 
     monkeypatch.setattr(step2d, "step2d", spy)
+    monkeypatch.setattr(loop_tail, "loop_tail", spy_tail)
     monkeypatch.setattr(single_level, "warp_field_cm", refuse)
     monkeypatch.setattr(single_level, "fused_gradient_update", refuse)
     live, canonical, warp, _ = _inputs((10, 8))
@@ -201,6 +208,11 @@ def test_2d_loop_calls_the_step_and_nothing_else(monkeypatch):
     assert all(kw["active"] is loop.active and kw["ticket"] is loop.ticket
                and kw["stats"] is loop._stats and kw["partial"] is loop._partial
                for kw in calls)
+    state = (loop._stats, loop.active, loop.rate, loop.prev_energy, loop.telemetry,
+             loop.max_disp, loop.max_update, loop.iteration, loop.active)
+    assert [k for k, _ in tails] == list(range(1, 9))  # one tail after each step
+    assert all(len(args) == len(state) and all(a is b for a, b in zip(args, state))
+               for _, args in tails)
 
 
 # --- on the card -------------------------------------------------------------
@@ -261,22 +273,24 @@ def test_flag_off_leaves_the_buffers_on_the_card(shape):
     ((150, 130), "killing_ls", True)])
 def test_captured_chunk_replays_the_eager_loop(shape, terms, sobolev):
     """A captured chunk's replays give the eager loop's results exactly; the
-    capture records 16 launches of the step and none of B1 or B2, and each
-    replay adds them to ``launch_count``."""
+    capture records 16 launches of the step and of the loop tail and none of
+    B1 or B2, and each replay adds them to ``launch_count``."""
     dev = _card()
     p = _params(terms, sobolev, True, max_iterations=40, convergence_threshold=0.0)
     live, canonical, warp, _ = (a.to(dev) for a in _inputs(shape, seed=5))
     counts = lambda: [(m.launch_count, m.captured_count)  # noqa: E731
-                      for m in (step2d, resample, fused_gradient)]
+                      for m in (step2d, loop_tail, resample, fused_gradient)]
     eager = SolveLoop(shape, p, dev, graph=False).solve(canonical, live, warp.movedim(0, -1))
     before = counts()
     loop = SolveLoop(shape, p, dev)
     got = loop.solve(canonical, live, warp.movedim(0, -1))
     torch.cuda.synchronize()
     after = counts()
-    assert loop.graph_launches == {step2d: 16, resample: 0, fused_gradient: 0}
-    assert after[0] == (before[0][0] + 1 + 16 * loop.replays, before[0][1] + 16)  # + warm-up
-    assert after[1:] == before[1:] and loop.replays == 3
+    assert loop.graph_launches == {step2d: 16, resample: 0, fused_gradient: 0, loop_tail: 16}
+    for kernel in (0, 1):  # the step's and the tail's: + the warm-up
+        assert after[kernel] == (before[kernel][0] + 1 + 16 * loop.replays,
+                                 before[kernel][1] + 16)
+    assert after[2:] == before[2:] and loop.replays == 3
     assert got.iterations == eager.iterations == 40
     assert torch.equal(got.warp, eager.warp)
     for a, b in zip(got.telemetry, eager.telemetry):
