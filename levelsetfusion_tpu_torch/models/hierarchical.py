@@ -24,6 +24,7 @@ from levelsetfusion_tpu_torch.ops.tsdf import (
     generate_tsdf_2d,
     generate_tsdf_3d,
 )
+from levelsetfusion_tpu_torch.utils.profiling import span
 
 
 class HierarchicalResult(NamedTuple):
@@ -52,16 +53,17 @@ def build_pyramid_from_depth(
     gen = generate_tsdf_2d if grid.dim == 2 else generate_tsdf_3d
     fields, grids = [], []
     g = grid
-    for level in range(levels):
-        method = GenerationMethod.BASIC if level == 0 else coarse_method
-        fields.append(gen(depth, camera, g, narrow_band_width_voxels=narrow_band_width_voxels,
-                          method=method))
-        grids.append(g)
-        if level + 1 < levels:
-            # Halve the band width in voxels as voxels double in size, so the
-            # metric truncation distance is kept across levels.
-            narrow_band_width_voxels = max(narrow_band_width_voxels // 2, 2)
-            g = g.coarsened(2)
+    with span("lsf.pyramid"):
+        for level in range(levels):
+            method = GenerationMethod.BASIC if level == 0 else coarse_method
+            fields.append(gen(depth, camera, g,
+                              narrow_band_width_voxels=narrow_band_width_voxels, method=method))
+            grids.append(g)
+            if level + 1 < levels:
+                # Halve the band width in voxels as voxels double in size, so
+                # the metric truncation distance is kept across levels.
+                narrow_band_width_voxels = max(narrow_band_width_voxels // 2, 2)
+                g = g.coarsened(2)
     return fields[::-1], grids[::-1]
 
 
@@ -103,7 +105,9 @@ def _solve_over_pyramids(canon_pyr, live_pyr, params: HierarchicalParams,
         res = solve_single_level(canon_l, live_l, params.base, warp)
         results.append(res)
         if level + 1 < params.levels:
-            warp = pyramid.prolongate_warp(res.warp, target_shape=canon_pyr[level + 1].shape)
+            with span("lsf.prolongate"):
+                warp = pyramid.prolongate_warp(res.warp,
+                                               target_shape=canon_pyr[level + 1].shape)
         else:
             warp = res.warp
     return HierarchicalResult(warp=warp, level_results=results)

@@ -16,6 +16,8 @@ from typing import List
 import torch
 import torch.nn.functional as F
 
+from levelsetfusion_tpu_torch.utils.profiling import span
+
 
 def downsample2x_mean(field: torch.Tensor) -> torch.Tensor:
     """2× block-mean downsample of a scalar field (2D or 3D)."""
@@ -31,10 +33,11 @@ def downsample2x_mean(field: torch.Tensor) -> torch.Tensor:
 
 def build_pyramid(field: torch.Tensor, levels: int) -> List[torch.Tensor]:
     """Pyramid [coarsest, ..., finest] with ``levels`` entries."""
-    pyr = [field]
-    for _ in range(levels - 1):
-        pyr.append(downsample2x_mean(pyr[-1]))
-    return pyr[::-1]
+    with span("lsf.pyramid"):
+        pyr = [field]
+        for _ in range(levels - 1):
+            pyr.append(downsample2x_mean(pyr[-1]))
+        return pyr[::-1]
 
 
 def prolongate_warp(warp: torch.Tensor, target_shape=None) -> torch.Tensor:

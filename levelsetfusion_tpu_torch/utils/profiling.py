@@ -26,6 +26,11 @@
 The program's spans:
 
 - ``lsf.tsdf``: one TSDF generation, 2D or 3D;
+- ``lsf.pyramid``: one pyramid of a hierarchical solve,
+  ``models/hierarchical.py::build_pyramid_from_depth`` (holding its
+  levels' ``lsf.tsdf`` spans) or ``ops/pyramid.py::build_pyramid``;
+  ``lsf.prolongate``: one hand-off between levels,
+  ``hierarchical.py::_solve_over_pyramids``' ``prolongate_warp``;
 - ``lsf.solve``: one solve; inside it ``lsf.solve.capture`` (the CUDA
   graph's warm-up, capture and instantiation), ``lsf.solve.flag_read`` (a
   host read of the done flag) and ``lsf.solve.result_read``;

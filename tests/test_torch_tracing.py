@@ -2,7 +2,8 @@
 profiler running a span is one check and a shared no-op context and a count
 adds nothing; under ``torch.profiler`` each span appears where the program
 says it does (the solve loop, the fusion frame, the native prefetcher, the
-halo exchange, the 2D and 3D TSDF), ``spans()`` totals them,
+halo exchange, the 2D and 3D TSDF, a hierarchical solve's pyramids and
+hand-offs), ``spans()`` totals them,
 ``halo.bytes_sent`` counts the bytes handed to ``isend``, each graph replay
 adds its chunk's kernels and iterations (and its 2D steps, where it has
 them), and the CLI's ``--profile`` writes the counters into its summary."""
@@ -21,8 +22,12 @@ import torch
 from levelsetfusion_tpu_torch import cli
 from levelsetfusion_tpu_torch.core.grid import GridSpec
 from levelsetfusion_tpu_torch.io import depth, native_loader, synthetic
-from levelsetfusion_tpu_torch.models import fusion
-from levelsetfusion_tpu_torch.models.params import SmoothingMode, SolverParams
+from levelsetfusion_tpu_torch.models import fusion, hierarchical
+from levelsetfusion_tpu_torch.models.params import (
+    HierarchicalParams,
+    SmoothingMode,
+    SolverParams,
+)
 from levelsetfusion_tpu_torch.models.single_level import (
     CHECK_EVERY,
     SolveLoop,
@@ -204,6 +209,58 @@ def test_tsdf_2d_span(tmp_path):
     _, spans = _profiled(lambda: generate_tsdf_2d(torch.from_numpy(pair.live_depth),
                                                   pair.camera, grid), tmp_path)
     assert spans == {"lsf.tsdf": 1}
+
+
+def _intervals(prof, name):
+    """(start, end) ns of a stopped profiler's host events ``name``."""
+    out = []
+    for e in prof.profiler.kineto_results.events():
+        if e.name() == name:
+            out.append((e.start_ns(), e.start_ns() + e.duration_ns()))
+    return sorted(out)
+
+
+@pytest.mark.parametrize("pyramid_method", ["ewa_depth", "block_mean"])
+def test_hierarchical_pyramid_and_prolongate_spans(pyramid_method, tmp_path):
+    """A 2-level hierarchical 2D solve under the profiler: one ``lsf.pyramid``
+    a field, holding that pyramid's ``lsf.tsdf`` calls (one a level, from
+    depth), one ``lsf.prolongate`` a hand-off between levels; with no
+    profiler the solve records nothing."""
+    pair = synthetic.bump_wall_pair_2d(width=32, wall_depth=0.08, bump_height=0.008,
+                                       bump_radius_px=5.0, live_shift_px=2.0)
+    grid = GridSpec(shape=(16, 8), voxel_size=0.004, offset=(-8, 16))
+    hp = HierarchicalParams(levels=2, base=SolverParams(max_iterations=5, learning_rate=1.0,
+                                                        sobolev_smoothing=True))
+    rows = [torch.from_numpy(d) for d in (pair.canonical_depth, pair.live_depth)]
+
+    def solve():
+        if pyramid_method == "ewa_depth":
+            return hierarchical.solve_hierarchical_from_depth(*rows, pair.camera, grid, hp,
+                                                              narrow_band_width_voxels=8)
+        fields = [generate_tsdf_2d(r, pair.camera, grid, narrow_band_width_voxels=8)
+                  for r in rows]
+        return hierarchical.solve_hierarchical(*fields, hp)
+
+    release_kept_loops()
+    before = profiling.spans()
+    solve()
+    assert profiling.spans() == before  # no profiler: nothing recorded
+    with profiling.trace(str(tmp_path)) as prof:
+        solve()
+    spans = _spans(prof)
+    tsdfs = 2 * hp.levels if pyramid_method == "ewa_depth" else 2
+    assert spans["lsf.pyramid"] == 2 and spans["lsf.prolongate"] == hp.levels - 1
+    assert spans["lsf.tsdf"] == tsdfs and spans["lsf.solve"] == hp.levels
+    pyramids, inside = _intervals(prof, "lsf.pyramid"), collections.Counter()
+    for start, end in _intervals(prof, "lsf.tsdf"):
+        held = [i for i, (a, b) in enumerate(pyramids) if a <= start and end <= b]
+        inside[tuple(held)] += 1
+    if pyramid_method == "ewa_depth":
+        assert inside == {(0,): hp.levels, (1,): hp.levels}
+    else:  # the finest TSDFs are made before the block-mean pyramids
+        assert inside == {(): 2}
+    for start, end in _intervals(prof, "lsf.prolongate"):
+        assert not any(a <= start < b for a, b in pyramids + _intervals(prof, "lsf.solve"))
 
 
 SEQ = dict(num_frames=4, width=48, height=48, blob_radius_px=10.0, blob_height=0.05,
